@@ -2,10 +2,12 @@
 CUDA kernels for Hopper (sm_90a).
 
 The twin of the JAX package `atsc_tpu`, which stays the reference: the
-same public names, layouts and dtypes, held against it by the tests. The
-shared, JAX-free contract (`atsc_tpu.params`, `atsc_tpu.tables`,
-`atsc_tpu.runtime.io`) is imported, not copied. This package never imports
-JAX.
+same public names, layouts and dtypes, held against it by the tests. This
+package imports neither JAX nor anything of `atsc_tpu`. It keeps its own
+copy of the host-side contract: `params`, `tables/`, the shipped RRC taps
+(`spec/shipped_rrc.py`) and the IO runtime (`runtime/io.py`,
+`csrc/tsio.cpp`); tests/test_torch_isolation.py holds each copy equal to
+the reference and proves the isolation.
 
 Device rule: a CUDA tensor goes through the hand kernel, a CPU tensor
 through the kernel's plain PyTorch twin. There is no switch and no

@@ -1,20 +1,29 @@
-"""CLI frontend, encode path: MPEG-TS in -> baseband IQ out, on a CUDA
-device (or the CPU with --device cpu).
+"""CLI frontend: MPEG-TS in -> baseband IQ out (encode), and baseband IQ
+in -> MPEG-TS out (decode), on a CUDA device (or the CPU with --device
+cpu).
 
-Counterpart of the single-device encode loop of atsc_tpu/cli.py. Sinks:
-a file path, 'null' (discard; a throughput run) or '-' (stdout). cf32
-goes out as the reference's interleaved complex<float>; cs16/cs8 leave
-the kernel as packed wire lanes and are written verbatim.
+Counterpart of the single-device encode loop and the zf decode path of
+atsc_tpu/cli.py. Encode sinks: a file path, 'null' (discard; a throughput
+run) or '-' (stdout). cf32 goes out as the reference's interleaved
+complex<float>; cs16/cs8 leave the kernel as packed wire lanes and are
+written verbatim. Decode reads a capture in any of those formats that
+starts at the stream epoch; cs16/cs8 codes are uploaded as they are and
+dequantized inside the equalizer kernel.
 
 Usage:
   python -m atsc_tpu_torch.cli input.ts -o out.iq
   python -m atsc_tpu_torch.cli input.ts --channels 8 --format cs8 --stats
   python -m atsc_tpu_torch.cli a.ts b.ts -o out.iq        # one stream per channel
+  python -m atsc_tpu_torch.cli decode out.iq -o back.ts --stats
+  python -m atsc_tpu_torch.cli decode out.cs8 -c 8 --format cs8 -o back.ts
 
-Flags of the JAX CLI that this package does not have yet (--mesh, --mux,
---rate, --ppm, --checkpoint, --resume, --profile, --realtime, the soapy
-sink, the decode and analyze subcommands) stop with an error naming them;
-none is silently ignored.
+Flags of the JAX CLI that this package does not have yet (encode: --mesh,
+--mux, --rate, --ppm, --checkpoint, --resume, --profile, --realtime, the
+soapy sink; decode: --mesh, --demux, --sro, --rate, --cfo, --align,
+--resync, --equalizer other than zf, --trellis other than hard, --ntsc,
+--erasures, --checkpoint, --resume, --profile, the soapy source; the
+analyze subcommand) stop with an error naming them; none is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -25,10 +34,12 @@ import sys
 
 import numpy as np
 
-from atsc_tpu import params as P
-from atsc_tpu.runtime.io import IqSink, TsReader
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.models.encoder import Encoder
+from atsc_tpu_torch.models.receiver import IqReceiver
+from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE
+from atsc_tpu_torch.runtime.io import IqSink, TsReader
 from atsc_tpu_torch.utils.profiling import ThroughputMeter
 
 # flags of atsc_tpu.cli's encode path that are not ported yet
@@ -149,12 +160,148 @@ def run(input_paths, output: str = "null", channels: int = 1,
     return summary
 
 
+# decode flags of atsc_tpu.cli that are not ported yet, with the default
+# that means "not given" (--equalizer zf and --trellis hard are the path
+# this package runs)
+_DECODE_NOT_PORTED = {
+    "mesh": None, "demux": 0, "sro": "0", "rate": None, "cfo": "0",
+    "align": "none", "resync": "off", "equalizer": "zf", "trellis": "hard",
+    "ntsc": "off", "erasures": "off", "checkpoint": None, "resume": False,
+    "profile": None,
+}
+
+
+def build_decode_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="atsc_tpu_torch decode",
+        description="8VSB receiver (PyTorch + CUDA): baseband IQ -> MPEG-TS",
+    )
+    ap.add_argument("input", help="IQ capture ('-' = stdin) produced by the "
+                                  "encoder, starting at the stream epoch")
+    ap.add_argument("-o", "--output", default="-",
+                    help="TS output path or '-' (stdout); channels are "
+                         "interleaved per field (a '{ch}' template is not "
+                         "yet ported)")
+    ap.add_argument("-c", "--channels", type=int, default=1,
+                    help="channel count the capture was encoded with")
+    ap.add_argument("--format", dest="in_format", default="cf32",
+                    choices=("cf32", "cs16", "cs8"),
+                    help="IQ wire format of the capture")
+    ap.add_argument("--first-field", type=int, default=0,
+                    help="oscillator epoch (field index) of the stream start")
+    ap.add_argument("--eq-profile", default="auto",
+                    choices=("auto", "exact", "fast"),
+                    help="zf equalizer tier: 'exact' = +-256 taps in fp32 "
+                         "(golden regression), 'fast' = +-128 taps with bf16 "
+                         "operands (the default)")
+    ap.add_argument("--max-fields", type=int, default=0)
+    ap.add_argument("--stats", action="store_true",
+                    help="print a JSON decode summary to stderr")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: 'cuda' (default; fails without "
+                         "CUDA), 'cuda:N' or 'cpu'")
+    for name, default in _DECODE_NOT_PORTED.items():
+        flag = f"--{name}"
+        if isinstance(default, bool):
+            ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(flag, type=type(default) if default is not None else str,
+                            default=default, help=argparse.SUPPRESS)
+    return ap
+
+
+def _decode_not_ported(args) -> str:
+    """'' when args ask only for what this package runs, else the error."""
+    given = [f"--{n}" for n, d in _DECODE_NOT_PORTED.items()
+             if getattr(args, n) != d]
+    if args.input == "soapy" or args.input.startswith("soapy:"):
+        given.append("the soapy source")
+    if "{ch}" in args.output:
+        given.append("-o with '{ch}' (one TS file per channel)")
+    if given:
+        return f"decode {', '.join(given)}: not yet ported to atsc_tpu_torch"
+    return ""
+
+
+def run_decode(args) -> dict:
+    """Decode a capture (args from build_decode_argparser) to TS; returns
+    the summary (printed to stderr with --stats)."""
+    unported = _decode_not_ported(args)
+    if unported:
+        raise NotImplementedError(unported)
+    fmt, channels = args.in_format, args.channels
+    dev = resolve_device(args.device)
+    # cs16/cs8 codes are buffered and uploaded verbatim (2-4x less H2D
+    # traffic) and dequantized inside the equalizer kernel
+    codes_path = fmt in ("cs16", "cs8")
+    rx = IqReceiver(batch=channels, first_field=args.first_field,
+                    wire_format=fmt, eq_profile=args.eq_profile,
+                    measure_mer=args.stats, device=dev)
+    block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
+    fields = 0
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    fout = None
+    try:
+        fout = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
+
+        def emit(decoded) -> None:
+            nonlocal fields
+            for ts, _ in decoded:   # (B, 58656): one field, every channel
+                fout.write(ts.tobytes())
+                fields += 1
+
+        while True:
+            buf = fin.read(block)
+            if len(buf) < block:
+                if buf:
+                    print(f"warning: dropping {len(buf)}-byte partial field "
+                          "block at EOF", file=sys.stderr)
+                break
+            if codes_path:
+                codes = np.frombuffer(
+                    buf, dtype=np.int16 if fmt == "cs16" else np.int8)
+                emit(rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2)))
+            else:
+                iq = np.frombuffer(buf, dtype=np.float32).reshape(-1, 2)
+                iq = np.ascontiguousarray(iq).view(np.complex64)[:, 0]
+                emit(rx.push(iq.reshape(channels, P.SYMBOLS_PER_FIELD)))
+            if args.max_fields and fields >= args.max_fields:
+                break
+        if not args.max_fields or fields < args.max_fields:
+            emit(rx.flush())
+    finally:
+        if fin is not sys.stdin.buffer:
+            fin.close()
+        if fout is not None and fout is not sys.stdout.buffer:
+            fout.close()
+
+    summary = {
+        "fields_decoded": fields,
+        "segments_corrected": rx.decoder.segments_corrected,
+        "segments_uncorrectable": rx.decoder.segments_uncorrectable,
+        "device": str(dev),
+    }
+    if rx.mer is not None:
+        summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
+    if args.stats:
+        print(json.dumps(summary), file=sys.stderr)
+    return summary
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    if argv[:1] in (["decode"], ["analyze"]):
-        print(f"error: the {argv[0]} subcommand is not yet ported to "
+    if argv[:1] == ["analyze"]:
+        print("error: the analyze subcommand is not yet ported to "
               "atsc_tpu_torch", file=sys.stderr)
         return 2
+    if argv[:1] == ["decode"]:
+        ap = build_decode_argparser()
+        args = ap.parse_args(argv[1:])
+        unported = _decode_not_ported(args)
+        if unported:
+            ap.error(unported)
+        run_decode(args)
+        return 0
     if argv[:1] == ["encode"]:
         argv = argv[1:]
     ap = build_argparser()

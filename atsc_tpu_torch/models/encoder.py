@@ -25,8 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.oscillator import phasor_for_field
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.ops.assemble import assemble_field_structured
 from atsc_tpu_torch.ops.cuda.offset_fir import offset_fir_fused
@@ -35,6 +34,7 @@ from atsc_tpu_torch.ops.offset import advance_phasor
 from atsc_tpu_torch.ops.randomize import randomize_field
 from atsc_tpu_torch.ops.rs_encode import rs_encode_field
 from atsc_tpu_torch.ops.trellis import trellis_encode_field
+from atsc_tpu_torch.tables.oscillator import phasor_for_field
 
 
 class EncoderState(NamedTuple):

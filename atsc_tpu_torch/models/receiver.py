@@ -1,0 +1,440 @@
+"""IQ-domain 8VSB receiver: zero-forcing VSB equalizer + field decoder.
+
+Counterpart of atsc_tpu/models/receiver.py, the device ("zf") backend with
+hard-decision trellis decoding. It starts at the transmitted complex
+baseband and recovers transport-stream bytes:
+
+1. **Derotate** by the known oscillator (tables/oscillator.py, with the
+   reference's float32-argument phase quirk and the per-field phasor
+   drift). After derotation the chain is one stationary anti-causal
+   complex-tap FIR.
+2. **Zero forcing with conjugate combining.** The level sequence is real,
+   so every spectral bin is observed twice, through C(f) and conj(C(-f)),
+   and |C(f)|^2 + |C(-f)|^2 is flat by the RRC pair's root-Nyquist
+   complementarity. The least-squares combiner (`_equalizer_dft`) has a
+   compactly supported time response, so it collapses to two short real
+   FIRs on the planar I/Q (`_wl_eq_taps`):
+   lev = p (*) Re(u) + q (*) Im(u). The hand kernel csrc/eq_fir.cu
+   (ops/cuda/eq_fir.py) derotates, filters and slices in one pass.
+3. **Slice** to 3-bit symbols and feed models/decoder.py, whose RS stage
+   absorbs residual or noise-induced symbol errors.
+
+Scope: sample-synchronous loopback/monitoring with a known carrier epoch.
+The numpy and adaptive backends, soft/NTSC trellis tiers, erasures and
+resync are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from atsc_tpu_torch import params as P
+from atsc_tpu_torch import resolve_device
+from atsc_tpu_torch.models.decoder import Decoder
+from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN, eq_fir_fused
+from atsc_tpu_torch.ops.quantize import quantize_scale
+from atsc_tpu_torch.ops.slicer import ideal_levels, slice_symbols
+from atsc_tpu_torch.tables.oscillator import (
+    oscillator_table,
+    phase_increment,
+    phasor_for_field,
+)
+from atsc_tpu_torch.tables.rrc import rrc_taps
+
+_N = P.SYMBOLS_PER_FIELD
+_EQ_K = 256                # one-sided support of the full equalizer taps
+# samples past a field the receiver waits for before equalizing it (more
+# than the K <= 256 samples of right context a window's FIR reads)
+_DEV_MARGIN = 384
+
+
+@functools.lru_cache(maxsize=4)
+def _equalizer_dft(length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(weights w_a, w_b) with LEV = w_a*U + w_b*conj(flip(U)) on an FFT
+    grid of `length` bins (flip(X)[m] = X[-m mod L])."""
+    taps = rrc_taps().astype(np.float64)
+    ctil = taps * np.exp(1j * phase_increment() * np.arange(taps.size))
+    # anti-causal FIR u[i] = sum_k h[k] x[i+k]  =>  U(f) = H(-f) X(f)
+    a = np.conj(np.fft.fft(np.conj(ctil), length))
+    b = _flip(np.conj(a))  # conj(A(-f)), the mirrored observation's gain
+    den = np.abs(a) ** 2 + np.abs(b) ** 2
+    return np.conj(a) / den, np.conj(b) / den
+
+
+def _flip(x: np.ndarray) -> np.ndarray:
+    """X(f) -> X(-f) on the DFT grid (last axis)."""
+    return np.roll(x[..., ::-1], 1, axis=-1)
+
+
+def _oscillator_for_span(g0: int, g1: int, first_field: int) -> np.ndarray:
+    """Global quirky oscillator osc_g[g] = osc_table[g mod N] * phasor_k
+    for stream samples [g0, g1) (g counted from field `first_field`'s
+    start; negative g uses the pre-stream extrapolation)."""
+    osc = oscillator_table().astype(np.complex128)[:_N]
+    out = np.empty(g1 - g0, np.complex128)
+    g = g0
+    while g < g1:
+        k, i = divmod(g, _N)  # floor div: negative g lands in field k<0
+        n = min(g1 - g, _N - i)
+        out[g - g0 : g - g0 + n] = osc[i : i + n] * phasor_for_field(
+            first_field + k
+        )
+        g += n
+    return out
+
+
+#: receive accuracy tiers: profile -> (one-sided tap support K, exact).
+#: The taps decay geometrically: truncating at K=128 leaves a worst-case
+#: level error ~0.03 against the 1.0 decision margin, and bf16 operands add
+#: ~0.01-0.05. "exact" (K=256, fp32) is the golden-regression tier, "fast"
+#: (K=128, bf16 operands / f32 sums) the production one.
+EQ_PROFILES: dict[str, tuple[int, bool]] = {
+    "exact": (256, True),
+    "fast": (128, False),
+}
+DEFAULT_EQ_PROFILE = "fast"
+
+
+@functools.lru_cache(maxsize=4)
+def _wl_eq_taps(eq_k: int = _EQ_K) -> tuple[np.ndarray, np.ndarray]:
+    """(p, q) float32 forward-FIR taps of length 2K+1: tap j applies to
+    input sample i + j with the window already shifted by -K."""
+    length = 1 << 16
+    w_a, w_b = _equalizer_dft(length)
+    ga = np.fft.ifft(w_a)  # lev = ga (*) u + gb (*) conj(u), circular
+    gb = np.fft.ifft(w_b)
+    p = np.real(ga) + np.real(gb)
+    q = np.imag(gb) - np.imag(ga)
+    # circular kernel -> linear taps: lev[i] = sum_k g[(-k) mod L] u[i+k]
+    k = (eq_k - np.arange(2 * eq_k + 1)) % length
+    return p[k].astype(np.float32), q[k].astype(np.float32)
+
+
+def _profile(profile: str) -> tuple[int, bool]:
+    key = DEFAULT_EQ_PROFILE if profile == "auto" else profile
+    if key not in EQ_PROFILES:
+        raise ValueError(f"unknown eq profile {profile!r}")
+    return EQ_PROFILES[key]
+
+
+def eq_window_bounds(profile: str = "auto") -> tuple[int, int]:
+    """(lo_offset, length) of the equalizer's input window relative to the
+    field's first stream sample g0: request stream[g0 + lo_offset,
+    g0 + lo_offset + length) and the matching oscillator span. Always
+    (-K, WIN_LEN): the window starts at the first sample the K-support FIR
+    reads."""
+    eq_k, _ = _profile(profile)
+    return -eq_k, WIN_LEN
+
+
+def device_eq_step(soft: bool = False, dequant: float = 1.0,
+                   profile: str = "auto", soft_q: bool = False):
+    """The equalizer step for windows shaped per eq_window_bounds(profile):
+    (B, 2, WIN_LEN), (2, WIN_LEN) -> (B, 260416) int8 symbols / float32
+    soft levels (soft_q=True: int8 soft-level codes at SOFT_LEVEL_SCALE),
+    through the eq_fir kernel (its plain twin for CPU tensors)."""
+    eq_k, exact = _profile(profile)
+    return functools.partial(eq_fir_fused, eq_k=eq_k, soft=soft,
+                             dequant=dequant, exact=exact, soft_q=soft_q)
+
+
+def _osc_planar(lo: int, hi: int, first_field: int) -> np.ndarray:
+    """(2, hi-lo) float32 planar oscillator for stream span [lo, hi)."""
+    osc = _oscillator_for_span(lo, hi, first_field)
+    return np.stack(
+        [osc.real.astype(np.float32), osc.imag.astype(np.float32)]
+    )
+
+
+def field_window(
+    iq: np.ndarray, g0: int, first_field: int = 0, stream_offset: int = 0,
+    margin: int = _DEV_MARGIN, length: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Assemble one field's planar IQ window + matching oscillator span.
+
+    Returns (win (B, 2, L) float32, osc (2, L) float32) covering stream
+    samples [g0 - margin, g0 - margin + L) where L = length or
+    N + 2*margin; context missing from `iq` at either edge is zero-filled.
+    Pass margin/length from eq_window_bounds() to feed device_eq_step.
+    """
+    iq = np.atleast_2d(iq)
+    lo = g0 - margin
+    hi = lo + length if length is not None else g0 + _N + margin
+    avail_lo = max(lo, stream_offset)
+    avail_hi = min(hi, stream_offset + iq.shape[1])
+    win = np.zeros((iq.shape[0], 2, hi - lo), np.float32)
+    if avail_hi > avail_lo:
+        src = iq[:, avail_lo - stream_offset : avail_hi - stream_offset]
+        win[:, 0, avail_lo - lo : avail_hi - lo] = src.real
+        win[:, 1, avail_lo - lo : avail_hi - lo] = src.imag
+    return win, _osc_planar(lo, hi, first_field)
+
+
+class _PlanarStream:
+    """Chunked planar sample buffer for the streaming receiver (host).
+
+    Chunks are converted to planar float32 once on append and windows are
+    assembled with one bounded copy; nothing is ever re-concatenated. For
+    quantized wire formats (cs16/cs8) the stream holds the integer codes
+    verbatim (`dtype=int16/int8`, append_codes), so windows stay 2-4x
+    smaller all the way onto the device; the equalizer kernel dequantizes.
+    """
+
+    def __init__(self, batch: int, dtype: np.dtype = np.float32):
+        self.batch = batch
+        self.dtype = np.dtype(dtype)
+        self._chunks: list[np.ndarray] = []   # (B, 2, n) `dtype` each
+        self._starts: list[int] = []          # stream index of chunk start
+        self.base = 0   # trim watermark: reads below this are undefined
+        self.end = 0    # one past the last buffered stream index
+
+    def _check_batch(self, got: int) -> None:
+        if got != self.batch:
+            raise ValueError(
+                f"pushed batch {got} != receiver batch {self.batch}"
+            )
+
+    def append(self, iq: np.ndarray) -> None:
+        """iq: (B, n) or (n,) complex samples (float streams only)."""
+        if self.dtype.kind != "f":
+            raise ValueError("quantized stream wants push_codes(), "
+                             "not complex samples")
+        iq = np.atleast_2d(iq)
+        self._check_batch(iq.shape[0])
+        ch = np.empty((iq.shape[0], 2, iq.shape[1]), self.dtype)
+        ch[:, 0] = iq.real
+        ch[:, 1] = iq.imag
+        self._chunks.append(ch)
+        self._starts.append(self.end)
+        self.end += iq.shape[1]
+
+    def append_codes(self, codes: np.ndarray) -> None:
+        """codes: (B, n, 2) or (n, 2) integer wire samples (I, Q last),
+        dtype matching the stream exactly (no silent re-quantization)."""
+        codes = np.asarray(codes)
+        if codes.dtype != self.dtype:
+            raise ValueError(
+                f"codes dtype {codes.dtype} != stream dtype {self.dtype}"
+            )
+        if codes.ndim == 2:
+            codes = codes[None]
+        self._check_batch(codes.shape[0])
+        ch = np.ascontiguousarray(codes.transpose(0, 2, 1))
+        self._chunks.append(ch)
+        self._starts.append(self.end)
+        self.end += codes.shape[1]
+
+    def append_zeros(self, n: int) -> None:
+        """Insert n zero samples (a known-length gap in a live stream:
+        keeps field tracking aligned; the span decodes as noise)."""
+        if n <= 0:
+            return
+        self._chunks.append(np.zeros((self.batch, 2, n), self.dtype))
+        self._starts.append(self.end)
+        self.end += n
+
+    def window(self, lo: int, hi: int) -> np.ndarray:
+        """(B, 2, hi-lo) `dtype` covering stream span [lo, hi); samples
+        outside the buffered range are zero."""
+        out = np.zeros((self.batch, 2, hi - lo), self.dtype)
+        for s, ch in zip(self._starts, self._chunks):
+            e = s + ch.shape[-1]
+            a, b = max(lo, s), min(hi, e)
+            if b > a:
+                out[:, :, a - lo : b - lo] = ch[:, :, a - s : b - s]
+        return out
+
+    def trim(self, keep_from: int) -> None:
+        """Drop whole chunks entirely below stream index keep_from."""
+        while (self._chunks
+               and self._starts[0] + self._chunks[0].shape[-1] <= keep_from):
+            self._starts.pop(0)
+            self._chunks.pop(0)
+        self.base = max(self.base, min(keep_from, self.end))
+
+
+def equalize_field_device(
+    iq: np.ndarray, g0: int, first_field: int = 0, stream_offset: int = 0,
+    soft: bool = False, eq_profile: str = "auto", *,
+    device: str | torch.device,
+) -> torch.Tensor:
+    """Equalize one field starting at stream sample g0 of the complex
+    capture `iq` ((B, n), starting at stream sample stream_offset) on
+    `device`: (B, 260416) int8 hard symbols, or float32 soft levels with
+    soft=True, as a tensor on the device."""
+    dev = resolve_device(device)
+    lo_off, wlen = eq_window_bounds(eq_profile)
+    win, osc = field_window(iq, g0, first_field, stream_offset,
+                            margin=-lo_off, length=wlen)
+    step = device_eq_step(soft, profile=eq_profile)
+    return step(torch.from_numpy(win).to(dev), torch.from_numpy(osc).to(dev))
+
+
+def _mer_components_dev(levels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) signal power and (B,) residual-to-nearest-symbol power of a
+    soft level field, reduced on its device: only two scalars per channel
+    come back to the host."""
+    lev = levels[..., :_N].to(torch.float32)
+    x = lev - P.PILOT_OFFSET
+    ideal = ideal_levels(lev)
+    return (ideal ** 2).mean(dim=-1), ((x - ideal) ** 2).mean(dim=-1)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to atsc_tpu_torch")
+
+
+class IqReceiver:
+    """Streaming IQ -> TS: push complex baseband, collect decoded fields.
+
+    The device ("zf") backend with hard-decision trellis decoding, on
+    `device`. Assumes the stream begins at a field boundary with the
+    oscillator epoch of `first_field`. Emits (ts (B, 58656) uint8,
+    n_errors (B, 312) int32) host numpy per decoded field, with the
+    decoder's one-field interleaver latency; the first (pre-start) output
+    field is dropped internally, and its RS statistics are rolled back.
+
+    wire_format cs16/cs8: push_codes() buffers the integer codes verbatim;
+    the equalizer kernel dequantizes. measure_mer=True equalizes to soft
+    levels, accumulates the MER on the device, then slices.
+    """
+
+    def __init__(self, batch: int = 1, first_field: int = 0,
+                 backend: str = "device",
+                 trellis: str = "hard", erasures: str | None = None,
+                 wire_format: str = "cf32", eq_profile: str = "auto",
+                 ntsc: str | None = None, measure_mer: bool = False,
+                 resync: str | None = None, *, device: str | torch.device):
+        if backend not in ("device", "numpy", "adaptive", "adaptive-dd"):
+            raise ValueError(f"unknown equalizer backend {backend!r}")
+        if backend != "device":
+            raise _not_ported(f"backend {backend!r}")
+        if eq_profile != "auto" and eq_profile not in EQ_PROFILES:
+            raise ValueError(f"unknown eq profile {eq_profile!r}")
+        if trellis not in ("hard", "soft", "soft-i8"):
+            raise ValueError(f"unknown trellis mode {trellis!r}")
+        if trellis != "hard":
+            raise _not_ported(f"trellis {trellis!r}")
+        if erasures not in (None, "burst"):
+            raise ValueError(f"unknown erasure mode {erasures!r}")
+        if erasures is not None:
+            raise _not_ported(f"erasures {erasures!r}")
+        if ntsc not in (None, "comb", "auto"):
+            raise ValueError(f"unknown ntsc mode {ntsc!r}")
+        if ntsc is not None:
+            raise _not_ported(f"ntsc {ntsc!r}")
+        if resync not in (None, "auto"):
+            raise ValueError(f"unknown resync mode {resync!r}")
+        if resync is not None:
+            raise _not_ported(f"resync {resync!r}")
+        if wire_format not in ("cf32", "cs16", "cs8"):
+            raise ValueError(f"unknown wire format {wire_format!r}")
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.first_field = first_field
+        self.wire_format = wire_format
+        self.eq_profile = eq_profile
+        if wire_format == "cf32":
+            dequant, stream_dtype = 1.0, np.float32
+        else:
+            dequant = 1.0 / quantize_scale(wire_format)
+            stream_dtype = np.int16 if wire_format == "cs16" else np.int8
+        self.measure_mer = measure_mer
+        self._step = device_eq_step(measure_mer, dequant, eq_profile)
+        self._mer_sig = np.zeros(batch)   # accumulated signal power
+        self._mer_err = np.zeros(batch)   # accumulated residual power
+        self._mer_fields = 0
+        self._decoder = Decoder(batch=batch, device=self.device)
+        self._stream = _PlanarStream(batch, dtype=stream_dtype)
+        self._next_field = 0  # next un-equalized field (epoch-relative)
+        self._epoch = 0       # stream sample index of field 0
+        self._primed = False
+        self.fields_emitted = 0
+
+    @property
+    def decoder(self) -> Decoder:
+        return self._decoder
+
+    @property
+    def mer(self) -> np.ndarray | None:
+        """(B,) running modulation-error-ratio estimate in dB over every
+        equalized field so far; None until the first measured field
+        (enable with measure_mer=True)."""
+        if self._mer_fields == 0:
+            return None
+        return 10 * np.log10(
+            self._mer_sig / np.maximum(self._mer_err, 1e-30)
+        )
+
+    def _decode_available(self, final: bool) -> list[tuple[np.ndarray, np.ndarray]]:
+        out = []
+        lo_off, wlen = eq_window_bounds(self.eq_profile)
+        while True:
+            rel0 = self._next_field * _N
+            g0 = self._epoch + rel0
+            need = g0 + _N if final else g0 + _N + _DEV_MARGIN
+            if self._stream.end < need:
+                break
+            win = self._stream.window(g0 + lo_off, g0 + lo_off + wlen)
+            osc = _osc_planar(rel0 + lo_off, rel0 + lo_off + wlen,
+                              self.first_field)
+            field = self._step(torch.from_numpy(win).to(self.device),
+                               torch.from_numpy(osc).to(self.device))
+            if self.measure_mer:
+                sig, err = _mer_components_dev(field)
+                self._mer_sig += sig.cpu().numpy().astype(np.float64)
+                self._mer_err += err.cpu().numpy().astype(np.float64)
+                self._mer_fields += 1
+                field = slice_symbols(field)
+            corrected = self._decoder.segments_corrected
+            uncorrectable = self._decoder.segments_uncorrectable
+            ts, nerr = self._decoder.decode(field)
+            if self._primed:
+                out.append((ts, nerr))
+                self.fields_emitted += 1
+            else:
+                # the pre-start virtual field is discarded — roll its RS
+                # stats back so summaries reflect *emitted* fields only
+                self._decoder.segments_corrected = corrected
+                self._decoder.segments_uncorrectable = uncorrectable
+            self._primed = True
+            self._next_field += 1
+            # drop samples no window will touch again
+            self._stream.trim(
+                max(self._epoch + self._next_field * _N - _DEV_MARGIN, 0)
+            )
+        return out
+
+    def push(self, iq: np.ndarray) -> list[tuple[np.ndarray, np.ndarray]]:
+        """iq: (B, n) or (n,) complex samples. Returns newly decoded
+        fields (possibly empty)."""
+        self._stream.append(np.asarray(iq))
+        return self._decode_available(final=False)
+
+    def push_codes(self, codes: np.ndarray) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Quantized wire input: (B, n, 2) or (n, 2) int16/int8 I,Q codes
+        matching `wire_format`, stored and uploaded verbatim and
+        dequantized inside the equalizer kernel. Returns newly decoded
+        fields."""
+        if self.wire_format == "cf32":
+            raise ValueError("push_codes needs wire_format='cs16'/'cs8'")
+        self._stream.append_codes(codes)
+        return self._decode_available(final=False)
+
+    def notify_gap(self, n_samples: int) -> list[tuple[np.ndarray, np.ndarray]]:
+        """The source dropped exactly n_samples: insert that many zero
+        samples so field tracking stays aligned (the gap decodes as noise
+        and RS absorbs what it can). Returns newly decoded fields."""
+        if n_samples < 0:
+            raise ValueError(f"negative gap {n_samples}")
+        self._stream.append_zeros(n_samples)
+        return self._decode_available(final=False)
+
+    def flush(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        """End of stream: decode any complete buffered fields (the final
+        field sees no right context; its last ~112 symbols may need RS
+        correction)."""
+        return self._decode_available(final=True)

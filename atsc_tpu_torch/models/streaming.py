@@ -15,7 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.models.encoder import Encoder, iq_interleave
 
 SinkFn = Callable[[int, np.ndarray], None]  # (channel, iq (260416, 2))

@@ -1,8 +1,8 @@
 """PyTorch stage ops, each the twin of the same-named atsc_tpu.ops op.
 
 Every op is shaped (batch, ...) over independent 8VSB channels and runs
-on the device of its input; tables built by atsc_tpu.tables are copied to
-that device once.
+on the device of its input; tables built by atsc_tpu_torch.tables are
+copied to that device once.
 """
 
 from atsc_tpu_torch.ops.assemble import assemble_field_structured, field_levels

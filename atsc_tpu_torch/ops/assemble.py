@@ -16,9 +16,9 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.sync import RESERVED_START, sync_symbol_templates
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.sync import RESERVED_START, sync_symbol_templates
 
 
 @functools.lru_cache(maxsize=1)

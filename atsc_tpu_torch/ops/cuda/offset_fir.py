@@ -21,8 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.rrc import rrc_taps
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
 from atsc_tpu_torch.ops.assemble import field_levels
 from atsc_tpu_torch.ops.cuda import _build
@@ -36,6 +35,7 @@ from atsc_tpu_torch.ops.quantize import (
     quantize_scale,
 )
 from atsc_tpu_torch.ops.rrc_filter import rrc_filter_field
+from atsc_tpu_torch.tables.rrc import rrc_taps
 
 #: kernel launches in this process; callers may reset it to 0
 LAUNCHES = 0

@@ -13,9 +13,9 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.interleave import gather_tables
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.interleave import gather_tables
 
 
 @functools.lru_cache(maxsize=1)

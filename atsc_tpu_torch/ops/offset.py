@@ -14,8 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu.tables.oscillator import field_scale, oscillator_table
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.oscillator import field_scale, oscillator_table
 
 
 @functools.lru_cache(maxsize=1)

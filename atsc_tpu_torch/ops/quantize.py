@@ -18,8 +18,8 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.rrc import rrc_taps
+from atsc_tpu_torch import params as P
+from atsc_tpu_torch.tables.rrc import rrc_taps
 
 #: quantized integer full-scale per format (symmetric, avoids -qmax-1)
 QMAX = {"cs16": 32767, "cs8": 127}
@@ -77,3 +77,23 @@ def unpack_wire(packed: np.ndarray, fmt: str) -> np.ndarray:
     raw = np.ascontiguousarray(packed)
     pair = raw.view(np.dtype(NP_DTYPE[fmt])).reshape(*raw.shape, 2)
     return np.moveaxis(pair, -1, -2)
+
+
+# -- quantized soft levels (the receive-side throughput tier) -------------
+#
+# Levels span the +-8.25 constellation plus noise excursions; +-12 full
+# scale covers ~4 sigma of channel noise at the 12 dB threshold, and the
+# int8 LSB (0.094) adds ~0.027 rms, ~30 dB below threshold channel noise.
+
+SOFT_LEVEL_MAX = 12.0
+SOFT_LEVEL_SCALE = 127.0 / SOFT_LEVEL_MAX
+#: the dequantization multiplier (the soft Viterbi tier reads codes with it)
+SOFT_LEVEL_INV = SOFT_LEVEL_MAX / 127.0
+
+
+def quantize_soft_levels(lev: torch.Tensor) -> torch.Tensor:
+    """float32 equalized levels -> int8 codes at SOFT_LEVEL_SCALE
+    (round-half-even + clip; the plain twin of the equalizer kernel's
+    soft-code output)."""
+    s = torch.tensor(SOFT_LEVEL_SCALE, dtype=torch.float32, device=lev.device)
+    return torch.clamp(torch.round(lev * s), -127, 127).to(torch.int8)

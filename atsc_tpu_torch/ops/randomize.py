@@ -12,9 +12,9 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.randomizer import randomizer_table
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.randomizer import randomizer_table
 
 
 @functools.lru_cache(maxsize=1)

@@ -20,9 +20,9 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.rrc import rrc_taps
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.rrc import rrc_taps
 
 _BLK = 128
 
@@ -59,6 +59,54 @@ def banded_fir(x: torch.Tensor, n_out: int) -> torch.Tensor:
     x_lo = a[:, :nblk_out].reshape(-1, _BLK)
     x_hi = a[:, 1 : nblk_out + 1].reshape(-1, _BLK)
     out = x_lo @ const(_w_lo, x.device) + x_hi @ const(_w_hi, x.device)
+    return out.reshape(*lead, nblk_out * _BLK)[..., :n_out]
+
+
+def band_matrices_for(taps: np.ndarray) -> tuple[np.ndarray, ...]:
+    """Banded 128x128 float32 matrices W_s[m, r] = taps[s*128 + m - r] of an
+    arbitrary forward FIR out[i] = sum_k x[i+k] taps[k]: with the input
+    cut into 128-sample blocks A[j], out[j] = sum_s A[j+s] @ W_s."""
+    taps = np.ascontiguousarray(taps, dtype=np.float32)
+    n_taps = taps.size
+    n_bands = -(-(n_taps + _BLK - 1) // _BLK)
+    m = np.arange(_BLK)[:, None]
+    r = np.arange(_BLK)[None, :]
+    out = []
+    for s in range(n_bands):
+        k = s * _BLK + m - r
+        w = np.where((k >= 0) & (k < n_taps), taps[np.clip(k, 0, n_taps - 1)], 0.0)
+        out.append(w.astype(np.float32))
+    return tuple(out)
+
+
+def banded_fir_wl(
+    xr: torch.Tensor, xi: torch.Tensor, weights: torch.Tensor, n_out: int
+) -> torch.Tensor:
+    """Widely-linear two-plane FIR out[i] = sum_k xr[.., i+k] tr[k] +
+    xi[.., i+k] ti[k] as one (., 256) x (256, 128) product per band: the
+    receive equalizer's shape, both planes contracting into one real
+    output.
+
+    xr, xi: (..., n_in) with n_in >= n_out + len(taps) - 1; weights:
+    (bands, 256, 128) of the same dtype and device, rows 0:128 the real
+    plane's band matrix (band_matrices_for(tr)) and rows 128:256 the
+    imaginary plane's. Returns (..., n_out) in that dtype.
+    """
+    *lead, n_in = xr.shape
+    n_bands = weights.shape[0]
+    nblk_out = -(-n_out // _BLK)
+    nblk_in = nblk_out + n_bands - 1
+    pad = nblk_in * _BLK - n_in
+    if pad > 0:
+        xr = torch.nn.functional.pad(xr, (0, pad))
+        xi = torch.nn.functional.pad(xi, (0, pad))
+    ar = xr[..., : nblk_in * _BLK].reshape(-1, nblk_in, _BLK)
+    ai = xi[..., : nblk_in * _BLK].reshape(-1, nblk_in, _BLK)
+    out = None
+    for s in range(n_bands):
+        a2 = torch.cat([ar[:, s : s + nblk_out], ai[:, s : s + nblk_out]], dim=-1)
+        term = a2.reshape(-1, 2 * _BLK) @ weights[s]
+        out = term if out is None else out + term
     return out.reshape(*lead, nblk_out * _BLK)[..., :n_out]
 
 

@@ -19,9 +19,9 @@ import functools
 import numpy as np
 import torch
 
-from atsc_tpu import params as P
-from atsc_tpu.tables.galois import rs_bit_matrix
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.tables.galois import rs_bit_matrix
 
 _BIT_SHIFTS = np.arange(7, -1, -1, dtype=np.uint8)  # MSB-first bit order
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from atsc_tpu import params as P
+from atsc_tpu_torch import params as P
 
 
 def _byte_excl_scan(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

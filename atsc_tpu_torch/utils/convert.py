@@ -1,12 +1,13 @@
-"""Carry encoder state between the JAX package and this one.
+"""Carry encoder and decoder state between the JAX package and this one.
 
-The encoder has no weights (its constants are atsc_tpu.tables); what a
-stream carries is its EncoderState. Both packages use the same leaves,
-names, shapes and dtypes, so a stream started in one continues in the
-other and gives the same bytes:
+Neither model has weights (their constants are the tables); what a
+stream carries is its EncoderState or DecoderState. Both packages use the
+same leaves, names, shapes and dtypes, so a stream started in one
+continues in the other and gives the same bytes:
 
     leaves = {k: np.asarray(v) for k, v in jax_state._asdict().items()}
     state = state_from_numpy(leaves, device="cuda")
+    rx_state = decoder_state_from_numpy(jax_rx_leaves, device="cuda")
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from atsc_tpu_torch import resolve_device
+from atsc_tpu_torch.models.decoder import DecoderState, init_decoder_state
 from atsc_tpu_torch.models.encoder import EncoderState, init_state
 
 
@@ -42,4 +44,34 @@ def state_from_numpy(leaves: dict, device: str | torch.device) -> EncoderState:
 
 def state_to_numpy(state: EncoderState) -> dict:
     """EncoderState -> {leaf name: numpy array} on the host."""
+    return {k: v.cpu().numpy() for k, v in state._asdict().items()}
+
+
+def decoder_state_from_numpy(d: dict, device: str | torch.device) -> DecoderState:
+    """{leaf name: numpy array} -> DecoderState on `device`: a receive
+    stream begun in the JAX package goes on in this one with the same
+    bytes (the equalizer carries no state; its taps are tables). Raises on
+    a missing or extra leaf, or a dtype or shape other than
+    init_decoder_state's."""
+    dev = resolve_device(device)
+    if set(d) != set(DecoderState._fields):
+        raise ValueError(
+            f"decoder state leaves {sorted(d)} != {sorted(DecoderState._fields)}")
+    prev = np.asarray(d["prev_il"])
+    if prev.ndim != 2:
+        raise ValueError(f"decoder state leaf prev_il must be (B, 64584), got {prev.shape}")
+    ref = init_decoder_state(prev.shape[0], device="cpu")
+    out = {}
+    for name, want in ref._asdict().items():
+        arr = np.asarray(d[name])
+        if arr.dtype != want.numpy().dtype or arr.shape != tuple(want.shape):
+            raise ValueError(
+                f"decoder state leaf {name}: want {tuple(want.shape)} "
+                f"{want.numpy().dtype}, got {arr.shape} {arr.dtype}")
+        out[name] = torch.tensor(arr, device=dev)
+    return DecoderState(**out)
+
+
+def decoder_state_to_numpy(state: DecoderState) -> dict:
+    """DecoderState -> {leaf name: numpy array} on the host."""
     return {k: v.cpu().numpy() for k, v in state._asdict().items()}

@@ -8,7 +8,7 @@ import math
 import time
 from dataclasses import dataclass, field
 
-from atsc_tpu import params as P
+from atsc_tpu_torch import params as P
 
 
 @dataclass

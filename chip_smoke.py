@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's transmit main path once on one NVIDIA Hopper GPU.
+"""Drive the PyTorch port's transmit and receive main paths once on one
+NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,8 @@ Phases, one JSON line each; any failed check exits non-zero:
 
 1. device: name, compute capability (must be 9.0), nvidia-smi's name and
    power limit; TF32 is switched off for matmul and cuDNN.
-2. build: nvcc builds csrc/offset_fir.cu from this checkout; seconds and
-   ptxas' resource lines.
+2. build: nvcc builds csrc/offset_fir.cu and csrc/eq_fir.cu from this
+   checkout, both at once; seconds and ptxas' resource lines.
 3. kernel: offset_fir_fused against its plain PyTorch twin on the card at
    B=4 (random symbols plus golden field 0): cf32 <= 2e-6, cs16/cs8 planar
    and wire <= 1 LSB over the valid [0, 260416).
@@ -18,8 +19,31 @@ Phases, one JSON line each; any failed check exits non-zero:
 5. full size: Encoder(batch=384) for cf32, cs16 planar and cs8 wire: 3
    warm + 10 timed fields (CUDA events), channel 0 of the first timed
    field against the port's CPU path (<= 5e-6 / <= 1 LSB); then the
-   kernel against the plain twin at B=384 cf32, both timed.
-6. cli: atsc_tpu_torch.cli.main on a 12-field TS file, 4 channels, cs8.
+   kernel against the plain twin at B=384 cf32, both timed, and one
+   F.conv1d over the modulated planes (fp32, TF32 off) as the yardstick.
+6. cli: atsc_tpu_torch.cli.main on a 12-field TS file, 4 channels, cs8;
+   then `cli decode` of that capture back to the TS (stats line checked).
+7. eq_kernel: eq_fir_fused against its plain twin at B=4, fast and exact
+   tiers, f32/cs16/cs8 windows, hard/soft/soft-code outputs, on a clean
+   loopback window (the port's Encoder on golden input) and a random one:
+   soft <= 1e-4 (fast) / 1e-5 (exact); hard identical on the clean window
+   and, elsewhere, different only within 1e-4 of a decision boundary.
+8. golden_receive: IqReceiver(batch=1, device="cuda") decodes golden IQ to
+   golden["input"][0:3] exactly, one kernel launch per equalized field.
+9. receive_full: B=384 distinct random TS encoded on the card, field
+   windows cut on the card, the composed eq + decode_field + derandomize
+   step over 3 warm + 10 timed fields (CUDA events) for cf32, cs16 and
+   cs8 windows at the fast profile, every channel's TS byte-exact; then
+   the kernel against the plain twin in turns (fast, cf32), the exact tier
+   once, and F.conv1d over the derotated planes as the yardstick.
+10. noisy: B=8 AWGN loopback at 20 dB: the card's receiver returns the
+   sent TS with RS firing; the card's Decoder and the CPU Decoder agree on
+   codewords, n_errors and TS for the same noisy symbol fields.
+11. receive_host: IqReceiver(batch=384, device="cuda"), the receiver's
+   entry point, fed B=384 fields from host memory (cf32 by push, cs8 by
+   push_codes): host wall ms per pushed field over 4 fields, every
+   channel's TS byte-exact, one kernel launch per equalized field; and the
+   oscillator span and one window's host-to-card copy timed alone.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
@@ -28,6 +52,7 @@ printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -40,6 +65,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 B_FULL = 384        # channels of a headend batch: the middle of bench.py's grid
 WARM, TIMED = 3, 10
+B_NOISY = 8
+HOST_FIELDS = 4     # fields timed through IqReceiver at B_FULL
+NOISY_SNR_DB = 20.0  # IQ-domain AWGN: hard decisions err, RS corrects all
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
+FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -56,6 +87,29 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
+def timed(fn, reps: int = 10) -> float:
+    """Mean device ms of fn() over reps back-to-back calls, after one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "atsc_tpu_torch")):
         fail(f"no atsc_tpu_torch package beside {os.path.basename(__file__)}")
@@ -66,18 +120,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
 
-    from atsc_tpu import params as P
-    from atsc_tpu.tables.oscillator import phasor_for_field
     from atsc_tpu_torch import cli
+    from atsc_tpu_torch import params as P
     from atsc_tpu_torch.models.encoder import Encoder, iq_to_complex
     from atsc_tpu_torch.ops import (
+        apply_pilot_offset,
+        field_levels,
         interleave_field_enc_major,
         randomize_field,
         rs_encode_field,
     )
     from atsc_tpu_torch.ops.cuda import _build
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
     from atsc_tpu_torch.ops.cuda import offset_fir as fir
     from atsc_tpu_torch.ops.quantize import unpack_wire
+    from atsc_tpu_torch.tables.oscillator import phasor_for_field
+    from atsc_tpu_torch.tables.rrc import rrc_taps
 
     n_valid = P.SYMBOLS_PER_FIELD
     dev = torch.device("cuda", 0)
@@ -97,17 +155,22 @@ def main() -> int:
     emit("device", name=name, capability=list(cap),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
-    check(cap == (9, 0), f"compute capability {cap}, the kernel is built for sm_90a")
+    check(cap == (9, 0), f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together -------------------
     t0 = time.perf_counter()
-    built = _build.build("offset_fir")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {k: pool.submit(_build.build, k) for k in ("offset_fir", "eq_fir")}
+        builds = {k: f.result() for k, f in futures.items()}
     fir._kernel_lib(0)
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=round(built.seconds, 3), reused=built.seconds == 0.0,
-         library=os.path.relpath(built.path, REPO), ptxas=ptxas)
+    eqk._kernel_lib(0)
+    wall = time.perf_counter() - t0
+    for kname, built in builds.items():
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", kernel=kname, seconds=round(wall, 3),
+             nvcc_seconds=round(built.seconds, 3), reused=built.seconds == 0.0,
+             library=os.path.relpath(built.path, REPO), ptxas=ptxas)
 
     # -- 3. kernel against plain on the card ----------------------------------
     def code_err(got: torch.Tensor, want: torch.Tensor, fmt: str, wire: bool) -> int:
@@ -233,34 +296,37 @@ def main() -> int:
     launches_main = fir.LAUNCHES
     check(launches_main == 3 * n_fields,
           f"{launches_main} kernel launches for {3 * n_fields} encoded fields")
+    del ts_dev
 
-    # the kernel against the plain twin at B=384 cf32, in turns
+    # the kernel against the plain twin at B=384 cf32, in turns, and one
+    # cuDNN conv1d over the modulated planes (fp32, TF32 off) as the yardstick
     sym_full = torch.randint(0, 8, (B_FULL, P.PADDED_SYMBOLS), dtype=torch.int8,
                              device=dev, generator=torch.Generator(dev).manual_seed(7))
     ph_full = phasor[torch.arange(B_FULL, device=dev) % 4].contiguous()
-
-    def timed(fn, reps: int = 10) -> float:
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
 
     run_kernel = lambda: fir.offset_fir_fused(sym_full, ph_full)  # noqa: E731
     run_plain = lambda: fir.offset_fir_plain(sym_full, ph_full)   # noqa: E731
     p1, k1, k2, p2 = timed(run_plain), timed(run_kernel), timed(run_kernel), timed(run_plain)
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     err_full = float((run_kernel()[..., :n_valid] - run_plain()[..., :n_valid]).abs().max())
+    modulated = apply_pilot_offset(field_levels(sym_full), ph_full)[0].reshape(
+        2 * B_FULL, 1, P.PADDED_SYMBOLS)
+    taps = torch.tensor(rrc_taps()[: P.RRC_NTAPS].copy(), device=dev).reshape(1, 1, -1)
+    fir_conv_ms = timed(lambda: torch.nn.functional.conv1d(modulated, taps))
+    del modulated
+    # the valid work only: 260,416 outputs per channel, each reading 111
+    # symbols (padding is neither read nor computed in the bound)
+    fir_span = n_valid + P.RRC_NTAPS - 1
+    fir_bound, fir_bound_by = bound_ms(
+        B_FULL * fir_span + 2 * 4 * fir_span + B_FULL * 2 * 4 + B_FULL * 2 * n_valid * 4,
+        B_FULL * n_valid * 2 * P.RRC_NTAPS * 2, FP32_FLOP_PER_S)
     emit("kernel_vs_plain", batch=B_FULL, format="cf32", kernel_ms=[k1, k2],
-         plain_ms=[p1, p2], max_abs_err=err_full)
+         plain_ms=[p1, p2], library_ms=fir_conv_ms, library="F.conv1d fp32",
+         bound_ms=fir_bound, bound_by=fir_bound_by, max_abs_err=err_full)
     check(err_full <= 2e-6, f"B={B_FULL} cf32 kernel vs plain {err_full} > 2e-6")
     del sym_full
 
-    # -- 6. the CLI, in process -----------------------------------------------
+    # -- 6. the CLI, in process: encode, then decode what it wrote ------------
     cli_fields, cli_channels = 12, 4
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         ts_path = os.path.join(tmp, "in.ts")
@@ -280,35 +346,472 @@ def main() -> int:
         stats = json.loads(err_buf.getvalue().strip().splitlines()[-1])
         size = os.path.getsize(out_path)
         out = np.fromfile(out_path, dtype=np.int16, count=n_valid)  # field 0, ch 0
-    want_size = cli_fields * cli_channels * n_valid * 2
-    ref = Encoder(batch=1, out_format="cs8", wire=True, device="cpu")
-    want = ref.encode(ts_cli[:1])[0].numpy()[:n_valid]
-    cli_err = int(np.abs(unpack_wire(out, "cs8").astype(np.int32)
-                         - unpack_wire(want, "cs8").astype(np.int32)).max())
-    emit("cli", rc=rc, bytes=size, expected_bytes=want_size, wall_s=wall,
-         launches=launches_cli, err_vs_cpu_lsb=cli_err, stats=stats)
-    check(rc == 0, f"cli.main returned {rc}")
-    check(size == want_size, f"CLI wrote {size} bytes, expected {want_size}")
-    check(stats["fields"] == cli_fields * cli_channels and stats["ts_sync_errors"] == 0
-          and stats["device"] == str(dev), f"CLI stats line {stats}")
-    check(launches_cli == cli_fields, f"{launches_cli} launches for {cli_fields} CLI fields")
-    check(cli_err <= 1, f"CLI output vs CPU encoder: {cli_err} LSB > 1")
+        want_size = cli_fields * cli_channels * n_valid * 2
+        ref = Encoder(batch=1, out_format="cs8", wire=True, device="cpu")
+        want = ref.encode(ts_cli[:1])[0].numpy()[:n_valid]
+        cli_err = int(np.abs(unpack_wire(out, "cs8").astype(np.int32)
+                             - unpack_wire(want, "cs8").astype(np.int32)).max())
+        emit("cli", rc=rc, bytes=size, expected_bytes=want_size, wall_s=wall,
+             launches=launches_cli, err_vs_cpu_lsb=cli_err, stats=stats)
+        check(rc == 0, f"cli.main returned {rc}")
+        check(size == want_size, f"CLI wrote {size} bytes, expected {want_size}")
+        check(stats["fields"] == cli_fields * cli_channels and stats["ts_sync_errors"] == 0
+              and stats["device"] == str(dev), f"CLI stats line {stats}")
+        check(launches_cli == cli_fields, f"{launches_cli} launches for {cli_fields} CLI fields")
+        check(cli_err <= 1, f"CLI output vs CPU encoder: {cli_err} LSB > 1")
 
-    print(json.dumps({"kernels": [{
-        "name": "offset_fir_fused",
-        "route": "cuda",
-        "source": "atsc_tpu_torch/csrc/offset_fir.cu",
-        "replaces": "atsc_tpu/ops/pallas/offset_fir.py:148",
-        "launches": launches_main,
-        "max_abs_err": errs["cf32"],
-        "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        back_path = os.path.join(tmp, "back.ts")
+        eqk.LAUNCHES = 0
+        err_buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err_buf):
+            rc = cli.main(["decode", out_path, "--channels", str(cli_channels),
+                           "--format", "cs8", "-o", back_path, "--stats"])
+        wall = time.perf_counter() - t0
+        launches_dec = eqk.LAUNCHES
+        dstats = json.loads(err_buf.getvalue().strip().splitlines()[-1])
+        back = np.fromfile(back_path, dtype=np.uint8).reshape(-1, cli_channels,
+                                                               P.FIELD_TS_BYTES)
+    n_back = cli_fields - 1  # the interleaver keeps the last field
+    emit("cli_decode", rc=rc, fields=int(back.shape[0]), wall_s=wall,
+         launches=launches_dec, stats=dstats)
+    check(rc == 0, f"cli.main decode returned {rc}")
+    check(back.shape[0] == n_back and all(
+        np.array_equal(back[k, c], ts_cli[k]) for k in range(n_back)
+        for c in range(cli_channels)), "CLI decode TS != the encoded TS")
+    check(dstats["fields_decoded"] == n_back and dstats["segments_uncorrectable"] == 0
+          and dstats["device"] == str(dev) and len(dstats["mer_db"]) == cli_channels
+          and min(dstats["mer_db"]) > 30, f"CLI decode stats line {dstats}")
+    check(launches_dec == cli_fields, f"{launches_dec} eq launches for {cli_fields} fields")
+
+    # -- 7-10. the receive path -------------------------------------------------
+    eq_err = receive_kernel_vs_plain(golden, dev)
+    receive_golden(golden, dev)
+    rx = receive_full_size(dev)
+    receive_noisy(dev)
+    receive_host_path(dev)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "offset_fir_fused",
+            "route": "cuda",
+            "source": "atsc_tpu_torch/csrc/offset_fir.cu",
+            "replaces": "atsc_tpu/ops/pallas/offset_fir.py:148",
+            "launches": launches_main,
+            "max_abs_err": errs["cf32"],
+            "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": fir_bound,
+            "bound_by": fir_bound_by,
+            "library_ms": fir_conv_ms,
+        },
+        {
+            "name": "eq_fir_fused",
+            "route": "cuda",
+            "source": "atsc_tpu_torch/csrc/eq_fir.cu",
+            "replaces": "atsc_tpu/ops/pallas/eq_fir.py:137",
+            "launches": rx["launches"],
+            "max_abs_err": rx["max_abs_err"],
+            "max_abs_err_b4": eq_err,
+            "ms": rx["kernel_ms"],
+            "plain_ms": rx["plain_ms"],
+            "bound_ms": rx["bound_ms"],
+            "bound_by": rx["bound_by"],
+            "library_ms": rx["library_ms"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def _codes_of(win, fmt: str):
+    """Float windows -> the cs16/cs8 integer codes a capture would hold."""
+    import torch
+
+    from atsc_tpu_torch.ops.quantize import DTYPE, QMAX, quantize_scale
+
+    q = float(QMAX[fmt])
+    return torch.clamp(torch.round(win * quantize_scale(fmt)), -q, q).to(DTYPE[fmt])
+
+
+def _window(stream, g0: int, eq_k: int):
+    """(B, 2, WIN_LEN) window of a planar (B, 2, n) stream from stream sample
+    g0 - eq_k, zero-filled outside the stream, cut on the stream's device."""
+    import torch
+
+    from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN
+
+    lo, hi = g0 - eq_k, g0 - eq_k + WIN_LEN
+    a, b = max(lo, 0), min(hi, stream.shape[-1])
+    out = torch.zeros(stream.shape[:-1] + (WIN_LEN,), dtype=stream.dtype,
+                      device=stream.device)
+    out[..., a - lo : b - lo] = stream[..., a:b]
+    return out
+
+
+def _near_boundary(x, tol: float):
+    """Where x (decision units) lies within tol of a half-integer."""
+    return (x - x.floor() - 0.5).abs() < tol
+
+
+def receive_kernel_vs_plain(golden, dev) -> float:
+    """Phase 7: eq_fir_fused against eq_fir_plain at B=4 on the card.
+    Returns the largest soft-level error of the fast tier."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.models.receiver import EQ_PROFILES, _osc_planar
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_SCALE, quantize_scale
+
+    n = P.SYMBOLS_PER_FIELD
+    b = 4
+    # a clean loopback stream: 3 fields of golden input, channel c starting
+    # at golden field c, encoded on the card in each input format
+    ts = np.stack([golden["input"][[(c + f) % 4 for c in range(b)]] for f in range(3)])
+    streams = {}
+    for fmt in ("cf32", "cs16", "cs8"):
+        enc = Encoder(batch=b, out_format=fmt, device=dev)
+        streams[fmt] = torch.cat([enc.encode(ts[f])[..., :n] for f in range(3)], dim=-1)
+    gen = torch.Generator(dev).manual_seed(11)
+    noise = 0.2 * torch.randn((b, 2, 3 * n), generator=gen, device=dev)
+    tol = {"fast": 1e-4, "exact": 1e-5}
+    worst = {"fast": 0.0, "exact": 0.0}
+    mismatches = {}
+    for tier in ("fast", "exact"):
+        eq_k, exact = EQ_PROFILES[tier]
+        osc = torch.tensor(_osc_planar(n - eq_k, n - eq_k + eqk.WIN_LEN, 0), device=dev)
+        for fmt in ("cf32", "cs16", "cs8"):
+            dq = 1.0 if fmt == "cf32" else 1.0 / quantize_scale(fmt)
+            rand = noise if fmt == "cf32" else _codes_of(noise, fmt)
+            for wname, stream in (("clean", streams[fmt]), ("random", rand)):
+                win = _window(stream, n, eq_k)
+                kw = dict(eq_k=eq_k, dequant=dq, exact=exact)
+                soft_p = eqk.eq_fir_plain(win, osc, soft=True, **kw)
+                soft_k = eqk.eq_fir_fused(win, osc, soft=True, **kw)
+                err = float((soft_k - soft_p).abs().max())
+                worst[tier] = max(worst[tier], err)
+                check(err <= tol[tier], f"eq {tier} {fmt} {wname} soft {err} > {tol[tier]}")
+                for mode, scale, bias in (("hard", 0.5, 5.75), ("codes", SOFT_LEVEL_SCALE, 0.0)):
+                    soft_q = mode == "codes"
+                    got = eqk.eq_fir_fused(win, osc, soft=soft_q, soft_q=soft_q, **kw)
+                    want = eqk.eq_fir_plain(win, osc, soft=soft_q, soft_q=soft_q, **kw)
+                    check(got.dtype == torch.int8 and tuple(got.shape) == (b, n),
+                          f"eq {mode} output {tuple(got.shape)} {got.dtype}")
+                    diff = got != want
+                    near = _near_boundary((soft_p + bias) * scale, 1e-4 * scale)
+                    key = f"{tier}_{fmt}_{wname}_{mode}"
+                    mismatches[key] = int(diff.sum())
+                    check(int((got.int() - want.int()).abs().max()) <= 1,
+                          f"eq {key}: a code off by more than 1")
+                    check(not bool((diff & ~near).any()),
+                          f"eq {key}: mismatch away from a decision boundary")
+                    if wname == "clean" and mode == "hard":
+                        check(not bool(diff.any()), f"eq {key}: hard symbols differ")
+    torch.cuda.synchronize()
+    emit("eq_kernel", batch=b, max_abs_err_soft=worst, tolerance=tol,
+         mismatches={k: v for k, v in mismatches.items() if v})
+    return worst["fast"]
+
+
+def receive_golden(golden, dev) -> None:
+    """Phase 8: IqReceiver on the card decodes golden IQ exactly."""
+    import numpy as np
+
+    from atsc_tpu_torch.models.receiver import IqReceiver
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+
+    eqk.LAUNCHES = 0
+    rx = IqReceiver(batch=1, device=dev)
+    iq = golden["iq"][:4].reshape(1, -1)
+    out = rx.push(iq[:, :400_000]) + rx.push(iq[:, 400_000:]) + rx.flush()
+    launches = eqk.LAUNCHES
+    exact = len(out) == 3 and all(
+        np.array_equal(ts[0], golden["input"][k]) for k, (ts, _) in enumerate(out))
+    emit("golden_receive", fields_in=4, fields_out=len(out), ts_exact=exact,
+         launches=launches, segments_corrected=rx.decoder.segments_corrected)
+    check(exact, "golden IQ did not decode to golden input[0:3] on the card")
+    check(launches == 4, f"{launches} eq launches for 4 equalized fields")
+
+
+def receive_full_size(dev) -> dict:
+    """Phase 9: the receive main path at B=384, timed; then the kernel
+    against its plain twin, the exact tier and the conv1d yardstick."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import decode_field, init_decoder_state
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.models.receiver import (
+        EQ_PROFILES,
+        _osc_planar,
+        _wl_eq_taps,
+        device_eq_step,
+    )
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+    from atsc_tpu_torch.ops.decode import derandomize_field
+    from atsc_tpu_torch.ops.quantize import quantize_scale
+
+    n = P.SYMBOLS_PER_FIELD
+    eq_k, _ = EQ_PROFILES["fast"]
+    n_fields = WARM + TIMED          # fields equalized and decoded
+    n_enc = n_fields + 1             # the last window reads the next field
+    gen = torch.Generator(dev).manual_seed(2025)
+    ts = torch.randint(0, 256, (n_enc, B_FULL, P.FIELD_TS_BYTES), dtype=torch.uint8,
+                       device=dev, generator=gen)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    oscs = [torch.tensor(_osc_planar(k * n - eq_k, k * n - eq_k + eqk.WIN_LEN, 0),
+                         device=dev) for k in range(n_fields)]
+    result = {}
+    eqk.LAUNCHES = 0
+    keep = None
+    for fmt in ("cf32", "cs16", "cs8"):
+        enc = Encoder(batch=B_FULL, out_format=fmt, device=dev)
+        fields = [enc.encode(ts[k])[..., :n] for k in range(n_enc)]
+        del enc
+        wins = []
+        for k in range(n_fields):   # windows cut on the card
+            parts = [fields[k], fields[k + 1][..., : eqk.WIN_LEN - eq_k - n]]
+            left = (fields[k - 1][..., n - eq_k :] if k else
+                    torch.zeros_like(fields[0][..., :eq_k]))
+            wins.append(torch.cat([left, *parts], dim=-1))
+        del fields
+        dq = 1.0 if fmt == "cf32" else 1.0 / quantize_scale(fmt)
+        step = device_eq_step(False, dq, "fast")
+        state = init_decoder_state(B_FULL, device=dev)
+        outs, syns = [], []
+
+        def run(k):
+            nonlocal state
+            sym = step(wins[k], oscs[k])
+            state, cw, syn = decode_field(state, sym)
+            outs.append(derandomize_field(cw))
+            syns.append(syn)
+
+        for k in range(WARM):
+            run(k)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for k in range(WARM, n_fields):
+            run(k)
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / TIMED
+        peak = torch.cuda.max_memory_allocated(dev)
+        exact = all(torch.equal(outs[k], ts[k - 1]) for k in range(1, n_fields))
+        clean = not any(bool(syns[k].any()) for k in range(1, n_fields))
+        t_field = ms / 1e3
+        result[fmt] = {
+            "ms_per_field": ms,
+            "realtime_channels": B_FULL / (t_field * P.FIELD_RATE),
+            "max_memory_allocated": peak,
+            "step_memory_above_inputs": peak - base,
+            "ts_exact_all_channels": exact,
+            "syndromes_zero": clean,
+        }
+        emit("receive_full", batch=B_FULL, format=fmt, profile="fast",
+             timed_fields=TIMED, **result[fmt])
+        check(exact, f"B={B_FULL} {fmt}: decoded TS differs from the sent TS")
+        check(clean, f"B={B_FULL} {fmt}: non-zero syndromes on a clean loopback")
+        if fmt == "cf32":
+            keep = (wins[WARM], oscs[WARM])
+        del wins, outs, syns, state
+    launches = eqk.LAUNCHES
+    check(launches == 3 * n_fields,
+          f"{launches} eq launches for {3 * n_fields} equalized fields")
+    del ts
+
+    # the kernel against the plain twin (fast, cf32), in turns
+    win, osc = keep
+    run_kernel = lambda: eqk.eq_fir_fused(win, osc, eq_k=eq_k)  # noqa: E731
+    run_plain = lambda: eqk.eq_fir_plain(win, osc, eq_k=eq_k)   # noqa: E731
+    p1, k1, k2, p2 = timed(run_plain), timed(run_kernel), timed(run_kernel), timed(run_plain)
+    hard_same = bool(torch.equal(run_kernel(), run_plain()))
+    soft_err = float((eqk.eq_fir_fused(win, osc, eq_k=eq_k, soft=True)
+                      - eqk.eq_fir_plain(win, osc, eq_k=eq_k, soft=True)).abs().max())
+    # the exact tier once: its window starts 256 samples before the field,
+    # so the fast window shifts right and its first 128 samples are zero
+    ek, _ = EQ_PROFILES["exact"]
+    win_x = torch.cat([torch.zeros_like(win[..., : ek - eq_k]),
+                       win[..., : eqk.WIN_LEN - ek + eq_k]], dim=-1)
+    osc_x = torch.tensor(_osc_planar(WARM * n - ek, WARM * n - ek + eqk.WIN_LEN, 0), device=dev)
+    exact_ms = timed(lambda: eqk.eq_fir_fused(win_x, osc_x, eq_k=ek, exact=True))
+    exact_plain_ms = timed(lambda: eqk.eq_fir_plain(win_x, osc_x, eq_k=ek, exact=True), reps=3)
+    exact_err = float((eqk.eq_fir_fused(win_x, osc_x, eq_k=ek, exact=True, soft=True)
+                       - eqk.eq_fir_plain(win_x, osc_x, eq_k=ek, exact=True, soft=True)
+                       ).abs().max())
+    # one cuDNN conv1d over the derotated planes: bf16 for fast, fp32 (TF32
+    # off) for exact. It is a yardstick only; the port never calls it.
+    s = float(np.float32(1.0 / P.OSC_AMPLITUDE ** 2))
+
+    def derotated(w, o):
+        return torch.stack([(w[:, 0] * o[0] + w[:, 1] * o[1]) * s,
+                            (w[:, 1] * o[0] - w[:, 0] * o[1]) * s], dim=1)
+
+    def weight(k, dtype):
+        p, q = _wl_eq_taps(k)
+        return torch.tensor(np.stack([p, q])[None], device=dev).to(dtype)
+
+    u16 = derotated(win, osc).to(torch.bfloat16)
+    w16 = weight(eq_k, torch.bfloat16)
+    conv_ms = timed(lambda: torch.nn.functional.conv1d(u16, w16))
+    u32 = derotated(win_x, osc_x)
+    w32 = weight(ek, torch.float32)
+    conv_exact_ms = timed(lambda: torch.nn.functional.conv1d(u32, w32))
+    del u16, u32
+    def eq_bytes(k):
+        """The FIR reads n + 2K samples per plane of the window and the
+        oscillator and writes n int8 symbols per channel."""
+        span = n + 2 * k
+        return B_FULL * 2 * span * win.element_size() + 2 * span * 4 + B_FULL * n
+
+    fast_bound, fast_by = bound_ms(eq_bytes(eq_k),
+                                   B_FULL * n * 2 * (2 * eq_k + 1) * 2, BF16_FLOP_PER_S)
+    exact_bound, exact_by = bound_ms(eq_bytes(ek),
+                                     B_FULL * n * 2 * (2 * ek + 1) * 2, FP32_FLOP_PER_S)
+    emit("eq_kernel_vs_plain", batch=B_FULL, format="cf32", profile="fast",
+         kernel_ms=[k1, k2], plain_ms=[p1, p2], hard_identical=hard_same,
+         max_abs_err_soft=soft_err, library_ms=conv_ms, library="F.conv1d bf16",
+         bound_ms=fast_bound, bound_by=fast_by)
+    emit("eq_kernel_exact", batch=B_FULL, format="cf32", profile="exact",
+         kernel_ms=exact_ms, plain_ms=exact_plain_ms, max_abs_err_soft=exact_err,
+         library_ms=conv_exact_ms, library="F.conv1d fp32", bound_ms=exact_bound,
+         bound_by=exact_by)
+    check(hard_same, f"B={B_FULL}: kernel hard symbols differ from the plain twin")
+    check(soft_err <= 1e-4, f"B={B_FULL}: fast soft error {soft_err} > 1e-4")
+    check(exact_err <= 1e-5, f"B={B_FULL}: exact soft error {exact_err} > 1e-5")
+    return {"launches": launches, "max_abs_err": soft_err,
+            "kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": fast_bound, "bound_by": fast_by, "library_ms": conv_ms}
+
+
+def receive_noisy(dev) -> None:
+    """Phase 10: AWGN loopback at B=8: RS fires on the card, and the card's
+    Decoder agrees with the CPU's bit for bit."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import Decoder, decode_field, init_decoder_state
+    from atsc_tpu_torch.models.encoder import Encoder, iq_to_complex
+    from atsc_tpu_torch.models.receiver import IqReceiver, equalize_field_device
+    from atsc_tpu_torch.ops.rs_decode import rs_correct_field
+
+    n = P.SYMBOLS_PER_FIELD
+    rng = np.random.default_rng(8)
+    ts = rng.integers(0, 256, size=(4, B_NOISY, P.FIELD_TS_BYTES), dtype=np.uint8)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    enc = Encoder(batch=B_NOISY, device=dev)
+    iq = np.concatenate([iq_to_complex(enc.encode(ts[k])) for k in range(4)], axis=-1)
+    sig = np.sqrt(np.mean(np.abs(iq) ** 2))
+    noise = rng.normal(0, 1, iq.shape) + 1j * rng.normal(0, 1, iq.shape)
+    noisy = (iq + noise * sig * 10 ** (-NOISY_SNR_DB / 20) / np.sqrt(2)).astype(np.complex64)
+
+    rx = IqReceiver(batch=B_NOISY, measure_mer=True, device=dev)
+    out = rx.push(noisy) + rx.flush()
+    exact = len(out) == 3 and all(np.array_equal(t, ts[k]) for k, (t, _) in enumerate(out))
+
+    card, host = Decoder(batch=B_NOISY, device=dev), Decoder(batch=B_NOISY, device="cpu")
+    sc, sh = init_decoder_state(B_NOISY, device=dev), init_decoder_state(B_NOISY, device="cpu")
+    same = True
+    fired = 0
+    for k in range(2):
+        sym = equalize_field_device(noisy, k * n, device=dev)
+        tc, nc = card.decode(sym)
+        th, nh = host.decode(sym.cpu())
+        sc, cwc, sync = decode_field(sc, sym)
+        sh, cwh, synh = decode_field(sh, sym.cpu())
+        cwc, ncc = rs_correct_field(cwc, sync)
+        cwh, nch = rs_correct_field(cwh, synh)
+        same &= (np.array_equal(tc, th) and np.array_equal(nc, nh)
+                 and torch.equal(cwc.cpu(), cwh) and torch.equal(ncc.cpu(), nch))
+        fired += int((nc > 0).sum())
+    same &= np.array_equal(tc, ts[0])
+    emit("noisy", batch=B_NOISY, snr_db=NOISY_SNR_DB, ts_exact=exact,
+         segments_corrected=rx.decoder.segments_corrected,
+         segments_uncorrectable=rx.decoder.segments_uncorrectable,
+         mer_db=[round(float(v), 2) for v in rx.mer],
+         decoder_card_equals_cpu=same, decoder_segments_corrected=fired)
+    check(exact, "noisy loopback: the card's receiver did not return the sent TS")
+    check(rx.decoder.segments_corrected > 0, "noisy loopback: RS never fired")
+    check(same, "noisy field: the card's Decoder differs from the CPU Decoder")
+    check(fired > 0, "noisy field: no segment corrected at the decoder")
+
+
+def receive_host_path(dev) -> None:
+    """Phase 11: IqReceiver at B=384, fed from host memory as a capture
+    reader feeds it. Host wall time per pushed field covers the window
+    assembly, the oscillator span, the copy to the card, the device step
+    and the TS back to the host."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.models.receiver import IqReceiver, _osc_planar
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+
+    n = P.SYMBOLS_PER_FIELD
+    n_push = HOST_FIELDS + 2   # pushes 0 and 1 fill the one-field latency
+    gen = torch.Generator(dev).manual_seed(2026)
+    ts = torch.randint(0, 256, (n_push, B_FULL, P.FIELD_TS_BYTES), dtype=torch.uint8,
+                       device=dev, generator=gen)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    ts_host = ts.cpu().numpy()
+    for fmt in ("cf32", "cs8"):
+        enc = Encoder(batch=B_FULL, out_format=fmt, device=dev)
+        planar = [enc.encode(ts[k])[..., :n].cpu().numpy() for k in range(n_push)]
+        del enc
+        rx = IqReceiver(batch=B_FULL, wire_format=fmt, device=dev)
+        outs, walls = [], []
+        eqk.LAUNCHES = 0
+        for k in range(n_push):
+            x = planar[k]
+            if fmt == "cf32":      # what a cf32 reader hands over: complex64
+                x = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+            else:                  # and a cs8 reader: (B, n, 2) codes
+                x = np.ascontiguousarray(x.transpose(0, 2, 1))
+            planar[k] = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = rx.push(x) if fmt == "cf32" else rx.push_codes(x)
+            walls.append(time.perf_counter() - t0)
+            outs += [t for t, _ in got]
+            del x
+        outs += [t for t, _ in rx.flush()]
+        launches = eqk.LAUNCHES
+        exact = len(outs) == n_push - 1 and all(
+            np.array_equal(outs[k], ts_host[k]) for k in range(n_push - 1))
+        ms = float(np.mean(walls[2:])) * 1e3
+        # two of the host's parts, timed alone: the oscillator span (built
+        # in float64 on the host) and one window's pageable copy to the card
+        lo = (n_push - 1) * n - 128
+        t0 = time.perf_counter()
+        osc = _osc_planar(lo, lo + eqk.WIN_LEN, 0)
+        osc_ms = (time.perf_counter() - t0) * 1e3
+        win = np.ones((B_FULL, 2, eqk.WIN_LEN), np.float32 if fmt == "cf32" else np.int8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(win).to(dev)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        del win, osc, outs, rx
+        emit("receive_host", batch=B_FULL, format=fmt, profile="auto",
+             timed_fields=HOST_FIELDS, host_ms_per_field=ms,
+             realtime_channels=B_FULL / (ms / 1e3 * P.FIELD_RATE),
+             push_ms=[w * 1e3 for w in walls], osc_span_ms=osc_ms,
+             window_h2d_ms=h2d_ms, launches=launches, ts_exact_all_channels=exact)
+        check(exact, f"IqReceiver B={B_FULL} {fmt}: decoded TS differs from the sent TS")
+        check(launches == n_push, f"{launches} eq launches for {n_push} equalized fields")
 
 
 if __name__ == "__main__":

@@ -215,14 +215,17 @@ def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
 
 
 def test_cli_default_device_needs_cuda(tmp_path):
-    """The CLI defaults to CUDA and fails loudly where there is none."""
+    """The CLI defaults to CUDA and fails loudly where there is none, for
+    encode and decode alike; analyze is not ported and says so."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     ts_path = tmp_path / "in.ts"
     _random_ts(26, (1, P.FIELD_TS_BYTES)).tofile(ts_path)
     with pytest.raises(RuntimeError, match="cuda"):
         pt_cli.main([str(ts_path)])
-    assert pt_cli.main(["decode", str(ts_path)]) == 2
+    with pytest.raises(RuntimeError, match="cuda"):
+        pt_cli.main(["decode", str(ts_path)])
+    assert pt_cli.main(["analyze", str(ts_path)]) == 2
 
 
 def test_port_imports_no_jax():

@@ -1,0 +1,153 @@
+"""The PyTorch port stands alone: no module of atsc_tpu_torch (nor the
+on-card scripts) imports JAX or the JAX package, and every host-side table
+the port copied is equal, value and dtype, to the JAX package's."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "atsc_tpu_torch")
+_FORBIDDEN = ("jax", "jaxlib", "atsc_tpu")
+
+
+def _port_sources() -> list[str]:
+    out = []
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    out += [os.path.join(REPO, "chip_smoke.py"),
+            os.path.join(REPO, "tools", "torch_stage_budget.py")]
+    return sorted(os.path.relpath(p, REPO) for p in out)
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_no_jax_import_in_source(path):
+    """AST scan: no `import jax...`, `from jax... import`, or import of
+    the atsc_tpu package, anywhere in the file (function bodies too)."""
+    with open(os.path.join(REPO, path)) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_port_module_imports_with_jax_refused():
+    """A fresh interpreter refuses jax and atsc_tpu outright (a
+    sys.meta_path finder) and imports every module of the port."""
+    code = f"""
+import pkgutil, sys
+FORBIDDEN = {_FORBIDDEN!r}
+for k in list(sys.modules):
+    if k.split('.')[0] in FORBIDDEN:
+        del sys.modules[k]
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in FORBIDDEN:
+            raise ImportError('refused: ' + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, {REPO!r})
+import atsc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(atsc_tpu_torch.__path__, 'atsc_tpu_torch.')]
+for n in names:
+    __import__(n)
+assert not [k for k in sys.modules if k.split('.')[0] in FORBIDDEN]
+print(len(names), 'modules')
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 25, out.stdout
+
+
+def _params_cases():
+    from atsc_tpu import params as jp
+
+    return [f"params.{k}" for k in sorted(vars(jp)) if k.isupper()]
+
+
+_TABLE_CASES = [
+    "lfsr.pn511", "lfsr.pn63", "lfsr.lfsr_bits",
+    "galois.gf_tables", "galois.gf_mul", "galois.rs_generator_poly",
+    "galois.rs_encode_segment_np", "galois.rs_bit_matrix",
+    "randomizer.randomizer_table", "randomizer.randomize_field_np",
+    "interleave._scatter_table", "interleave.gather_tables",
+    "interleave.interleave_field_np",
+    "trellis_tables.commutator_gather", "trellis_tables.padded_field_gather",
+    "trellis_tables.encoder_stream_to_round_major",
+    "sync.field_sync_symbol_values", "sync.field_sync_symbols",
+    "sync.segment_sync_symbols", "sync.sync_templates",
+    "sync.sync_symbol_templates", "sync.RESERVED_START",
+    "rrc.rrc_taps", "spec.SHIPPED_RRC_TAPS",
+    "oscillator.phase_increment", "oscillator.oscillator_table",
+    "oscillator.field_scale", "oscillator.phasor_for_field",
+    "oscillator._phasor_replay_np",
+]
+
+
+def _call(mod, name: str, which: str):
+    """The value of table `name` from the JAX package (which='jax') or the
+    port, with the same seeded arguments for the functions that take any."""
+    import importlib
+
+    root = "atsc_tpu" if which == "jax" else "atsc_tpu_torch"
+    if mod == "params":
+        return getattr(importlib.import_module(f"{root}.params"), name)
+    if mod == "spec":
+        return getattr(importlib.import_module(f"{root}.spec.shipped_rrc"), name)
+    obj = getattr(importlib.import_module(f"{root}.tables.{mod}"), name)
+    if not callable(obj):
+        return obj
+    rng = np.random.default_rng(11)
+    args = {
+        "lfsr_bits": (0b1011, 3, 0b1101, 100),
+        "gf_mul": (rng.integers(0, 256, 300).astype(np.uint8),
+                   rng.integers(0, 256, 300).astype(np.uint8)),
+        "rs_encode_segment_np": (rng.integers(0, 256, 187).astype(np.uint8),),
+        "randomize_field_np": (rng.integers(0, 256, 58656).astype(np.uint8),),
+        "interleave_field_np": (rng.integers(0, 256, 64584).astype(np.uint8),
+                                rng.integers(0, 256, 64584).astype(np.uint8)),
+    }.get(name, ())
+    if name in ("phasor_for_field", "_phasor_replay_np"):
+        # 300 takes the native replay once it is verified, 5 the numpy loop
+        return [obj(k) for k in (0, 1, 5, 300)]
+    return obj(*args)
+
+
+def _assert_same(got, want, what):
+    if isinstance(want, (tuple, list)):
+        assert isinstance(got, (tuple, list)) and len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{what}[{i}]")
+        return
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype, what
+        assert np.array_equal(got, want), what
+        return
+    assert type(got) is type(want) and got == want, what
+
+
+@pytest.mark.parametrize("case", _params_cases() + _TABLE_CASES)
+def test_copied_contract_equals_jax_package(case):
+    mod, name = case.split(".", 1)
+    _assert_same(_call(mod, name, "port"), _call(mod, name, "jax"), case)
+
+
+def test_port_params_have_no_extra_names():
+    from atsc_tpu import params as jp
+    from atsc_tpu_torch import params as tp
+
+    assert ({k for k in vars(tp) if k.isupper()}
+            == {k for k in vars(jp) if k.isupper()})
