@@ -20,10 +20,11 @@ Usage:
 Flags of the JAX CLI that this package does not have yet (encode: --mesh,
 --mux, --rate, --ppm, --checkpoint, --resume, --profile, --realtime, the
 soapy sink; decode: --mesh, --demux, --sro, --rate, --cfo, --align,
---resync, --equalizer other than zf, --trellis other than hard, --ntsc,
+--resync, --equalizer other than zf, --viterbi-chunks other than 1,
 --erasures, --checkpoint, --resume, --profile, the soapy source; the
 analyze subcommand) stop with an error naming them; none is silently
-ignored.
+ignored. Decode runs the trellis tiers `--trellis hard|viterbi|viterbi-i8`
+and the NTSC comb `--ntsc off|comb|auto`.
 """
 
 from __future__ import annotations
@@ -161,14 +162,16 @@ def run(input_paths, output: str = "null", channels: int = 1,
 
 
 # decode flags of atsc_tpu.cli that are not ported yet, with the default
-# that means "not given" (--equalizer zf and --trellis hard are the path
-# this package runs)
+# that means "not given" (--equalizer zf and --viterbi-chunks 1 are the
+# path this package runs)
 _DECODE_NOT_PORTED = {
     "mesh": None, "demux": 0, "sro": "0", "rate": None, "cfo": "0",
-    "align": "none", "resync": "off", "equalizer": "zf", "trellis": "hard",
-    "ntsc": "off", "erasures": "off", "checkpoint": None, "resume": False,
-    "profile": None,
+    "align": "none", "resync": "off", "equalizer": "zf", "viterbi_chunks": 1,
+    "erasures": "off", "checkpoint": None, "resume": False, "profile": None,
 }
+
+#: CLI --trellis value -> IqReceiver trellis mode
+_TRELLIS_MODE = {"hard": "hard", "viterbi": "soft", "viterbi-i8": "soft-i8"}
 
 
 def build_decode_argparser() -> argparse.ArgumentParser:
@@ -194,6 +197,18 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                     help="zf equalizer tier: 'exact' = +-256 taps in fp32 "
                          "(golden regression), 'fast' = +-128 taps with bf16 "
                          "operands (the default)")
+    ap.add_argument("--trellis", default="hard", choices=tuple(_TRELLIS_MODE),
+                    help="'hard': slice symbols then invert the trellis "
+                         "algebraically; 'viterbi': soft-decision maximum-"
+                         "likelihood trellis decoding (~3.5 dB coding gain on "
+                         "noisy captures); 'viterbi-i8': the same on int8 "
+                         "soft-level codes from the equalizer kernel (no MER "
+                         "in --stats)")
+    ap.add_argument("--ntsc", default="off", choices=("off", "comb", "auto"),
+                    help="analog NTSC co-channel rejection: 12-symbol comb + "
+                         "16-state partial-response ML trellis decoding; "
+                         "'auto' lets the first field's slicer residuals "
+                         "decide (the comb costs ~3 dB against white noise)")
     ap.add_argument("--max-fields", type=int, default=0)
     ap.add_argument("--stats", action="store_true",
                     help="print a JSON decode summary to stderr")
@@ -201,7 +216,7 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
     for name, default in _DECODE_NOT_PORTED.items():
-        flag = f"--{name}"
+        flag = f"--{name.replace('_', '-')}"
         if isinstance(default, bool):
             ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
         else:
@@ -212,7 +227,7 @@ def build_decode_argparser() -> argparse.ArgumentParser:
 
 def _decode_not_ported(args) -> str:
     """'' when args ask only for what this package runs, else the error."""
-    given = [f"--{n}" for n, d in _DECODE_NOT_PORTED.items()
+    given = [f"--{n.replace('_', '-')}" for n, d in _DECODE_NOT_PORTED.items()
              if getattr(args, n) != d]
     if args.input == "soapy" or args.input.startswith("soapy:"):
         given.append("the soapy source")
@@ -234,9 +249,13 @@ def run_decode(args) -> dict:
     # cs16/cs8 codes are buffered and uploaded verbatim (2-4x less H2D
     # traffic) and dequantized inside the equalizer kernel
     codes_path = fmt in ("cs16", "cs8")
+    trellis = _TRELLIS_MODE[args.trellis]
     rx = IqReceiver(batch=channels, first_field=args.first_field,
-                    wire_format=fmt, eq_profile=args.eq_profile,
-                    measure_mer=args.stats, device=dev)
+                    trellis=trellis, wire_format=fmt, eq_profile=args.eq_profile,
+                    ntsc=None if args.ntsc == "off" else args.ntsc,
+                    # the i8 tier's int8 level codes cannot feed the MER
+                    # accumulator; --stats still reports everything else
+                    measure_mer=args.stats and trellis != "soft-i8", device=dev)
     block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
     fields = 0
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
@@ -281,6 +300,8 @@ def run_decode(args) -> dict:
         "segments_uncorrectable": rx.decoder.segments_uncorrectable,
         "device": str(dev),
     }
+    if args.ntsc != "off":
+        summary["ntsc_comb"] = rx.ntsc_active
     if rx.mer is not None:
         summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
     if args.stats:

@@ -13,12 +13,16 @@ returns the encoder's virtual all-zero pre-start field (drop it), exactly
 mirroring the encoder's zero-initialized interleaver buffer (reference
 src/atsc/atsc.cpp:34).
 
-The soft (Viterbi) and NTSC decoders, and RS erasure flags, are not
-ported yet.
+Two more tiers decode soft levels instead of sliced symbols, with the same
+latency: SoftDecoder (maximum-likelihood 4-state Viterbi, ops/viterbi.py,
+float32 levels or int8 soft-level codes) and NtscDecoder (12-symbol comb +
+16-state partial-response Viterbi, ops/ntsc.py). RS erasure flags and the
+chunk-parallel Viterbi are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -33,7 +37,13 @@ from atsc_tpu_torch.ops.decode import (
     enc_major_to_round_major,
     trellis_decode_field,
 )
+from atsc_tpu_torch.ops.ntsc import comb_field, init_pr_metrics, viterbi_pr_decode_field
 from atsc_tpu_torch.ops.rs_decode import rs_correct_field, syndrome_field
+from atsc_tpu_torch.ops.viterbi import (
+    _not_ported_chunks,
+    init_metrics,
+    viterbi_decode_field,
+)
 
 
 class DecoderState(NamedTuple):
@@ -64,11 +74,83 @@ def decode_field(
     """
     syms = decommutate_field(field)
     bytes_enc, z2_new = trellis_decode_field(syms, state.z2_prev)
-    cur_il = enc_major_to_round_major(bytes_enc)
-    rs = deinterleave_field(cur_il, state.prev_il)
-    codewords = rs.reshape(rs.shape[0], P.DATA_SEGMENTS, P.SEGMENT_FEC_BYTES)
-    syn = syndrome_field(codewords)
+    cur_il, codewords, syn = _rs_stage(bytes_enc, state.prev_il)
     return DecoderState(prev_il=cur_il, z2_prev=z2_new), codewords, syn
+
+
+def _rs_stage(bytes_enc: torch.Tensor, prev_il: torch.Tensor):
+    """Trellis bytes (B, 12, 5382) of field k -> (round-major interleaved
+    field k, codewords (B, 312, 207) of RS field k-1, syndromes)."""
+    cur_il = enc_major_to_round_major(bytes_enc)
+    rs = deinterleave_field(cur_il, prev_il)
+    codewords = rs.reshape(rs.shape[0], P.DATA_SEGMENTS, P.SEGMENT_FEC_BYTES)
+    return cur_il, codewords, syndrome_field(codewords)
+
+
+class SoftDecoderState(NamedTuple):
+    """Soft-path carried state: adds the Viterbi path metrics."""
+
+    prev_il: torch.Tensor   # (B, 64584) uint8
+    z2_prev: torch.Tensor   # (B, 12) int32
+    metrics: torch.Tensor   # (B, 12, 4) float32 trellis path metrics
+
+
+def init_soft_decoder_state(batch: int, *, device: str | torch.device) -> SoftDecoderState:
+    hard = init_decoder_state(batch, device=device)
+    return SoftDecoderState(prev_il=hard.prev_il, z2_prev=hard.z2_prev,
+                            metrics=init_metrics(batch, device=device))
+
+
+def soft_decode_field(
+    state: SoftDecoderState, levels: torch.Tensor, n_chunks: int = 1
+) -> tuple[SoftDecoderState, torch.Tensor, torch.Tensor]:
+    """Soft-decision twin of decode_field: maximum-likelihood trellis
+    decoding (ops/viterbi.py) instead of hard slicing, ~3.5 dB of coding
+    gain on noisy captures.
+
+    levels: (B, >=260416) float32 equalized soft levels (pilot offset
+    included, not sliced), or int8 soft-level codes at SOFT_LEVEL_SCALE,
+    which stay int8 through the decommutate gather and are dequantized in
+    the ACS. Same returns and latency as decode_field.
+    """
+    if levels.dtype != torch.int8:
+        levels = levels.to(torch.float32)
+    bytes_enc, z2_new, metrics = viterbi_decode_field(
+        decommutate_field(levels), state.z2_prev, state.metrics, n_chunks)
+    cur_il, codewords, syn = _rs_stage(bytes_enc, state.prev_il)
+    return SoftDecoderState(prev_il=cur_il, z2_prev=z2_new, metrics=metrics), codewords, syn
+
+
+class NtscDecoderState(NamedTuple):
+    """Comb-path carried state: 16-state partial-response path metrics."""
+
+    prev_il: torch.Tensor   # (B, 64584) uint8
+    z2_prev: torch.Tensor   # (B, 12) int32
+    metrics: torch.Tensor   # (B, 12, 16) float32 PR path metrics
+
+
+def init_ntsc_decoder_state(batch: int, *, device: str | torch.device) -> NtscDecoderState:
+    hard = init_decoder_state(batch, device=device)
+    return NtscDecoderState(prev_il=hard.prev_il, z2_prev=hard.z2_prev,
+                            metrics=init_pr_metrics(batch, device=device))
+
+
+def ntsc_decode_field(
+    state: NtscDecoderState, levels: torch.Tensor, n_chunks: int = 1
+) -> tuple[NtscDecoderState, torch.Tensor, torch.Tensor]:
+    """NTSC-rejection twin of soft_decode_field: 12-symbol comb filter +
+    16-state partial-response Viterbi (ops/ntsc.py), for captures with
+    analog co-channel interference, which the comb nulls at a ~3 dB
+    white-noise cost.
+
+    levels: (B, >=260416) float32 equalized soft levels (pilot offset
+    included, not sliced). Same returns and latency as decode_field.
+    """
+    y = decommutate_field(comb_field(levels.to(torch.float32)))
+    bytes_enc, z2_new, metrics = viterbi_pr_decode_field(
+        y, state.z2_prev, state.metrics, n_chunks)
+    cur_il, codewords, syn = _rs_stage(bytes_enc, state.prev_il)
+    return NtscDecoderState(prev_il=cur_il, z2_prev=z2_new, metrics=metrics), codewords, syn
 
 
 class Decoder:
@@ -78,6 +160,7 @@ class Decoder:
         self.device = resolve_device(device)
         self.batch = batch
         self._state = init_decoder_state(batch, device=self.device)
+        self._step = decode_field
         self.segments_corrected = 0
         self.segments_uncorrectable = 0
 
@@ -92,7 +175,8 @@ class Decoder:
     def decode(
         self, field, erasure_flags=None
     ) -> tuple[np.ndarray, np.ndarray]:
-        """(B, >=260416) int8 symbol field k (tensor or numpy) -> (ts
+        """(B, >=260416) int8 symbol field k (tensor or numpy; soft levels
+        for the soft and NTSC decoders) -> (ts
         (B, 58656) uint8 of field k-1, n_errors (B, 312) int32; -1 marks
         uncorrectable), both host numpy.
 
@@ -104,8 +188,7 @@ class Decoder:
                 "RS erasure flags are not yet ported to atsc_tpu_torch")
         if not isinstance(field, torch.Tensor):
             field = torch.as_tensor(np.asarray(field))
-        self._state, codewords, syn = decode_field(
-            self._state, field.to(self.device))
+        self._state, codewords, syn = self._step(self._state, field.to(self.device))
         n_errors = np.zeros((self.batch, P.DATA_SEGMENTS), dtype=np.int32)
         dirty = (syn != 0).any(dim=-1)
         if bool(dirty.any()):
@@ -115,3 +198,29 @@ class Decoder:
             self.segments_uncorrectable += int((n_errors < 0).sum())
         ts = derandomize_field(codewords).cpu().numpy()
         return ts, n_errors
+
+
+class SoftDecoder(Decoder):
+    """Decoder taking soft levels (float32, or int8 soft-level codes)
+    instead of sliced symbols: the trellis stage runs maximum-likelihood
+    (Viterbi), for noisy captures where hard slicing exceeds RS's
+    10-byte/segment budget."""
+
+    def __init__(self, batch: int = 1, viterbi_chunks: int = 1, *,
+                 device: str | torch.device):
+        _not_ported_chunks(viterbi_chunks)
+        super().__init__(batch, device=device)
+        self._state = init_soft_decoder_state(batch, device=self.device)
+        self._step = functools.partial(soft_decode_field, n_chunks=viterbi_chunks)
+
+
+class NtscDecoder(Decoder):
+    """Decoder for NTSC co-channel-impaired captures: soft levels in,
+    comb-filtered 15-level partial-response ML trellis decoding."""
+
+    def __init__(self, batch: int = 1, viterbi_chunks: int = 1, *,
+                 device: str | torch.device):
+        _not_ported_chunks(viterbi_chunks)
+        super().__init__(batch, device=device)
+        self._state = init_ntsc_decoder_state(batch, device=self.device)
+        self._step = functools.partial(ntsc_decode_field, n_chunks=viterbi_chunks)

@@ -1,8 +1,9 @@
 """IQ-domain 8VSB receiver: zero-forcing VSB equalizer + field decoder.
 
 Counterpart of atsc_tpu/models/receiver.py, the device ("zf") backend with
-hard-decision trellis decoding. It starts at the transmitted complex
-baseband and recovers transport-stream bytes:
+its trellis tiers: hard decisions, soft Viterbi on float32 levels or int8
+soft-level codes, and NTSC comb rejection. It starts at the transmitted
+complex baseband and recovers transport-stream bytes:
 
 1. **Derotate** by the known oscillator (tables/oscillator.py, with the
    reference's float32-argument phase quirk and the per-field phasor
@@ -17,24 +18,28 @@ baseband and recovers transport-stream bytes:
    lev = p (*) Re(u) + q (*) Im(u). The hand kernel csrc/eq_fir.cu
    (ops/cuda/eq_fir.py) derotates, filters and slices in one pass.
 3. **Slice** to 3-bit symbols and feed models/decoder.py, whose RS stage
-   absorbs residual or noise-induced symbol errors.
+   absorbs residual or noise-induced symbol errors; or, with
+   trellis="soft"/"soft-i8" or ntsc="comb"/"auto", keep the soft levels
+   for the maximum-likelihood decoders (SoftDecoder, NtscDecoder).
 
 Scope: sample-synchronous loopback/monitoring with a known carrier epoch.
-The numpy and adaptive backends, soft/NTSC trellis tiers, erasures and
-resync are not ported yet and raise.
+The numpy and adaptive backends, erasures, resync and the chunk-parallel
+Viterbi are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
-from atsc_tpu_torch.models.decoder import Decoder
+from atsc_tpu_torch.models.decoder import Decoder, NtscDecoder, SoftDecoder
 from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN, eq_fir_fused
+from atsc_tpu_torch.ops.ntsc import detect_ntsc
 from atsc_tpu_torch.ops.quantize import quantize_scale
 from atsc_tpu_torch.ops.slicer import ideal_levels, slice_symbols
 from atsc_tpu_torch.tables.oscillator import (
@@ -290,69 +295,108 @@ def _not_ported(what: str) -> NotImplementedError:
 class IqReceiver:
     """Streaming IQ -> TS: push complex baseband, collect decoded fields.
 
-    The device ("zf") backend with hard-decision trellis decoding, on
-    `device`. Assumes the stream begins at a field boundary with the
-    oscillator epoch of `first_field`. Emits (ts (B, 58656) uint8,
-    n_errors (B, 312) int32) host numpy per decoded field, with the
-    decoder's one-field interleaver latency; the first (pre-start) output
-    field is dropped internally, and its RS statistics are rolled back.
+    The device ("zf") backend on `device`. Assumes the stream begins at a
+    field boundary with the oscillator epoch of `first_field`. Emits (ts
+    (B, 58656) uint8, n_errors (B, 312) int32) host numpy per decoded
+    field, with the decoder's one-field interleaver latency; the first
+    (pre-start) output field is dropped internally, and its RS statistics
+    are rolled back.
 
+    trellis: "hard" slices the equalized levels; "soft" decodes float32
+    levels by maximum likelihood (Viterbi); "soft-i8" the same on int8
+    soft-level codes straight out of the equalizer kernel. ntsc: "comb"
+    decodes through the 12-symbol comb and the 16-state partial-response
+    Viterbi; "auto" lets the first field's levels vote per channel
+    (detect_ntsc, `ntsc_votes`) and engages the comb (`ntsc_active`) when a
+    majority wants it, warning on stderr when the channels disagree.
     wire_format cs16/cs8: push_codes() buffers the integer codes verbatim;
-    the equalizer kernel dequantizes. measure_mer=True equalizes to soft
-    levels, accumulates the MER on the device, then slices.
+    the equalizer kernel dequantizes. measure_mer=True accumulates the MER
+    of the equalized levels on the device.
     """
 
     def __init__(self, batch: int = 1, first_field: int = 0,
                  backend: str = "device",
                  trellis: str = "hard", erasures: str | None = None,
                  wire_format: str = "cf32", eq_profile: str = "auto",
-                 ntsc: str | None = None, measure_mer: bool = False,
+                 ntsc: str | None = None, viterbi_chunks: int = 1,
+                 measure_mer: bool = False,
                  resync: str | None = None, *, device: str | torch.device):
+        # the JAX package's validation, in its order
         if backend not in ("device", "numpy", "adaptive", "adaptive-dd"):
             raise ValueError(f"unknown equalizer backend {backend!r}")
-        if backend != "device":
-            raise _not_ported(f"backend {backend!r}")
         if eq_profile != "auto" and eq_profile not in EQ_PROFILES:
             raise ValueError(f"unknown eq profile {eq_profile!r}")
         if trellis not in ("hard", "soft", "soft-i8"):
             raise ValueError(f"unknown trellis mode {trellis!r}")
-        if trellis != "hard":
-            raise _not_ported(f"trellis {trellis!r}")
+        if trellis == "soft-i8":
+            # the quantized-levels tier moves int8 codes end to end; the
+            # float-level consumers cannot read them
+            if measure_mer or erasures is not None or ntsc is not None:
+                raise ValueError("trellis='soft-i8' is the quantized "
+                                 "throughput tier: incompatible with "
+                                 "measure_mer/erasures/ntsc (they consume "
+                                 "float levels) — use trellis='soft'")
+            if backend != "device":
+                raise ValueError("trellis='soft-i8' needs the device "
+                                 "equalizer backend (the quantization "
+                                 "happens in its kernel)")
         if erasures not in (None, "burst"):
             raise ValueError(f"unknown erasure mode {erasures!r}")
-        if erasures is not None:
-            raise _not_ported(f"erasures {erasures!r}")
         if ntsc not in (None, "comb", "auto"):
             raise ValueError(f"unknown ntsc mode {ntsc!r}")
-        if ntsc is not None:
-            raise _not_ported(f"ntsc {ntsc!r}")
-        if resync not in (None, "auto"):
-            raise ValueError(f"unknown resync mode {resync!r}")
-        if resync is not None:
-            raise _not_ported(f"resync {resync!r}")
+        if ntsc is not None and erasures is not None:
+            raise ValueError("ntsc rejection and burst erasures are "
+                             "mutually exclusive (the burst detector "
+                             "assumes the plain 8-level slicer)")
         if wire_format not in ("cf32", "cs16", "cs8"):
             raise ValueError(f"unknown wire format {wire_format!r}")
+        if resync not in (None, "auto"):
+            raise ValueError(f"unknown resync mode {resync!r}")
+        if backend != "device":
+            raise _not_ported(f"backend {backend!r}")
+        if erasures is not None:
+            raise _not_ported(f"erasures {erasures!r}")
+        if resync is not None:
+            raise _not_ported(f"resync {resync!r}")
+        if viterbi_chunks > 1:
+            raise _not_ported(f"viterbi_chunks={viterbi_chunks} (the chunk-parallel Viterbi)")
         self.device = resolve_device(device)
         self.batch = batch
         self.first_field = first_field
+        self.trellis = trellis
         self.wire_format = wire_format
         self.eq_profile = eq_profile
         if wire_format == "cf32":
-            dequant, stream_dtype = 1.0, np.float32
+            self._dequant, stream_dtype = 1.0, np.float32
         else:
-            dequant = 1.0 / quantize_scale(wire_format)
+            self._dequant = 1.0 / quantize_scale(wire_format)
             stream_dtype = np.int16 if wire_format == "cs16" else np.int8
+        self.ntsc = ntsc
+        self.viterbi_chunks = viterbi_chunks
         self.measure_mer = measure_mer
-        self._step = device_eq_step(measure_mer, dequant, eq_profile)
+        self.ntsc_votes: np.ndarray | None = None
         self._mer_sig = np.zeros(batch)   # accumulated signal power
         self._mer_err = np.zeros(batch)   # accumulated residual power
         self._mer_fields = 0
-        self._decoder = Decoder(batch=batch, device=self.device)
+        # "auto" decides from the first field's levels (detect_ntsc),
+        # before any decoder state exists, then sticks
+        self._ntsc_pending = ntsc == "auto"
+        self.ntsc_active = ntsc == "comb"
+        self._decoder = self._make_decoder()
         self._stream = _PlanarStream(batch, dtype=stream_dtype)
         self._next_field = 0  # next un-equalized field (epoch-relative)
         self._epoch = 0       # stream sample index of field 0
         self._primed = False
         self.fields_emitted = 0
+
+    def _make_decoder(self) -> Decoder:
+        if self.ntsc_active:
+            return NtscDecoder(batch=self.batch, viterbi_chunks=self.viterbi_chunks,
+                               device=self.device)
+        if self.trellis.startswith("soft"):
+            return SoftDecoder(batch=self.batch, viterbi_chunks=self.viterbi_chunks,
+                               device=self.device)
+        return Decoder(batch=self.batch, device=self.device)
 
     @property
     def decoder(self) -> Decoder:
@@ -381,14 +425,33 @@ class IqReceiver:
             win = self._stream.window(g0 + lo_off, g0 + lo_off + wlen)
             osc = _osc_planar(rel0 + lo_off, rel0 + lo_off + wlen,
                               self.first_field)
-            field = self._step(torch.from_numpy(win).to(self.device),
-                               torch.from_numpy(osc).to(self.device))
+            soft = self.trellis.startswith("soft")
+            want_levels = (soft or self._ntsc_pending or self.ntsc_active
+                           or self.measure_mer)
+            step = device_eq_step(want_levels, self._dequant, self.eq_profile,
+                                  soft_q=self.trellis == "soft-i8")
+            field = step(torch.from_numpy(win).to(self.device),
+                         torch.from_numpy(osc).to(self.device))
             if self.measure_mer:
                 sig, err = _mer_components_dev(field)
                 self._mer_sig += sig.cpu().numpy().astype(np.float64)
                 self._mer_err += err.cpu().numpy().astype(np.float64)
                 self._mer_fields += 1
-                field = slice_symbols(field)
+            if self._ntsc_pending:
+                self._ntsc_pending = False
+                votes = detect_ntsc(field, per_channel=True)
+                self.ntsc_votes = votes
+                if 0 < votes.sum() < votes.size:
+                    print("warning: ntsc auto-detection disagrees across "
+                          f"channels ({int(votes.sum())}/{votes.size} want "
+                          "the comb); the decode mode is batch-global — "
+                          "majority wins (split the batch to mix modes)",
+                          file=sys.stderr)
+                if votes.mean() > 0.5:
+                    self.ntsc_active = True
+                    self._decoder = self._make_decoder()
+            if not soft and want_levels and not self.ntsc_active:
+                field = slice_symbols(field)   # the hard decoder wants symbols
             corrected = self._decoder.segments_corrected
             uncorrectable = self._decoder.segments_uncorrectable
             ts, nerr = self._decoder.decode(field)

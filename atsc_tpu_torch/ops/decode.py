@@ -108,14 +108,18 @@ def trellis_decode_field(
         [z2_prev.to(torch.uint8)[..., None], z2[..., :-1]], dim=-1
     )
     x2 = z2 ^ z2_shifted                       # differential decode
-    b = s.shape[0]
+    return pack_trellis_bytes(x2, x1), z2[..., -1].to(torch.int32)
+
+
+def pack_trellis_bytes(x2: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """(B, 12, 21528) input bit-pair planes -> (B, 12, 5382) uint8 bytes
+    (MSB-first pairs: pair p occupies bits (7-2p, 6-2p))."""
+    b = x2.shape[0]
     x2p = x2.reshape(b, P.TRELLIS_ENCODERS, _NB, 4).to(torch.int32)
     x1p = x1.reshape(b, P.TRELLIS_ENCODERS, _NB, 4).to(torch.int32)
-    # MSB-first bit pairs: pair p occupies bits (7-2p, 6-2p)
-    dev = s.device
+    dev = x2.device
     packed = x2p * const(_weights2, dev) + x1p * const(_weights1, dev)
-    bytes_ = packed.sum(dim=-1, dtype=torch.int32).to(torch.uint8)
-    return bytes_, z2[..., -1].to(torch.int32)
+    return packed.sum(dim=-1, dtype=torch.int32).to(torch.uint8)
 
 
 def enc_major_to_round_major(bytes_enc: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,9 @@ continues in the other and gives the same bytes:
     leaves = {k: np.asarray(v) for k, v in jax_state._asdict().items()}
     state = state_from_numpy(leaves, device="cuda")
     rx_state = decoder_state_from_numpy(jax_rx_leaves, device="cuda")
+
+and the soft and NTSC decoders' states likewise
+(soft_decoder_state_from_numpy, ntsc_decoder_state_from_numpy).
 """
 
 from __future__ import annotations
@@ -16,7 +19,14 @@ import numpy as np
 import torch
 
 from atsc_tpu_torch import resolve_device
-from atsc_tpu_torch.models.decoder import DecoderState, init_decoder_state
+from atsc_tpu_torch.models.decoder import (
+    DecoderState,
+    NtscDecoderState,
+    SoftDecoderState,
+    init_decoder_state,
+    init_ntsc_decoder_state,
+    init_soft_decoder_state,
+)
 from atsc_tpu_torch.models.encoder import EncoderState, init_state
 
 
@@ -44,6 +54,31 @@ def state_from_numpy(leaves: dict, device: str | torch.device) -> EncoderState:
 
 def state_to_numpy(state: EncoderState) -> dict:
     """EncoderState -> {leaf name: numpy array} on the host."""
+    return _leaves_to_numpy(state)
+
+
+def _leaves_from_numpy(d: dict, kind, init, what: str, device):
+    """{leaf name: numpy array} -> kind(...) on `device`, each leaf checked
+    against init(B, device="cpu")'s dtype and shape (B from prev_il)."""
+    dev = resolve_device(device)
+    if set(d) != set(kind._fields):
+        raise ValueError(f"{what} leaves {sorted(d)} != {sorted(kind._fields)}")
+    prev = np.asarray(d["prev_il"])
+    if prev.ndim != 2:
+        raise ValueError(f"{what} leaf prev_il must be (B, 64584), got {prev.shape}")
+    ref = init(prev.shape[0], device="cpu")
+    out = {}
+    for name, want in ref._asdict().items():
+        arr = np.asarray(d[name])
+        if arr.dtype != want.numpy().dtype or arr.shape != tuple(want.shape):
+            raise ValueError(
+                f"{what} leaf {name}: want {tuple(want.shape)} "
+                f"{want.numpy().dtype}, got {arr.shape} {arr.dtype}")
+        out[name] = torch.tensor(arr, device=dev)
+    return kind(**out)
+
+
+def _leaves_to_numpy(state) -> dict:
     return {k: v.cpu().numpy() for k, v in state._asdict().items()}
 
 
@@ -53,25 +88,36 @@ def decoder_state_from_numpy(d: dict, device: str | torch.device) -> DecoderStat
     bytes (the equalizer carries no state; its taps are tables). Raises on
     a missing or extra leaf, or a dtype or shape other than
     init_decoder_state's."""
-    dev = resolve_device(device)
-    if set(d) != set(DecoderState._fields):
-        raise ValueError(
-            f"decoder state leaves {sorted(d)} != {sorted(DecoderState._fields)}")
-    prev = np.asarray(d["prev_il"])
-    if prev.ndim != 2:
-        raise ValueError(f"decoder state leaf prev_il must be (B, 64584), got {prev.shape}")
-    ref = init_decoder_state(prev.shape[0], device="cpu")
-    out = {}
-    for name, want in ref._asdict().items():
-        arr = np.asarray(d[name])
-        if arr.dtype != want.numpy().dtype or arr.shape != tuple(want.shape):
-            raise ValueError(
-                f"decoder state leaf {name}: want {tuple(want.shape)} "
-                f"{want.numpy().dtype}, got {arr.shape} {arr.dtype}")
-        out[name] = torch.tensor(arr, device=dev)
-    return DecoderState(**out)
+    return _leaves_from_numpy(d, DecoderState, init_decoder_state, "decoder state",
+                              device)
 
 
 def decoder_state_to_numpy(state: DecoderState) -> dict:
     """DecoderState -> {leaf name: numpy array} on the host."""
-    return {k: v.cpu().numpy() for k, v in state._asdict().items()}
+    return _leaves_to_numpy(state)
+
+
+def soft_decoder_state_from_numpy(d: dict, device: str | torch.device) -> SoftDecoderState:
+    """{leaf name: numpy array} -> SoftDecoderState on `device` (the
+    Viterbi path metrics carry too), with decoder_state_from_numpy's
+    checks against init_soft_decoder_state."""
+    return _leaves_from_numpy(d, SoftDecoderState, init_soft_decoder_state,
+                              "soft decoder state", device)
+
+
+def soft_decoder_state_to_numpy(state: SoftDecoderState) -> dict:
+    """SoftDecoderState -> {leaf name: numpy array} on the host."""
+    return _leaves_to_numpy(state)
+
+
+def ntsc_decoder_state_from_numpy(d: dict, device: str | torch.device) -> NtscDecoderState:
+    """{leaf name: numpy array} -> NtscDecoderState on `device` (the
+    16-state PR path metrics carry too), with decoder_state_from_numpy's
+    checks against init_ntsc_decoder_state."""
+    return _leaves_from_numpy(d, NtscDecoderState, init_ntsc_decoder_state,
+                              "ntsc decoder state", device)
+
+
+def ntsc_decoder_state_to_numpy(state: NtscDecoderState) -> dict:
+    """NtscDecoderState -> {leaf name: numpy array} on the host."""
+    return _leaves_to_numpy(state)

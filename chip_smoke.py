@@ -44,6 +44,29 @@ Phases, one JSON line each; any failed check exits non-zero:
    push_codes): host wall ms per pushed field over 4 fields, every
    channel's TS byte-exact, one kernel launch per equalized field; and the
    oscillator span and one window's host-to-card copy timed alone.
+12. viterbi_kernels: acs_forward (float32 and int8 obs), traceback,
+   pr_acs_forward (segment-sync reset steps inside the span) and
+   pr_traceback against their plain twins on the card, bit for bit, at
+   B=384 and T=21,528 on real decommutated levels (the port's encoder, the
+   equalizer, plus AWGN); each kernel timed (CUDA events) beside one run
+   of its plain twin.
+13. golden_soft: IqReceiver(batch=1, device="cuda") with trellis="soft",
+   trellis="soft-i8" and ntsc="comb" decodes golden IQ to
+   golden["input"][0:3] exactly, one launch of each kernel of its path per
+   decoded field.
+14. receive_full_soft: the soft (cf32 windows), soft-i8 (cs8) and NTSC
+   comb (cf32) receive steps at B=384 (eq soft/soft codes ->
+   soft_decode_field / ntsc_decode_field -> derandomize) over 3 warm + 10
+   timed fields, every channel's TS byte-exact; ms/field, real-time
+   channels, peak memory, and each stage of the step timed alone.
+15. noisy_soft: B=8 at 15 dB IQ-domain SNR: the hard receiver leaves
+   uncorrectable segments, soft and soft-i8 return the sent TS on every
+   channel; the card's and the CPU's SoftDecoder agree on state (bytes, z2,
+   metrics), codewords, n_errors and TS.
+16. cci: B=8 with a co-channel tone at the comb null (0.5x signal RMS): the
+   hard receiver leaves uncorrectable segments, ntsc="auto" engages on
+   every channel and returns the sent TS; the card's and the CPU's
+   NtscDecoder agree bit for bit on state (bytes, z2, metrics) and TS.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
@@ -68,6 +91,11 @@ WARM, TIMED = 3, 10
 B_NOISY = 8
 HOST_FIELDS = 4     # fields timed through IqReceiver at B_FULL
 NOISY_SNR_DB = 20.0  # IQ-domain AWGN: hard decisions err, RS corrects all
+NOISY_SOFT_SNR_DB = 15.0  # hard slicing leaves uncorrectable segments, soft does not
+KERNEL_LEVEL_SIGMA = 0.5  # level-domain AWGN under the Viterbi kernel comparisons
+# float ops of one trellis step and lane: 4-state (8 sub, 8 mul, 4 min, 8
+# add, 4 select), PR (8 sub, 64 add, 64 mul, 64 add, 48 min)
+ACS_FLOPS, PR_FLOPS = 32, 248
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -133,6 +161,7 @@ def main() -> int:
     from atsc_tpu_torch.ops.cuda import _build
     from atsc_tpu_torch.ops.cuda import eq_fir as eqk
     from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
     from atsc_tpu_torch.ops.quantize import unpack_wire
     from atsc_tpu_torch.tables.oscillator import phasor_for_field
     from atsc_tpu_torch.tables.rrc import rrc_taps
@@ -159,11 +188,13 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together -------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        futures = {k: pool.submit(_build.build, k) for k in ("offset_fir", "eq_fir")}
+    sources = ("offset_fir", "eq_fir", "viterbi_acs")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        futures = {k: pool.submit(_build.build, k) for k in sources}
         builds = {k: f.result() for k, f in futures.items()}
     fir._kernel_lib(0)
     eqk._kernel_lib(0)
+    vk._kernel_lib(0)
     wall = time.perf_counter() - t0
     for kname, built in builds.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
@@ -391,6 +422,13 @@ def main() -> int:
     receive_noisy(dev)
     receive_host_path(dev)
 
+    # -- 12-16. the soft and NTSC trellis tiers --------------------------------
+    vit = viterbi_kernels(dev)
+    receive_golden_soft(golden, dev)
+    vit_launches = receive_full_soft(dev)
+    receive_noisy_soft(dev)
+    receive_cci(dev)
+
     print(json.dumps({"kernels": [
         {
             "name": "offset_fir_fused",
@@ -420,6 +458,11 @@ def main() -> int:
             "bound_by": rx["bound_by"],
             "library_ms": rx["library_ms"],
         },
+        *({"name": k, "route": "cuda", "source": "atsc_tpu_torch/csrc/viterbi_acs.cu",
+           "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
+           "launches": vit_launches[k], **vit[k], "library_ms": None}
+          for k, line in (("acs_forward", 157), ("traceback", 189),
+                          ("pr_acs_forward", 344), ("pr_traceback", 375))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -455,6 +498,55 @@ def _window(stream, g0: int, eq_k: int):
 def _near_boundary(x, tol: float):
     """Where x (decision units) lies within tol of a half-integer."""
     return (x - x.floor() - 0.5).abs() < tol
+
+
+def _random_ts_dev(dev, n_fields: int, seed: int):
+    """(n_fields, B_FULL, 58656) random TS with packet syncs, on the card."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    ts = torch.randint(0, 256, (n_fields, B_FULL, P.FIELD_TS_BYTES), dtype=torch.uint8,
+                       device=dev, generator=gen)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    return ts
+
+
+def _field_oscs(dev, n_fields: int, eq_k: int) -> list:
+    """The oscillator span of each field's equalizer window, on the card."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.receiver import _osc_planar
+    from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN
+
+    n = P.SYMBOLS_PER_FIELD
+    return [torch.tensor(_osc_planar(k * n - eq_k, k * n - eq_k + WIN_LEN, 0), device=dev)
+            for k in range(n_fields)]
+
+
+def _loopback_windows(dev, ts, fmt: str, eq_k: int) -> list:
+    """Encode ts (F, B, 58656) on the card in `fmt` and cut the equalizer
+    window of each of the first F-1 fields on the card (the window reads
+    K samples of the field before and the lookahead of the field after)."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN
+
+    n = P.SYMBOLS_PER_FIELD
+    enc = Encoder(batch=ts.shape[1], out_format=fmt, device=dev)
+    fields = [enc.encode(ts[k])[..., :n] for k in range(ts.shape[0])]
+    del enc
+    wins = []
+    for k in range(ts.shape[0] - 1):
+        parts = [fields[k], fields[k + 1][..., : WIN_LEN - eq_k - n]]
+        left = (fields[k - 1][..., n - eq_k :] if k else
+                torch.zeros_like(fields[0][..., :eq_k]))
+        wins.append(torch.cat([left, *parts], dim=-1))
+    return wins
 
 
 def receive_kernel_vs_plain(golden, dev) -> float:
@@ -547,7 +639,6 @@ def receive_full_size(dev) -> dict:
 
     from atsc_tpu_torch import params as P
     from atsc_tpu_torch.models.decoder import decode_field, init_decoder_state
-    from atsc_tpu_torch.models.encoder import Encoder
     from atsc_tpu_torch.models.receiver import (
         EQ_PROFILES,
         _osc_planar,
@@ -561,27 +652,13 @@ def receive_full_size(dev) -> dict:
     n = P.SYMBOLS_PER_FIELD
     eq_k, _ = EQ_PROFILES["fast"]
     n_fields = WARM + TIMED          # fields equalized and decoded
-    n_enc = n_fields + 1             # the last window reads the next field
-    gen = torch.Generator(dev).manual_seed(2025)
-    ts = torch.randint(0, 256, (n_enc, B_FULL, P.FIELD_TS_BYTES), dtype=torch.uint8,
-                       device=dev, generator=gen)
-    ts[..., :: P.MPEG2_BYTES] = 0x47
-    oscs = [torch.tensor(_osc_planar(k * n - eq_k, k * n - eq_k + eqk.WIN_LEN, 0),
-                         device=dev) for k in range(n_fields)]
+    ts = _random_ts_dev(dev, n_fields + 1, 2025)  # the last window reads the next field
+    oscs = _field_oscs(dev, n_fields, eq_k)
     result = {}
     eqk.LAUNCHES = 0
     keep = None
     for fmt in ("cf32", "cs16", "cs8"):
-        enc = Encoder(batch=B_FULL, out_format=fmt, device=dev)
-        fields = [enc.encode(ts[k])[..., :n] for k in range(n_enc)]
-        del enc
-        wins = []
-        for k in range(n_fields):   # windows cut on the card
-            parts = [fields[k], fields[k + 1][..., : eqk.WIN_LEN - eq_k - n]]
-            left = (fields[k - 1][..., n - eq_k :] if k else
-                    torch.zeros_like(fields[0][..., :eq_k]))
-            wins.append(torch.cat([left, *parts], dim=-1))
-        del fields
+        wins = _loopback_windows(dev, ts, fmt, eq_k)
         dq = 1.0 if fmt == "cf32" else 1.0 / quantize_scale(fmt)
         step = device_eq_step(False, dq, "fast")
         state = init_decoder_state(B_FULL, device=dev)
@@ -812,6 +889,387 @@ def receive_host_path(dev) -> None:
              window_h2d_ms=h2d_ms, launches=launches, ts_exact_all_channels=exact)
         check(exact, f"IqReceiver B={B_FULL} {fmt}: decoded TS differs from the sent TS")
         check(launches == n_push, f"{launches} eq launches for {n_push} equalized fields")
+
+
+def _cuda_ms(fn) -> tuple[object, float]:
+    """(fn(), device ms of that one call by CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def viterbi_kernels(dev) -> dict:
+    """Phase 12: the four Viterbi kernels against their plain twins on the
+    card, bit for bit, at B=384 and T=21,528 on real decommutated levels.
+    Returns, per kernel, its kernels-line fields."""
+    import torch
+
+    from atsc_tpu_torch.models.receiver import EQ_PROFILES, device_eq_step
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+    from atsc_tpu_torch.ops.decode import decommutate_field
+    from atsc_tpu_torch.ops.ntsc import comb_field
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_INV, quantize_soft_levels
+
+    eq_k, _ = EQ_PROFILES["fast"]
+    ts = _random_ts_dev(dev, 3, 2027)
+    win = _loopback_windows(dev, ts, "cf32", eq_k)[1]
+    lev = device_eq_step(True, profile="fast")(win, _field_oscs(dev, 2, eq_k)[1])
+    del win, ts
+    gen = torch.Generator(dev).manual_seed(12)
+    lev = lev + KERNEL_LEVEL_SIGMA * torch.randn(lev.shape, generator=gen, device=dev)
+    obs = vk._lanes_t_major(decommutate_field(lev))                 # (T, L) float32
+    codes = vk._lanes_t_major(decommutate_field(quantize_soft_levels(lev)))
+    comb = vk._lanes_t_major(decommutate_field(comb_field(lev)))
+    del lev
+    t, l = obs.shape
+    rc = torch.tensor(vk._pr_rc_table(), device=dev)
+    m4 = torch.full((4, l), 1e9, device=dev)      # cold start: state 0 only
+    m4[0] = 0.0
+    m16 = torch.full((16, l), 1e9, device=dev)
+    m16[0] = 0.0
+
+    def held(kernel, plain):
+        """The kernel's output, whether it equals the plain twin's bit for
+        bit, the largest difference, the kernel's ms (10 launches) and the
+        plain twin's ms (one run)."""
+        want, plain_ms = _cuda_ms(plain)
+        got = kernel()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        return got, same, err, timed(kernel), plain_ms
+
+    out, checks = {}, {}
+    (dec, m_out), same, err, ms, plain_ms = held(
+        lambda: vk.acs_forward(obs, m4), lambda: vk.acs_forward_plain(obs, m4))
+    _, same8, err8, ms8, plain8 = held(
+        lambda: vk.acs_forward(codes, m4, SOFT_LEVEL_INV),
+        lambda: vk.acs_forward_plain(codes, m4, SOFT_LEVEL_INV))
+    checks["acs_forward"], checks["acs_forward_int8"] = same, same8
+    out["acs_forward"] = dict(
+        max_abs_err=max(err, err8), ms=ms, plain_ms=plain_ms, ms_int8=ms8,
+        plain_ms_int8=plain8,
+        **_bound(t * l * 4 + (t // 4) * l * 4 + 2 * 4 * l * 4, t * l * ACS_FLOPS),
+        bound_int8=_bound(t * l + (t // 4) * l * 4 + 2 * 4 * l * 4,
+                          t * l * (ACS_FLOPS + 1)))
+    start = torch.argmin(m_out, dim=0).to(torch.int32)
+    _, same, err, ms, plain_ms = held(lambda: vk.traceback(dec, start),
+                                      lambda: vk.traceback_plain(dec, start))
+    checks["traceback"] = same
+    out["traceback"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            **_bound(2 * (t // 4) * l * 4 + l * 4, 0))
+    del dec, obs, codes
+    (dec, m_out), same, err, ms, plain_ms = held(
+        lambda: vk.pr_acs_forward(comb, rc, m16),
+        lambda: vk.pr_acs_forward_plain(comb, rc, m16))
+    checks["pr_acs_forward"] = same
+    resets = int((rc & 1).sum()) * (l // 12)
+    out["pr_acs_forward"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, reset_steps=resets,
+        **_bound(2 * t * l * 4 + t * 12 * 4 + 2 * 16 * l * 4, t * l * PR_FLOPS))
+    start = torch.argmin(m_out, dim=0).to(torch.int32)
+    _, same, err, ms, plain_ms = held(lambda: vk.pr_traceback(dec, start),
+                                      lambda: vk.pr_traceback_plain(dec, start))
+    checks["pr_traceback"] = same
+    out["pr_traceback"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **_bound(t * l * 4 + (t // 4) * l * 4 + l * 4, 0))
+    del dec, comb
+    emit("viterbi_kernels", batch=B_FULL, steps=t, lanes=l, identical=checks, **out)
+    for k, ok in checks.items():
+        check(ok, f"{k}: the kernel differs from its plain twin at B={B_FULL}")
+    check(resets > 0, "no segment-sync reset step inside the PR span")
+    return out
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    ms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def _zero_launches() -> None:
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+
+    vk.LAUNCHES.update(dict.fromkeys(vk.LAUNCHES, 0))
+
+
+def receive_golden_soft(golden, dev) -> None:
+    """Phase 13: the soft, soft-i8 and comb tiers of IqReceiver on the card
+    decode golden IQ exactly, one launch of each kernel of the path per
+    decoded field."""
+    import numpy as np
+
+    from atsc_tpu_torch.models.receiver import IqReceiver
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+
+    iq = golden["iq"][:4].reshape(1, -1)
+    path = {"acs_forward": 4, "traceback": 4, "pr_acs_forward": 0, "pr_traceback": 0}
+    comb = {"acs_forward": 0, "traceback": 0, "pr_acs_forward": 4, "pr_traceback": 4}
+    for name, kw, want in (("soft", dict(trellis="soft"), path),
+                           ("soft-i8", dict(trellis="soft-i8"), path),
+                           ("comb", dict(ntsc="comb"), comb)):
+        _zero_launches()
+        rx = IqReceiver(batch=1, device=dev, **kw)
+        out = rx.push(iq[:, :400_000]) + rx.push(iq[:, 400_000:]) + rx.flush()
+        launches = dict(vk.LAUNCHES)
+        exact = len(out) == 3 and all(
+            np.array_equal(ts[0], golden["input"][k]) for k, (ts, _) in enumerate(out))
+        emit("golden_soft", tier=name, fields_in=4, fields_out=len(out), ts_exact=exact,
+             launches=launches, segments_corrected=rx.decoder.segments_corrected)
+        check(exact, f"golden IQ through the {name} tier != golden input[0:3] on the card")
+        check(launches == want, f"{name}: launches {launches} for 4 decoded fields")
+
+
+def receive_full_soft(dev) -> dict:
+    """Phase 14: the soft, soft-i8 and NTSC receive steps at B=384, timed,
+    then each stage of each step alone. Returns the Viterbi kernels'
+    launches over the three timed main-path runs."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models import decoder as dec_mod
+    from atsc_tpu_torch.models.receiver import EQ_PROFILES, device_eq_step
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+    from atsc_tpu_torch.ops.decode import (
+        decommutate_field,
+        deinterleave_field,
+        derandomize_field,
+        enc_major_to_round_major,
+    )
+    from atsc_tpu_torch.ops.ntsc import comb_field
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_INV, quantize_scale
+    from atsc_tpu_torch.ops.rs_decode import syndrome_field
+
+    eq_k, _ = EQ_PROFILES["fast"]
+    n_fields = WARM + TIMED
+    ts = _random_ts_dev(dev, n_fields + 1, 2028)
+    oscs = _field_oscs(dev, n_fields, eq_k)
+    main = dict.fromkeys(vk.LAUNCHES, 0)
+    for tier, fmt in (("soft", "cf32"), ("soft-i8", "cs8"), ("ntsc", "cf32")):
+        wins = _loopback_windows(dev, ts, fmt, eq_k)
+        dq = 1.0 if fmt == "cf32" else 1.0 / quantize_scale(fmt)
+        step = device_eq_step(True, dq, "fast", soft_q=tier == "soft-i8")
+        ntsc = tier == "ntsc"
+        decode = dec_mod.ntsc_decode_field if ntsc else dec_mod.soft_decode_field
+        state = (dec_mod.init_ntsc_decoder_state if ntsc else
+                 dec_mod.init_soft_decoder_state)(B_FULL, device=dev)
+        outs, syns = [], []
+
+        def run(k):
+            nonlocal state
+            state, cw, syn = decode(state, step(wins[k], oscs[k]))
+            outs.append(derandomize_field(cw))
+            syns.append(syn)
+
+        for k in range(WARM):
+            run(k)
+        kept = state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for k in range(WARM, n_fields):
+            run(k)
+        stop.record()
+        torch.cuda.synchronize()
+        launches = dict(vk.LAUNCHES)
+        for k2, v in launches.items():
+            main[k2] += v
+        ms = start.elapsed_time(stop) / TIMED
+        peak = torch.cuda.max_memory_allocated(dev)
+        exact = all(torch.equal(outs[k], ts[k - 1]) for k in range(1, n_fields))
+        clean = not any(bool(syns[k].any()) for k in range(1, n_fields))
+        del outs, syns, state
+
+        # each stage alone, on the first timed field's inputs
+        win, osc = wins[WARM], oscs[WARM]
+        del wins
+        stages = {}
+        lev = step(win, osc)
+        stages["eq"] = timed(lambda: step(win, osc), reps=5)
+        if ntsc:
+            stages["comb"] = timed(lambda: comb_field(lev.to(torch.float32)), reps=5)
+            lev = comb_field(lev)
+        stages["decommutate"] = timed(lambda: decommutate_field(lev), reps=5)
+        d = decommutate_field(lev)
+        stages["transpose"] = timed(lambda: vk._lanes_t_major(d), reps=5)
+        obs = vk._lanes_t_major(d)
+        b, ne = B_FULL, P.TRELLIS_ENCODERS
+        m0 = kept.metrics.reshape(b * ne, -1).t().contiguous()
+        if ntsc:
+            rc = torch.tensor(vk._pr_rc_table(), device=dev)
+            fwd = lambda: vk.pr_acs_forward(obs, rc, m0)  # noqa: E731
+            tb = vk.pr_traceback
+        else:
+            inv = SOFT_LEVEL_INV if tier == "soft-i8" else None
+            fwd = lambda: vk.acs_forward(obs, m0, inv_scale=inv)  # noqa: E731
+            tb = vk.traceback
+        stages["forward_kernel"] = timed(fwd, reps=5)
+        dec, mout = fwd()
+        stages["argmin"] = timed(lambda: torch.argmin(mout, dim=0).to(torch.int32), reps=5)
+        first = torch.argmin(mout, dim=0).to(torch.int32)
+        stages["traceback_kernel"] = timed(lambda: tb(dec, first), reps=5)
+        bits = tb(dec, first)
+        z2 = kept.z2_prev.reshape(-1)
+        stages["pack"] = timed(lambda: vk.pack_bits_to_bytes(bits, z2), reps=5)
+        words, _ = vk.pack_bits_to_bytes(bits, z2)
+        relayout = lambda: words.to(torch.uint8).reshape(-1, b, ne).permute(1, 2, 0).contiguous()  # noqa: E731
+        stages["relayout"] = timed(relayout, reps=5)
+        by = relayout()
+        stages["deinterleave"] = timed(
+            lambda: deinterleave_field(enc_major_to_round_major(by), kept.prev_il), reps=5)
+        cw = deinterleave_field(enc_major_to_round_major(by), kept.prev_il).reshape(
+            b, P.DATA_SEGMENTS, P.SEGMENT_FEC_BYTES)
+        stages["syndromes"] = timed(lambda: syndrome_field(cw), reps=5)
+        stages["derandomize"] = timed(lambda: derandomize_field(cw), reps=5)
+        del win, lev, d, obs, dec, bits, words, by, cw, kept
+        total = sum(stages.values())
+        t_field = ms / 1e3
+        emit("receive_full_soft", batch=B_FULL, tier=tier, format=fmt, profile="fast",
+             timed_fields=TIMED, ms_per_field=ms,
+             realtime_channels=B_FULL / (t_field * P.FIELD_RATE),
+             max_memory_allocated=peak, step_memory_above_inputs=peak - base,
+             ts_exact_all_channels=exact, syndromes_zero=clean, launches=launches,
+             stages_ms=stages, stages_sum_ms=total,
+             stage_shares={k2: v / total for k2, v in stages.items()})
+        check(exact, f"B={B_FULL} {tier}: decoded TS differs from the sent TS")
+        check(clean, f"B={B_FULL} {tier}: non-zero syndromes on a clean loopback")
+        path = ("pr_acs_forward", "pr_traceback") if ntsc else ("acs_forward", "traceback")
+        check(all(launches[k2] == (TIMED if k2 in path else 0) for k2 in launches),
+              f"{tier}: Viterbi launches {launches} for {TIMED} timed fields")
+    del ts, oscs
+    torch.cuda.empty_cache()
+    return main
+
+
+def _noisy_capture(dev, seed: int, impair):
+    """4 fields of seeded random TS at B_NOISY encoded on the card, impaired
+    on the host: (ts (4, B, 58656), capture (B, 4N) complex64)."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder, iq_to_complex
+
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(0, 256, size=(4, B_NOISY, P.FIELD_TS_BYTES), dtype=np.uint8)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    enc = Encoder(batch=B_NOISY, device=dev)
+    iq = np.concatenate([iq_to_complex(enc.encode(ts[k])) for k in range(4)], axis=-1)
+    return ts, impair(iq, rng).astype(np.complex64)
+
+
+def _receive(dev, cap, **kw):
+    from atsc_tpu_torch.models.receiver import IqReceiver
+
+    rx = IqReceiver(batch=B_NOISY, device=dev, **kw)
+    return rx, rx.push(cap) + rx.flush()
+
+
+def _exact(out, ts) -> bool:
+    import numpy as np
+
+    return len(out) == 3 and all(np.array_equal(t, ts[k]) and (n >= 0).all()
+                                 for k, (t, n) in enumerate(out))
+
+
+def _card_equals_cpu(card, host, fields) -> bool:
+    """Decode the same soft level fields on the card and on the CPU; True
+    when TS, n_errors, the carried states and the codewords (from
+    consecutive interleaved fields) agree bit for bit."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch.ops.decode import deinterleave_field
+
+    same = True
+    for lev in fields:
+        pc, ph = card.state.prev_il, host.state.prev_il
+        tc, nc = card.decode(lev)
+        th, nh = host.decode(lev.cpu())
+        same &= np.array_equal(tc, th) and np.array_equal(nc, nh)
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(card.state, host.state))
+        same &= torch.equal(deinterleave_field(card.state.prev_il, pc).cpu(),
+                            deinterleave_field(host.state.prev_il, ph))
+    return bool(same)
+
+
+def receive_noisy_soft(dev) -> None:
+    """Phase 15: B=8 at NOISY_SOFT_SNR_DB: hard fails, the soft tiers do
+    not, and the card's SoftDecoder equals the CPU's."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import SoftDecoder
+    from atsc_tpu_torch.models.receiver import equalize_field_device
+
+    def awgn(iq, rng):
+        sig = np.sqrt(np.mean(np.abs(iq) ** 2))
+        noise = rng.normal(0, 1, iq.shape) + 1j * rng.normal(0, 1, iq.shape)
+        return iq + noise * sig * 10 ** (-NOISY_SOFT_SNR_DB / 20) / np.sqrt(2)
+
+    ts, cap = _noisy_capture(dev, 15, awgn)
+    hard, hard_out = _receive(dev, cap)
+    tiers = {}
+    for trellis in ("soft", "soft-i8"):
+        rx, out = _receive(dev, cap, trellis=trellis)
+        tiers[trellis] = {"ts_exact": _exact(out, ts),
+                          "segments_corrected": rx.decoder.segments_corrected,
+                          "segments_uncorrectable": rx.decoder.segments_uncorrectable}
+    n = P.SYMBOLS_PER_FIELD
+    fields = [equalize_field_device(cap, k * n, soft=True, device=dev) for k in range(2)]
+    same = _card_equals_cpu(SoftDecoder(batch=B_NOISY, device=dev),
+                            SoftDecoder(batch=B_NOISY, device="cpu"), fields)
+    emit("noisy_soft", batch=B_NOISY, snr_db=NOISY_SOFT_SNR_DB,
+         hard_segments_uncorrectable=hard.decoder.segments_uncorrectable,
+         hard_ts_exact=_exact(hard_out, ts), tiers=tiers, decoder_card_equals_cpu=same)
+    check(hard.decoder.segments_uncorrectable > 0,
+          f"{NOISY_SOFT_SNR_DB} dB: the hard receiver left no uncorrectable segment")
+    for trellis, r in tiers.items():
+        check(r["ts_exact"] and r["segments_uncorrectable"] == 0,
+              f"{NOISY_SOFT_SNR_DB} dB: the {trellis} tier did not return the sent TS")
+    check(same, "noisy levels: the card's SoftDecoder differs from the CPU's")
+
+
+def receive_cci(dev) -> None:
+    """Phase 16: B=8 with co-channel interference at the comb null: hard
+    fails, ntsc='auto' engages and decodes, and the card's NtscDecoder
+    equals the CPU's."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import NtscDecoder
+    from atsc_tpu_torch.models.receiver import equalize_field_device
+
+    def cci(iq, rng):
+        rms = np.sqrt(np.mean(np.abs(iq) ** 2))
+        f = P.SAMPLE_RATE / 12 + P.OSC_FREQUENCY   # tests/test_ntsc.py::_cci
+        k = np.arange(iq.shape[-1])
+        return iq + 0.5 * rms * np.exp(2j * np.pi * f * k / P.SAMPLE_RATE + 0.4j)
+
+    ts, cap = _noisy_capture(dev, 16, cci)
+    hard, _ = _receive(dev, cap)
+    rx, out = _receive(dev, cap, ntsc="auto")
+    exact = _exact(out, ts)
+    n = P.SYMBOLS_PER_FIELD
+    fields = [equalize_field_device(cap, k * n, soft=True, device=dev) for k in range(2)]
+    same = _card_equals_cpu(NtscDecoder(batch=B_NOISY, device=dev),
+                            NtscDecoder(batch=B_NOISY, device="cpu"), fields)
+    emit("cci", batch=B_NOISY, tone_rms_ratio=0.5,
+         hard_segments_uncorrectable=hard.decoder.segments_uncorrectable,
+         ntsc_votes=[bool(v) for v in rx.ntsc_votes], ntsc_active=rx.ntsc_active,
+         ts_exact=exact, segments_uncorrectable=rx.decoder.segments_uncorrectable,
+         decoder_card_equals_cpu=same)
+    check(hard.decoder.segments_uncorrectable > 0, "CCI: the hard receiver decoded it all")
+    check(rx.ntsc_active and all(rx.ntsc_votes), "CCI: ntsc='auto' did not engage everywhere")
+    check(exact, "CCI: the comb tier did not return the sent TS")
+    check(same, "CCI levels: the card's NtscDecoder differs from the CPU's")
 
 
 if __name__ == "__main__":

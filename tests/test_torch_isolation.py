@@ -69,7 +69,7 @@ print(len(names), 'modules')
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 25, out.stdout
+    assert int(out.stdout.split()[0]) >= 28, out.stdout
 
 
 def _params_cases():
@@ -94,7 +94,21 @@ _TABLE_CASES = [
     "oscillator.phase_increment", "oscillator.oscillator_table",
     "oscillator.field_scale", "oscillator.phasor_for_field",
     "oscillator._phasor_replay_np",
+    # the soft and NTSC trellis tiers (the port's ops/cuda/viterbi_acs.py
+    # holds what the JAX package keeps in ops/pallas/viterbi_acs.py)
+    "ops.viterbi._constellation", "ops.viterbi._BIG", "ops.viterbi._NSYM",
+    "ops.viterbi._NB", "ops.viterbi._PRED0", "ops.viterbi._PRED1", "ops.viterbi._B_OF",
+    "ops.ntsc._pr_reset_tables", "ops.ntsc._pr_tables", "ops.ntsc._SYNC_LEVELS",
+    "ops.ntsc._COMB_DELAY", "ops.ntsc._BIG", "ops.ntsc._PRED0", "ops.ntsc._PRED1",
+    "ops.cuda.viterbi_acs._pr_rc_table",
+    "ops.cuda.viterbi_acs.GROUP",
+    "ops.quantize.SOFT_LEVEL_INV", "ops.quantize.SOFT_LEVEL_SCALE",
 ]
+
+# the port module -> the JAX package module holding the same name, where
+# they differ (the JAX package names the group _GROUP)
+_JAX_MODULE = {"ops.cuda.viterbi_acs": "ops.pallas.viterbi_acs"}
+_JAX_NAME = {"GROUP": "_GROUP"}
 
 
 def _call(mod, name: str, which: str):
@@ -103,6 +117,11 @@ def _call(mod, name: str, which: str):
     import importlib
 
     root = "atsc_tpu" if which == "jax" else "atsc_tpu_torch"
+    if mod.startswith("ops."):
+        if which == "jax":
+            mod, name = _JAX_MODULE.get(mod, mod), _JAX_NAME.get(name, name)
+        obj = getattr(importlib.import_module(f"{root}.{mod}"), name)
+        return obj() if callable(obj) else obj
     if mod == "params":
         return getattr(importlib.import_module(f"{root}.params"), name)
     if mod == "spec":
@@ -141,8 +160,20 @@ def _assert_same(got, want, what):
 
 @pytest.mark.parametrize("case", _params_cases() + _TABLE_CASES)
 def test_copied_contract_equals_jax_package(case):
-    mod, name = case.split(".", 1)
+    mod, name = case.rsplit(".", 1)
     _assert_same(_call(mod, name, "port"), _call(mod, name, "jax"), case)
+
+
+def test_viterbi_levels_equal_jax_kernel_levels():
+    """The ACS's 8 levels (ops.viterbi._constellation, float32) equal the
+    JAX kernel's, which it keeps as a tuple of Python floats (exact
+    conversions of the same float32s)."""
+    from atsc_tpu.ops.pallas.viterbi_acs import _levels8 as jax_levels
+    from atsc_tpu_torch.ops.viterbi import _constellation
+
+    got = _constellation()
+    assert got.dtype == np.float32
+    assert got.tolist() == list(jax_levels())
 
 
 def test_port_params_have_no_extra_names():

@@ -173,15 +173,16 @@ def test_cli_decode_matches_jax_cli(tmp_path):
     assert stats["mer_db"][0] > 30
 
 
-@pytest.mark.parametrize("kw", [dict(backend="adaptive"), dict(trellis="soft"),
-                                dict(erasures="burst"), dict(ntsc="comb"),
+@pytest.mark.parametrize("kw", [dict(backend="adaptive"),
+                                dict(viterbi_chunks=2, trellis="soft"),
+                                dict(erasures="burst"), dict(backend="numpy"),
                                 dict(resync="auto")])
 def test_receiver_refuses_unported_options(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trx.IqReceiver(batch=1, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--trellis", "viterbi"], ["--equalizer", "adaptive"],
+@pytest.mark.parametrize("flag", [["--viterbi-chunks", "4"], ["--equalizer", "adaptive"],
                                   ["--mesh", "2x1"], ["--cfo", "auto"], ["--resume"],
                                   ["-o", "slot{ch}.ts"]])
 def test_cli_decode_refuses_unported_flags(flag, tmp_path):
