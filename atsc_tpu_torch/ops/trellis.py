@@ -16,8 +16,8 @@ XOR algebra: only the per-byte parities
 need a prefix over the 5,382 bytes of each encoder. The JAX package takes
 that prefix as a blocked bf16 matmul against a triangular ones matrix (a
 TPU idiom); here it is an int32 cumsum reduced `& 1`, exact because every
-partial sum is <= 5,382. With E* the exclusive prefix of S*, per symbol
-s = 4t + p (byte t, plane p):
+partial sum is <= the byte count (5,382 a field). With E* the exclusive
+prefix of S*, per symbol s = 4t + p (byte t, plane p):
 
     z2[4t+p]   = E2[t] ^ (x2_0^..^x2_p)[t] ^ d
     z0[4t+0]   = Ev[t] ^ d1          z0[4t+1] = Eu[t] ^ x1_0[t] ^ d2
@@ -36,23 +36,22 @@ from atsc_tpu_torch import params as P
 def _byte_excl_scan(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Exclusive XOR prefix over the byte axis.
 
-    s: (B, 12, 5382) int32 in {0,1}. Returns (excl (B, 12, 5382) in {0,1},
+    s: (B, 12, n) int32 in {0,1}. Returns (excl (B, 12, n) in {0,1},
     total (B, 12) in {0,1})."""
     incl = torch.cumsum(s, dim=-1, dtype=torch.int32)
     return (incl - s) & 1, incl[..., -1] & 1
 
 
-def trellis_encode_field(
+def trellis_planes(
     il: torch.Tensor, d: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Encode one interleaved field.
+) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plane algebra over a byte axis of any length.
 
-    il: (B, 12, 5382) uint8 in encoder-major layout (from
-    interleave_field_enc_major). d/d1/d2: (B, 12) int32 per-encoder carries.
-    Returns (symbols, d, d1, d2) with symbols (B, 12, 21528) int8 in
-    encoder-major stream order (byte*4 + bit-pair along the last axis).
+    il: (B, 12, n) uint8; d/d1/d2: (B, 12) int32 carries in {0, 1}.
+    Returns ([plane_0, .., plane_3], t2, tu, tv): plane p (B, 12, n) int8
+    holds the symbol of bit pair p of every byte (stream position 4t + p),
+    and t2/tu/tv (B, 12) are the XOR totals of S2/Su/Sv over all n bytes.
     """
-    b = il.shape[0]
     x = il.to(torch.int32)
 
     # bit-pair planes, MSB-first: pair p uses bits (7-2p, 6-2p)
@@ -80,8 +79,22 @@ def trellis_encode_field(
         eu ^ x1[0] ^ x1[2] ^ d2c,
     ]
     planes = [(z2[p] * 4 + x1[p] * 2 + z0[p]).to(torch.int8) for p in range(4)]
+    return planes, t2, tu, tv
+
+
+def trellis_encode_field(
+    il: torch.Tensor, d: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Encode one interleaved field.
+
+    il: (B, 12, 5382) uint8 in encoder-major layout (from
+    interleave_field_enc_major). d/d1/d2: (B, 12) int32 per-encoder carries.
+    Returns (symbols, d, d1, d2) with symbols (B, 12, 21528) int8 in
+    encoder-major stream order (byte*4 + bit-pair along the last axis).
+    """
+    planes, t2, tu, tv = trellis_planes(il, d, d1, d2)
     symbols = torch.stack(planes, dim=-1).reshape(
-        b, P.TRELLIS_ENCODERS, P.TRELLIS_SYMBOLS_PER_ENCODER
+        il.shape[0], P.TRELLIS_ENCODERS, P.TRELLIS_SYMBOLS_PER_ENCODER
     )
 
     d_new = (t2 + d) & 1

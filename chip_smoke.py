@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's transmit and receive main paths once on one
-NVIDIA Hopper GPU.
+"""Drive the PyTorch port's transmit and receive main paths, and the two
+kernel-design probes, once on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Phases, one JSON line each; any failed check exits non-zero:
 
 1. device: name, compute capability (must be 9.0), nvidia-smi's name and
    power limit; TF32 is switched off for matmul and cuDNN.
-2. build: nvcc builds csrc/offset_fir.cu and csrc/eq_fir.cu from this
-   checkout, both at once; seconds and ptxas' resource lines.
+2. build: nvcc builds csrc/offset_fir.cu, eq_fir.cu, viterbi_acs.cu,
+   trellis_fused.cu and fir_variants.cu from this checkout, all at once;
+   seconds and ptxas' resource lines.
 3. kernel: offset_fir_fused against its plain PyTorch twin on the card at
    B=4 (random symbols plus golden field 0): cf32 <= 2e-6, cs16/cs8 planar
    and wire <= 1 LSB over the valid [0, 260416).
@@ -67,6 +68,16 @@ Phases, one JSON line each; any failed check exits non-zero:
    hard receiver leaves uncorrectable segments, ntsc="auto" engages on
    every channel and returns the sent TS; the card's and the CPU's
    NtscDecoder agree bit for bit on state (bytes, z2, metrics) and TS.
+17. trellis_fused: tools/torch_trellis_fuse_probe.py's main at B=384 (its
+   own path, launches counted); then the kernel against its plain twin in
+   both layouts, whole arrays bit for bit, and the stream-order cut against
+   trellis_encode_field, on random bytes (pad bytes too) and carries; the
+   kernel per layout, the twin and trellis_encode_field timed.
+18. fir_variants: tools/torch_fir_probe.py's main at B=384 (launches
+   counted); then each of the probe's seven (variant, nchunk) runs against
+   run_variant_plain and against offset_fir_fused cf32, <= 2e-6 over the
+   valid [0, 260416), on random symbols with golden field 0 in channel 0;
+   each run timed, the twin once.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
@@ -160,7 +171,9 @@ def main() -> int:
     )
     from atsc_tpu_torch.ops.cuda import _build
     from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+    from atsc_tpu_torch.ops.cuda import fir_variants as fvk
     from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
     from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
     from atsc_tpu_torch.ops.quantize import unpack_wire
     from atsc_tpu_torch.tables.oscillator import phasor_for_field
@@ -188,13 +201,15 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together -------------------
     t0 = time.perf_counter()
-    sources = ("offset_fir", "eq_fir", "viterbi_acs")
+    sources = ("offset_fir", "eq_fir", "viterbi_acs", "trellis_fused", "fir_variants")
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
         futures = {k: pool.submit(_build.build, k) for k in sources}
         builds = {k: f.result() for k, f in futures.items()}
     fir._kernel_lib(0)
     eqk._kernel_lib(0)
     vk._kernel_lib(0)
+    tfk._kernel_lib()
+    fvk._kernel_lib()
     wall = time.perf_counter() - t0
     for kname, built in builds.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
@@ -429,6 +444,13 @@ def main() -> int:
     receive_noisy_soft(dev)
     receive_cci(dev)
 
+    # -- 17-18. the probe paths: neither kernel is on a main path above -------
+    main_path = {"trellis_fused": tfk.LAUNCHES, "fir_variants": fvk.LAUNCHES}
+    trellis = trellis_fused_kernel(dev)
+    variants = fir_variants_kernel(
+        golden, dev, {"bound_ms": fir_bound, "bound_by": fir_bound_by,
+                      "library_ms": fir_conv_ms, "library": "F.conv1d fp32"})
+
     print(json.dumps({"kernels": [
         {
             "name": "offset_fir_fused",
@@ -463,6 +485,14 @@ def main() -> int:
            "launches": vit_launches[k], **vit[k], "library_ms": None}
           for k, line in (("acs_forward", 157), ("traceback", 189),
                           ("pr_acs_forward", 344), ("pr_traceback", 375))),
+        {"name": "trellis_fused", "route": "cuda",
+         "source": "atsc_tpu_torch/csrc/trellis_fused.cu",
+         "replaces": "tools/trellis_fuse_probe.py:122",
+         "main_path_launches": main_path["trellis_fused"], **trellis},
+        {"name": "fir_variants", "route": "cuda",
+         "source": "atsc_tpu_torch/csrc/fir_variants.cu",
+         "replaces": "tools/fir_probe.py:132",
+         "main_path_launches": main_path["fir_variants"], **variants},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -1270,6 +1300,130 @@ def receive_cci(dev) -> None:
     check(rx.ntsc_active and all(rx.ntsc_votes), "CCI: ntsc='auto' did not engage everywhere")
     check(exact, "CCI: the comb tier did not return the sent TS")
     check(same, "CCI levels: the card's NtscDecoder differs from the CPU's")
+
+
+def _run_tool(name: str, argv: list) -> tuple[object, int, list]:
+    """Run tools/<name>.py's main(argv) in this process; (the tool's
+    module, its exit code, the JSON lines it printed)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", name + ".py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tool.main(argv)
+    return tool, rc, [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+
+def trellis_fused_kernel(dev) -> dict:
+    """Phase 17: the fused trellis probe's path, then the kernel against its
+    plain twin at B=384. Returns its kernels-line fields."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
+    from atsc_tpu_torch.ops.trellis import trellis_encode_field
+
+    tfk.LAUNCHES = 0
+    _, rc, lines = _run_tool("torch_trellis_fuse_probe", ["--batch", str(B_FULL), "--iters", "10"])
+    launches = tfk.LAUNCHES
+    emit("trellis_probe", batch=B_FULL, rc=rc, lines=lines, launches=launches)
+    check(rc == 0 and [ln.get("bit_exact") for ln in lines[:2]] == [True, True],
+          f"tools/torch_trellis_fuse_probe.py: rc {rc}, {lines}")
+    check(launches > 0, "the trellis probe launched no trellis_fused kernel")
+
+    gen = torch.Generator(dev).manual_seed(17)
+    ne, nb = P.TRELLIS_ENCODERS, P.TRELLIS_BYTES_PER_ENCODER
+    il_pad = torch.randint(0, 256, (B_FULL, ne, tfk.PAD_BYTES), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    d, d1, d2 = (torch.randint(0, 2, (B_FULL, ne), dtype=torch.int32, device=dev,
+                               generator=gen) for _ in range(3))
+    il = il_pad[..., :nb].contiguous()
+    ref = trellis_encode_field(il, d, d1, d2)[0]
+    ref_ms = timed(lambda: trellis_encode_field(il, d, d1, d2))
+    ms, plain_ms, same, err = {}, {}, {}, 0
+    for interleaved in (True, False):
+        name = "interleaved" if interleaved else "planemajor"
+        got = tfk.trellis_fused(il_pad, d, d1, d2, interleaved=interleaved)
+        want = tfk.trellis_fused_plain(il_pad, d, d1, d2, interleaved=interleaved)
+        same[name] = bool(torch.equal(got, want))
+        same[name + "_vs_trellis_encode_field"] = bool(
+            torch.equal(tfk.to_stream(got, interleaved), ref))
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        ms[name] = timed(lambda lay=interleaved: tfk.trellis_fused(il_pad, d, d1, d2,
+                                                                   interleaved=lay))
+        plain_ms[name] = timed(lambda lay=interleaved: tfk.trellis_fused_plain(
+            il_pad, d, d1, d2, interleaved=lay), reps=3)
+    # bytes: the padded field and the carries read once, the symbols written once
+    bound = _bound(B_FULL * ne * (tfk.PAD_BYTES + 3 * 4 + tfk.PAD_SYMBOLS), 0)
+    emit("trellis_fused", batch=B_FULL, identical=same, kernel_ms=ms, plain_ms=plain_ms,
+         reference_op_ms=ref_ms, reference_op="trellis_encode_field", **bound)
+    for k, ok in same.items():
+        check(ok, f"trellis_fused {k}: the kernel differs at B={B_FULL}")
+    return {"launches": launches, "max_abs_err": err, "ms": ms["interleaved"],
+            "ms_by_layout": ms, "plain_ms": plain_ms["interleaved"],
+            "plain_ms_by_layout": plain_ms, "reference_op_ms": ref_ms, **bound,
+            "library_ms": None}
+
+
+def fir_variants_kernel(golden, dev, kernel1: dict) -> dict:
+    """Phase 18: the offset+FIR design probe's path, then every probe run of
+    the banded-matmul kernel against its plain twin and offset_fir_fused at
+    B=384. kernel1 carries phase 5's bound and F.conv1d yardstick (the same
+    function). Returns its kernels-line fields."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.ops.cuda import fir_variants as fvk
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+
+    n = P.SYMBOLS_PER_FIELD
+    tol = 2e-6
+    fvk.LAUNCHES = 0
+    probe, rc, lines = _run_tool("torch_fir_probe", ["--batch", str(B_FULL), "--iters", "10"])
+    launches = fvk.LAUNCHES
+    emit("fir_probe", batch=B_FULL, rc=rc, lines=lines, launches=launches)
+    check(rc == 0 and len(lines) == 7 and all(
+        ln.get("max_err") is not None and ln["max_err"] <= tol for ln in lines),
+        f"tools/torch_fir_probe.py: rc {rc}, {lines}")
+    check(launches > 0, "the FIR probe launched no fir_variants kernel")
+
+    gen = torch.Generator(dev).manual_seed(18)
+    field = torch.randint(0, 8, (B_FULL, P.PADDED_SYMBOLS), dtype=torch.int8, device=dev,
+                          generator=gen)
+    levels0 = golden["sync"][0].real.astype(np.float32)
+    sym0 = np.rint((levels0 - P.PILOT_OFFSET + 7.0) / 2.0).astype(np.int8)
+    sym0[P.PADDED_SYMBOLS - P.RESERVED_SYMBOLS:] = 0
+    field[0] = torch.tensor(sym0, device=dev)
+    phasor = torch.tensor([[0.8, 0.6]], dtype=torch.float32, device=dev).repeat(B_FULL, 1)
+    base = fir.offset_fir_fused(field, phasor)[..., :n]
+    # the probe's runs through run_variant, and the variant's default
+    runs = [r for r in probe.RUNS if r[1]] + [("base_chunks5", "base", 5)]
+    ms, err_plain, err_base = {}, {}, {}
+    for name, variant, nchunk in runs:
+        got = fvk.run_variant(field, phasor, variant, nchunk)[..., :n]
+        want = fvk.run_variant_plain(field, phasor, variant, nchunk)[..., :n]
+        err_plain[name] = float((got - want).abs().max())
+        err_base[name] = float((got - base).abs().max())
+        ms[name] = timed(lambda v=variant, c=nchunk: fvk.run_variant(field, phasor, v, c))
+        del got, want
+    plain_ms = timed(lambda: fvk.run_variant_plain(field, phasor, "base", 5), reps=3)
+    # the banded products run dense: 2 planes x 256 MACs per output sample
+    executed = B_FULL * P.PADDED_OUT * 2 * 256 * 2
+    rate = {k: executed / (v * 1e-3) for k, v in ms.items()}
+    emit("fir_variants", batch=B_FULL, kernel_ms=ms, plain_ms=plain_ms,
+         max_abs_err_vs_plain=err_plain, max_abs_err_vs_offset_fir=err_base, tolerance=tol,
+         executed_flop=executed, executed_flop_per_s=rate, **kernel1)
+    for k in ms:
+        check(err_plain[k] <= tol, f"fir_variants {k} vs plain {err_plain[k]} > {tol}")
+        check(err_base[k] <= tol, f"fir_variants {k} vs offset_fir {err_base[k]} > {tol}")
+    return {"launches": launches, "max_abs_err": max(err_plain.values()),
+            "max_abs_err_vs_offset_fir": max(err_base.values()), "ms": ms["base_chunks5"],
+            "ms_by_run": ms, "plain_ms": plain_ms, "bound_ms": kernel1["bound_ms"],
+            "bound_by": kernel1["bound_by"], "executed_flop_per_s": rate,
+            "library_ms": kernel1["library_ms"]}
 
 
 if __name__ == "__main__":

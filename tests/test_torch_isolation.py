@@ -3,6 +3,7 @@ on-card scripts) imports JAX or the JAX package, and every host-side table
 the port copied is equal, value and dtype, to the JAX package's."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -15,13 +16,18 @@ PKG = os.path.join(REPO, "atsc_tpu_torch")
 _FORBIDDEN = ("jax", "jaxlib", "atsc_tpu")
 
 
+def _port_tools() -> list[str]:
+    """Every tools/torch_*.py: the port's own scripts."""
+    return sorted(os.path.relpath(p, REPO)
+                  for p in glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+
+
 def _port_sources() -> list[str]:
     out = []
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    out += [os.path.join(REPO, "chip_smoke.py"),
-            os.path.join(REPO, "tools", "torch_stage_budget.py")]
-    return sorted(os.path.relpath(p, REPO) for p in out)
+    out.append(os.path.join(REPO, "chip_smoke.py"))
+    return sorted(os.path.relpath(p, REPO) for p in out) + _port_tools()
 
 
 @pytest.mark.parametrize("path", _port_sources())
@@ -42,11 +48,8 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_every_port_module_imports_with_jax_refused():
-    """A fresh interpreter refuses jax and atsc_tpu outright (a
-    sys.meta_path finder) and imports every module of the port."""
-    code = f"""
-import pkgutil, sys
+_REFUSE_JAX = f"""
+import sys
 FORBIDDEN = {_FORBIDDEN!r}
 for k in list(sys.modules):
     if k.split('.')[0] in FORBIDDEN:
@@ -58,18 +61,45 @@ class Refuse:
         return None
 sys.meta_path.insert(0, Refuse())
 sys.path.insert(0, {REPO!r})
+"""
+
+
+def _run_refusing_jax(code: str) -> str:
+    """Run code in a fresh interpreter that refuses jax and atsc_tpu
+    outright (a sys.meta_path finder); its stdout."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REFUSE_JAX + code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_every_port_module_imports_with_jax_refused():
+    """Every module of the port imports where jax and atsc_tpu cannot."""
+    out = _run_refusing_jax("""
+import pkgutil
 import atsc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(atsc_tpu_torch.__path__, 'atsc_tpu_torch.')]
 for n in names:
     __import__(n)
 assert not [k for k in sys.modules if k.split('.')[0] in FORBIDDEN]
 print(len(names), 'modules')
-"""
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 28, out.stdout
+""")
+    assert int(out.split()[0]) >= 28, out
+
+
+@pytest.mark.parametrize("path", _port_tools())
+def test_port_tool_imports_with_jax_refused(path):
+    """Each tools/torch_*.py imports (without running its main) where jax
+    and atsc_tpu cannot."""
+    out = _run_refusing_jax(f"""
+import importlib.util
+spec = importlib.util.spec_from_file_location('tool', {os.path.join(REPO, path)!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not [k for k in sys.modules if k.split('.')[0] in FORBIDDEN]
+print('imported')
+""")
+    assert out.strip() == "imported", out
 
 
 def _params_cases():
