@@ -31,26 +31,32 @@
 // the reference: min/argmin of (c0, c1) and of (c2, c3), then the pair with
 // the strictly smaller minimum, the first pair on a tie.
 //
-// Design: one thread per lane runs the whole T-step recursion with its 4 or
-// 16 path metrics in registers. Blocks of 32 threads: at B = 384 there are
-// 4,608 lanes, 144 warps in all, and blocks of 32 spread them over all 132
-// SMs (36 blocks of 128 would leave 96 SMs idle). The loads never depend on
-// the path, so each thread prefetches the next group's observations (24
-// steps; the PR tier 4 steps, whose 4 x ~400 instructions already cover a
-// load's latency) and decision words into registers while it works on the
-// current group.
+// Design. The 4-state forward pass and both tracebacks run one thread per
+// lane, with the path metrics (or the traceback state) in registers, in
+// blocks of 32 threads (at B = 384: 4,608 lanes, 144 warps spread over all
+// 132 SMs), each thread prefetching the next group's observations or
+// decision words into registers while it works on the current group.
+// The PR forward pass is state-parallel: 16 threads per lane, one per
+// combined state, exchanging metrics by warp shuffles (its comment below
+// has the maps), in blocks of one warp (two lanes).
 //
-// What bounds it on an H100 at B = 384 (T = 21,528, L = 4,608): the bytes
-// are 397 MB of float32 obs (99 MB int8) plus 99 MB of decisions for the
-// 4-state forward pass (0.148 / 0.059 ms at 3.35 TB/s), 99 + 99 MB for its
-// traceback (0.059 ms), 397 + 397 MB for the PR forward pass (0.237 ms) and
-// 397 + 99 MB for its traceback (0.148 ms). None of the kernels comes near
-// those: each is a dependent chain of 21,528 steps on one warp per
-// scheduler, so it is bound by the latency of that chain (~60 instructions
-// a step for the 4-state pass, ~400 for the PR pass, a handful for a
-// traceback step). This design does nothing about that beyond spreading the
-// warps; several threads per lane (a state-parallel ACS exchanging metrics
-// by shuffles) is the lever.
+// What bounds them on an H100 at B = 384 (T = 21,528, L = 4,608): the
+// bytes are 397 MB of float32 obs (99 MB int8) plus 99 MB of decisions for
+// the 4-state forward pass (0.148 / 0.059 ms at 3.35 TB/s), 99 + 99 MB for
+// its traceback (0.059 ms), 397 + 397 MB for the PR forward pass (0.237
+// ms, under its operations bound of 0.367 ms at the fp32 peak) and 397 +
+// 99 MB for its traceback (0.148 ms). None of them comes near that: each
+// is a dependent chain of 21,528 steps. One thread per lane leaves one
+// warp per scheduler, so the 4-state pass and the tracebacks are bound by
+// the latency of their chain (~60 instructions a step for the 4-state
+// pass, a handful for a traceback step). The PR pass, one thread per lane,
+// ran ~400 dependent instructions a step (7.8 ms); 16 threads per lane cut
+// that to ~33 per thread and put ~17 warps on each SM, so it is bound by
+// issue and by the shuffle latency in each step's chain (metric -> shuffle
+// -> candidate -> minimum -> metric), at ~1/7 of the operations bound.
+// The 4-state pass stays one thread per lane for now: 4 states give 4
+// threads per lane, 576 warps for 528 schedulers, so the same design
+// there needs its own measurement.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -185,96 +191,182 @@ traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ st
   }
 }
 
-// One 16-state PR add-compare-select (no renormalization). rc: bit 0 = the
-// comb reference is a segment-sync symbol, bit 1 = its sign (+5, else -5).
-__device__ __forceinline__ uint32_t pr_step(float o, int32_t rc, float (&m)[16]) {
-  const bool reset = (rc & 1) != 0;
-  const float sync = (rc >> 1) == 1 ? 5.0f : -5.0f;
-  float a[8], pe[8];
+// The 16-state PR add-compare-select, state-parallel: 16 threads of one
+// warp per lane (two lanes per warp), thread t owning combined state
+// u = t = s2*4 + h' (v = 2h' + (s2&1) the emitted level, x1 = h'&1). Its
+// four candidates read the metrics of its predecessor group, sp*4 + h with
+// sp = PRED0[s2] ^ x1 (PRED0 = 0, 2, 1, 3): four shuffles a step.
+constexpr int kPrS = 16;                     // threads per lane
+constexpr int kPrThreads = 32;              // threads per block
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__host__ __device__ constexpr int pred0(int s2) { return 2 * (s2 & 1) + (s2 >> 1); }
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Transposes a 16 x 16 matrix of 2-bit entries held one row per thread by
+// the 16 threads t of a lane (entry j of a row at bits 2j, 2j+1): after it
+// thread t holds column t. Stage b swaps the off-diagonal b x b blocks of
+// the thread pair (t, t ^ b); kHi marks the entries j with j & b set.
+__device__ __forceinline__ uint32_t transpose16(uint32_t x, int t) {
+  constexpr uint32_t kHi[4] = {0xFFFF0000u, 0xFF00FF00u, 0xF0F0F0F0u, 0xCCCCCCCCu};
 #pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    a[v] = __fsub_rn(o, static_cast<float>(2 * v - 7));   // obs - emitted level
-    pe[v] = reset ? sync : static_cast<float>(2 * v - 7);  // delayed reference
+  for (int i = 0; i < 4; ++i) {
+    const int b = 8 >> i;
+    const uint32_t y = __shfl_xor_sync(kFull, x, b);
+    x = (t & b) ? (x & kHi[i]) | ((y >> (2 * b)) & ~kHi[i])
+                : (x & ~kHi[i]) | ((y << (2 * b)) & kHi[i]);
   }
-  float nm[16];
-  uint32_t word = 0;
-  // combined state u = s2*4 + h': v = 2h' + (s2&1), x1 = h'&1, predecessor
-  // trellis state sp = PRED0[s2] ^ x1, j = sp&1
-#pragma unroll
-  for (int u = 0; u < 16; ++u) {
-    const int s2 = u >> 2, h1 = u & 3;
-    const int v = 2 * h1 + (s2 & 1);
-    const int sp = (2 * (s2 & 1) + (s2 >> 1)) ^ (h1 & 1);
-    const int j = sp & 1;
-    float c[4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const float t = __fadd_rn(a[v], pe[2 * h + j]);
-      c[h] = __fadd_rn(m[sp * 4 + h], __fmul_rn(t, t));
-    }
-    const float m01 = fminf(c[0], c[1]);
-    const uint32_t i01 = c[1] < c[0];
-    const float m23 = fminf(c[2], c[3]);
-    const uint32_t i23 = c[3] < c[2];
-    const bool pick = m23 < m01;
-    nm[u] = fminf(m01, m23);
-    word |= (pick ? 2u + i23 : i01) << (2 * u);
-  }
-#pragma unroll
-  for (int u = 0; u < 16; ++u) m[u] = nm[u];
-  return word;
+  return x;
 }
 
-constexpr int kPrAhead = 4;  // PR steps prefetched ahead
-
-__global__ void __launch_bounds__(kThreads)
+// rc: bit 0 = the comb reference is a segment-sync symbol, bit 1 = its
+// sign (+5, else -5). A block runs NT/16 lanes; lanes past `lanes` run
+// along (the shuffles take the whole warp) but read and write nothing.
+// Per group of 24 steps the block stages the obs rows one group ahead,
+// lane-major in shared memory, so a thread takes its lane's 24 values in
+// six 16-byte loads; the group's rc entries of a lane's encoder come one
+// group ahead too, two per thread, and four ballots turn them into reset
+// and sign bit masks. A warp with no reset step in the group runs it
+// without the reset selects. Each thread packs its state's 2-bit picks,
+// 16 steps to a word, and one transpose16 turns the lane's 16 words into
+// the 16 steps' decision words (bits 2u, 2u+1 = the pick of state u),
+// thread t storing step t's. Nothing but the four metric shuffles goes
+// through the shared-memory/shuffle pipe in a step: per-step ballots and
+// shared stores, tried first, cost more than the arithmetic.
+template <int NT>
+__global__ void __launch_bounds__(NT)
 pr_acs_forward_kernel(const float* __restrict__ obs, const int32_t* __restrict__ rc,
                       const float* __restrict__ m_in, int32_t* __restrict__ dec,
                       float* __restrict__ m_out, int steps, int lanes) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= lanes) return;
-  const size_t stride = static_cast<size_t>(lanes);
+  constexpr int LPB = NT / kPrS;  // lanes per block
+  constexpr int kObs = kGroup * LPB;
+  constexpr int kObsPer = (kObs + NT - 1) / NT;
+  static_assert(NT % 32 == 0, "whole warps");
+  __shared__ __align__(16) float s_obs[2][LPB][kGroup];
+
+  const int tid = threadIdx.x;
+  const int seg = (tid & 31) >> 4, t = tid & 15;
+  const int ll = (tid >> 5) * 2 + seg;  // lane in the block
+  const int lane0 = blockIdx.x * LPB;
+  const int l = lane0 + ll;
+  const bool valid = l < lanes;
   const int e = l % 12;
-  float m[16];
+  const size_t stride = static_cast<size_t>(lanes);
+
+  const int s2 = t >> 2, h1 = t & 3;
+  const int sp = pred0(s2) ^ (h1 & 1);
+  const float lv = static_cast<float>(2 * (2 * h1 + (s2 & 1)) - 7);
+  int src[4];
+  float pc[4];  // the delayed reference level of hypothesis h, off reset steps
 #pragma unroll
-  for (int u = 0; u < 16; ++u) m[u] = m_in[u * stride + l];
-  float cur[kPrAhead], nxt[kPrAhead];
-  int32_t rcur[kPrAhead], rnxt[kPrAhead];
-#pragma unroll
-  for (int i = 0; i < kPrAhead; ++i) {
-    cur[i] = obs[i * stride + l];
-    rcur[i] = rc[i * 12 + e];
+  for (int h = 0; h < 4; ++h) {
+    src[h] = seg * kPrS + sp * 4 + h;
+    pc[h] = static_cast<float>(2 * (2 * h + (sp & 1)) - 7);
   }
-  const int blocks = steps / kPrAhead;
+  float m = valid ? m_in[t * stride + l] : 0.0f;
+
+  float p_obs[kObsPer];
+  int32_t p_rc[2];  // rc of steps t and 16 + t of the group, encoder e
+  auto fetch = [&](int g) {
+#pragma unroll
+    for (int i = 0; i < kObsPer; ++i) {
+      const int item = tid + i * NT, q = item % LPB;
+      const size_t row = static_cast<size_t>(g) * kGroup + item / LPB;
+      p_obs[i] = (item < kObs && lane0 + q < lanes) ? obs[row * stride + lane0 + q] : 0.0f;
+    }
+    const int32_t* r = rc + (static_cast<size_t>(g) * kGroup + t) * 12 + e;
+    p_rc[0] = r[0];
+    p_rc[1] = t < kGroup - 16 ? r[16 * 12] : 0;
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kObsPer; ++i) {
+      const int item = tid + i * NT;
+      if (item < kObs) s_obs[buf][item % LPB][item / LPB] = p_obs[i];
+    }
+  };
+  fetch(0);
+  stage(0);
+  __syncthreads();
+
+  const int groups = steps / kGroup;
 #pragma unroll 1
-  for (int b = 0; b < blocks; ++b) {
-    const int t0 = b * kPrAhead;
-    if (b + 1 < blocks) {
+  for (int g = 0; g < groups; ++g) {
+    const int buf = g & 1;
+    // the group's reset and sign bits of this lane's encoder, step s at
+    // bit s, from one ballot per 16 steps of the lane's 16 threads
+    const uint32_t reset0 = __ballot_sync(kFull, p_rc[0] & 1);
+    const uint32_t reset1 = __ballot_sync(kFull, p_rc[1] & 1);
+    const uint32_t sign0 = __ballot_sync(kFull, (p_rc[0] >> 1) == 1);
+    const uint32_t sign1 = __ballot_sync(kFull, (p_rc[1] >> 1) == 1);
+    const uint32_t reset_bits =
+        ((reset0 >> (16 * seg)) & 0xFFFFu) | (((reset1 >> (16 * seg)) & 0xFFu) << 16);
+    const uint32_t sign_bits =
+        ((sign0 >> (16 * seg)) & 0xFFFFu) | (((sign1 >> (16 * seg)) & 0xFFu) << 16);
+    if (g + 1 < groups) fetch(g + 1);
+    float ov[kGroup];
 #pragma unroll
-      for (int i = 0; i < kPrAhead; ++i) {
-        nxt[i] = obs[static_cast<size_t>(t0 + kPrAhead + i) * stride + l];
-        rnxt[i] = rc[(t0 + kPrAhead + i) * 12 + e];
+    for (int i = 0; i < kGroup; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&s_obs[buf][ll][i]);
+      ov[i] = v.x, ov[i + 1] = v.y, ov[i + 2] = v.z, ov[i + 3] = v.w;
+    }
+    int32_t* out = dec + static_cast<size_t>(g) * kGroup * stride + l;
+    auto run = [&](auto with_resets) {
+      uint32_t acc = 0;  // this state's picks, step s at bits 2(s % 16)
+#pragma unroll
+      for (int s = 0; s < kGroup; ++s) {
+        float mp[4], pe[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          mp[h] = __shfl_sync(kFull, m, src[h]);
+          pe[h] = pc[h];
+        }
+        if constexpr (decltype(with_resets)::value) {
+          const float sync = (sign_bits >> s) & 1u ? 5.0f : -5.0f;
+#pragma unroll
+          for (int h = 0; h < 4; ++h) pe[h] = (reset_bits >> s) & 1u ? sync : pc[h];
+        }
+        const float a = __fsub_rn(ov[s], lv);  // obs - emitted level
+        float c[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float tt = __fadd_rn(a, pe[h]);
+          c[h] = __fadd_rn(mp[h], __fmul_rn(tt, tt));
+        }
+        const float m01 = fminf(c[0], c[1]);
+        const uint32_t i01 = c[1] < c[0];
+        const float m23 = fminf(c[2], c[3]);
+        const uint32_t i23 = c[3] < c[2];
+        const bool pick = m23 < m01;
+        m = fminf(m01, m23);
+        acc |= (pick ? 2u + i23 : i01) << (2 * (s % 16));
+        if (s == 15 || s == kGroup - 1) {
+          const uint32_t word = transpose16(acc, t);  // step s - s % 16 + t
+          if (valid && (s == 15 || t < kGroup - 16))
+            out[static_cast<size_t>(s - s % 16 + t) * stride] = static_cast<int32_t>(word);
+          acc = 0;
+        }
       }
-    }
+    };
+    if ((reset0 | reset1) != 0)  // warp-uniform
+      run(Flag<true>());
+    else
+      run(Flag<false>());
+    // renormalize: the lane's minimum over its 16 threads (exact in any
+    // order on these finite, non-negative metrics)
+    float mn = m;
 #pragma unroll
-    for (int i = 0; i < kPrAhead; ++i)
-      dec[static_cast<size_t>(t0 + i) * stride + l] =
-          static_cast<int32_t>(pr_step(cur[i], rcur[i], m));
-    if ((t0 + kPrAhead) % kGroup == 0) {
-      float mn = m[0];
-#pragma unroll
-      for (int u = 1; u < 16; ++u) mn = fminf(mn, m[u]);
-#pragma unroll
-      for (int u = 0; u < 16; ++u) m[u] = __fsub_rn(m[u], mn);
-    }
-#pragma unroll
-    for (int i = 0; i < kPrAhead; ++i) {
-      cur[i] = nxt[i];
-      rcur[i] = rnxt[i];
-    }
+    for (int off = kPrS / 2; off > 0; off >>= 1)
+      mn = fminf(mn, __shfl_xor_sync(kFull, mn, off));
+    m = __fsub_rn(m, mn);
+    if (g + 1 < groups) stage(buf ^ 1);
+    __syncthreads();
   }
-#pragma unroll
-  for (int u = 0; u < 16; ++u) m_out[u * stride + l] = m[u];
+  if (valid) m_out[t * stride + l] = m;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -361,8 +453,10 @@ int atsc_pr_acs_forward(int device, const float* obs, const int32_t* rc, const f
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bad_shape(steps, lanes)) return static_cast<int>(cudaErrorInvalidValue);
-  pr_acs_forward_kernel<<<grid_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      obs, rc, m_in, dec, m_out, steps, lanes);
+  constexpr int lanes_per_block = kPrThreads / kPrS;
+  pr_acs_forward_kernel<kPrThreads>
+      <<<(lanes + lanes_per_block - 1) / lanes_per_block, kPrThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(obs, rc, m_in, dec, m_out, steps, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

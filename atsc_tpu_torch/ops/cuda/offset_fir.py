@@ -141,6 +141,8 @@ def offset_fir_fused(
         return offset_fir_plain(field, phasor, out_format, wire)
     if field.device.type != "cuda":
         raise ValueError(f"offset_fir_fused runs on cpu or cuda, not {field.device}")
+    if field.data_ptr() % 4:  # the kernel stages the field 4 symbols at a time
+        field = field.clone()
     dev = field.device
     lib = _kernel_lib(dev.index)
     out = torch.empty(shape, dtype=dtype, device=dev)

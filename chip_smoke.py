@@ -12,8 +12,9 @@ Phases, one JSON line each; any failed check exits non-zero:
    trellis_fused.cu and fir_variants.cu from this checkout, all at once;
    seconds and ptxas' resource lines.
 3. kernel: offset_fir_fused against its plain PyTorch twin on the card at
-   B=4 (random symbols plus golden field 0): cf32 <= 2e-6, cs16/cs8 planar
-   and wire <= 1 LSB over the valid [0, 260416).
+   B=4, 1 and 3 (random symbols plus golden field 0): cf32 <= 2e-6,
+   cs16/cs8 planar and wire <= 1 LSB over the valid [0, 260416); a field
+   one byte off a 4-byte boundary gives the aligned field's IQ exactly.
 4. golden: Encoder(batch=1, device="cuda") over the 4 golden fields: IQ
    <= 5e-6, randomize/RS/interleave bytes exact, final phasor bit-exact,
    one kernel launch per field.
@@ -49,8 +50,8 @@ Phases, one JSON line each; any failed check exits non-zero:
    pr_acs_forward (segment-sync reset steps inside the span) and
    pr_traceback against their plain twins on the card, bit for bit, at
    B=384 and T=21,528 on real decommutated levels (the port's encoder, the
-   equalizer, plus AWGN); each kernel timed (CUDA events) beside one run
-   of its plain twin.
+   equalizer, plus AWGN), pr_acs_forward also at 12 and 60 lanes; each
+   kernel timed (CUDA events) beside one run of its plain twin.
 13. golden_soft: IqReceiver(batch=1, device="cuda") with trellis="soft",
    trellis="soft-i8" and ntsc="comb" decodes golden IQ to
    golden["input"][0:3] exactly, one launch of each kernel of its path per
@@ -107,6 +108,9 @@ KERNEL_LEVEL_SIGMA = 0.5  # level-domain AWGN under the Viterbi kernel compariso
 # float ops of one trellis step and lane: 4-state (8 sub, 8 mul, 4 min, 8
 # add, 4 select), PR (8 sub, 64 add, 64 mul, 64 add, 48 min)
 ACS_FLOPS, PR_FLOPS = 32, 248
+# the designs of the two redesigned kernels, as their sources fix them
+FIR_DESIGN = "R=8 register window, 128 threads per block"   # csrc/offset_fir.cu
+PR_DESIGN = "state-parallel S=16, 32 threads per block"     # csrc/viterbi_acs.cu
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -236,23 +240,32 @@ def main() -> int:
     field = torch.tensor(sym, device=dev)
     phasor = torch.tensor(ph, device=dev)
     errs = {}
-    for fmt, wire in (("cf32", False), ("cs16", False), ("cs8", False),
-                      ("cs16", True), ("cs8", True)):
-        got = fir.offset_fir_fused(field, phasor, out_format=fmt, wire=wire)
-        want = fir.offset_fir_plain(field, phasor, out_format=fmt, wire=wire)
-        torch.cuda.synchronize()
-        shape, dtype = fir.output_spec(4, fmt, wire)
-        check(tuple(got.shape) == shape and got.dtype == dtype,
-              f"{fmt} wire={wire}: kernel output {tuple(got.shape)} {got.dtype}")
-        key = fmt + ("_wire" if wire else "")
-        if fmt == "cf32":
-            errs[key] = float((got[..., :n_valid] - want[..., :n_valid]).abs().max())
-            check(errs[key] <= 2e-6, f"cf32 kernel vs plain {errs[key]} > 2e-6")
-        else:
-            errs[key] = code_err(got, want, fmt, wire)
-            check(errs[key] <= 1, f"{key} kernel vs plain {errs[key]} LSB > 1")
-    emit("kernel", batch=4, max_abs_err_cf32=errs["cf32"],
+    for b in (4, 1, 3):  # and B=1, B=3: a grid of one and of three channels
+        for fmt, wire in (("cf32", False), ("cs16", False), ("cs8", False),
+                          ("cs16", True), ("cs8", True)):
+            got = fir.offset_fir_fused(field[:b], phasor[:b], out_format=fmt, wire=wire)
+            want = fir.offset_fir_plain(field[:b], phasor[:b], out_format=fmt, wire=wire)
+            torch.cuda.synchronize()
+            shape, dtype = fir.output_spec(b, fmt, wire)
+            check(tuple(got.shape) == shape and got.dtype == dtype,
+                  f"B={b} {fmt} wire={wire}: kernel output {tuple(got.shape)} {got.dtype}")
+            key = fmt + ("_wire" if wire else "")
+            if fmt == "cf32":
+                err = float((got[..., :n_valid] - want[..., :n_valid]).abs().max())
+                check(err <= 2e-6, f"B={b} cf32 kernel vs plain {err} > 2e-6")
+            else:
+                err = code_err(got, want, fmt, wire)
+                check(err <= 1, f"B={b} {key} kernel vs plain {err} LSB > 1")
+            errs[key] = max(errs.get(key, 0), err)
+    # a field one byte into its storage (not 4-byte aligned) gives the same IQ
+    buf = torch.empty(P.PADDED_SYMBOLS + 1, dtype=torch.int8, device=dev)
+    buf[1:] = field[0]
+    misaligned_same = torch.equal(fir.offset_fir_fused(buf[1:].view(1, -1), phasor[:1]),
+                                  fir.offset_fir_fused(field[:1], phasor[:1]))
+    check(misaligned_same, "a field off a 4-byte boundary gives other IQ")
+    emit("kernel", batch=[4, 1, 3], design=FIR_DESIGN, max_abs_err_cf32=errs["cf32"],
          max_lsb_err={k: v for k, v in errs.items() if k != "cf32"},
+         misaligned_field_identical=misaligned_same,
          tolerance={"cf32": 2e-6, "codes_lsb": 1})
 
     # -- 4. golden through the encoder on the card ----------------------------
@@ -457,6 +470,7 @@ def main() -> int:
             "route": "cuda",
             "source": "atsc_tpu_torch/csrc/offset_fir.cu",
             "replaces": "atsc_tpu/ops/pallas/offset_fir.py:148",
+            "design": FIR_DESIGN,
             "launches": launches_main,
             "max_abs_err": errs["cf32"],
             "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
@@ -1000,8 +1014,18 @@ def viterbi_kernels(dev) -> dict:
         lambda: vk.pr_acs_forward_plain(comb, rc, m16))
     checks["pr_acs_forward"] = same
     resets = int((rc & 1).sum()) * (l // 12)
+    # and at 12 and 60 lanes: a part-empty block, and fewer lanes than one
+    small = {}
+    for nb in (1, 5):
+        c_n, m_n = comb[:, :12 * nb].contiguous(), m16[:, :12 * nb].contiguous()
+        _, same_n, err_n, _, _ = held(lambda: vk.pr_acs_forward(c_n, rc, m_n),
+                                      lambda: vk.pr_acs_forward_plain(c_n, rc, m_n))
+        checks[f"pr_acs_forward_b{nb}"] = same_n
+        small[f"b{nb}"] = err_n
     out["pr_acs_forward"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, reset_steps=resets,
+        design=PR_DESIGN,
+        max_abs_err=max(err, *small.values()), max_abs_err_small=small, ms=ms,
+        plain_ms=plain_ms, reset_steps=resets,
         **_bound(2 * t * l * 4 + t * 12 * 4 + 2 * 16 * l * 4, t * l * PR_FLOPS))
     start = torch.argmin(m_out, dim=0).to(torch.int32)
     _, same, err, ms, plain_ms = held(lambda: vk.pr_traceback(dec, start),
@@ -1012,7 +1036,8 @@ def viterbi_kernels(dev) -> dict:
     del dec, comb
     emit("viterbi_kernels", batch=B_FULL, steps=t, lanes=l, identical=checks, **out)
     for k, ok in checks.items():
-        check(ok, f"{k}: the kernel differs from its plain twin at B={B_FULL}")
+        check(ok, f"{k}: the kernel differs from its plain twin"
+              + ("" if k.endswith(("_b1", "_b5")) else f" at B={B_FULL}"))
     check(resets > 0, "no segment-sync reset step inside the PR span")
     return out
 

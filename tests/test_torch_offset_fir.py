@@ -102,6 +102,20 @@ def test_wrapper_rejects_bad_input(case):
     assert fir.LAUNCHES == before
 
 
+def test_a_misaligned_field_is_accepted():
+    """A field that does not start on a 4-byte boundary (a view one byte
+    in) is taken as it is (the CUDA path copies it first, since the kernel
+    stages the field 4 symbols at a time) and gives the aligned output."""
+    rng = np.random.default_rng(3)
+    buf = torch.tensor(rng.integers(0, 8, P.PADDED_SYMBOLS + 1), dtype=torch.int8)
+    field = buf[1:].view(1, -1)
+    phasor = torch.tensor([[0.6, 0.8]], dtype=torch.float32)
+    assert field.data_ptr() % 4
+    got = fir.offset_fir_fused(field, phasor, "cs16", wire=True)
+    want = fir.offset_fir_fused(field.clone(), phasor, "cs16", wire=True)
+    assert torch.equal(got, want)
+
+
 def test_cuda_path_without_cuda_raises(monkeypatch, tmp_path):
     """Without nvcc the kernel build raises (no quiet plain fallback), and
     asking the encoder for CUDA without a card raises."""
