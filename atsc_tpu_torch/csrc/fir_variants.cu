@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kBlk = 128;                 // samples per row
@@ -233,8 +235,8 @@ extern "C" {
 int atsc_fir_variant(int device, const int8_t* field, const float* phasor, const float* osc,
                      const float* w2, float* out, int batch, int nchunk, int shared_mod,
                      int one_dot, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (batch < 1 || batch > 65535 || nchunk < 1 || kOutRows % nchunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

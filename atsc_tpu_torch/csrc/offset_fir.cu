@@ -55,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kPaddedSymbols = 261248;  // input samples per channel (params.PADDED_SYMBOLS)
@@ -223,8 +225,8 @@ extern "C" {
 // Copies the 112 RRC taps (host float32) into the kernel's constant memory
 // on `device`. Call once per device before the first launch there.
 int atsc_offset_fir_set_taps(int device, const float* taps) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   return static_cast<int>(cudaMemcpyToSymbol(c_taps, taps, sizeof(float) * kTaps));
 }
 
@@ -235,8 +237,8 @@ int atsc_offset_fir_set_taps(int device, const float* taps) {
 // Launches on `stream` and returns cudaGetLastError().
 int atsc_offset_fir(int device, const int8_t* field, const float* phasor, const float* osc,
                     void* out, int batch, int fmt, float qscale, float qmax, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(field) % 4 || reinterpret_cast<uintptr_t>(osc) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)

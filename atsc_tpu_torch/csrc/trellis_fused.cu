@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kRowBytes = 5504;                 // padded bytes per row (43 x 128)
@@ -139,8 +141,8 @@ extern "C" {
 int atsc_trellis_fused(int device, const uint8_t* il, const int32_t* d, const int32_t* d1,
                        const int32_t* d2, int8_t* out, int rows, int interleaved,
                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + kWarps - 1) / kWarps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

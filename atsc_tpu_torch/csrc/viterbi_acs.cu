@@ -31,14 +31,16 @@
 // the reference: min/argmin of (c0, c1) and of (c2, c3), then the pair with
 // the strictly smaller minimum, the first pair on a tie.
 //
-// Design. The 4-state forward pass and both tracebacks run one thread per
-// lane, with the path metrics (or the traceback state) in registers, in
-// blocks of 32 threads (at B = 384: 4,608 lanes, 144 warps spread over all
-// 132 SMs), each thread prefetching the next group's observations or
-// decision words into registers while it works on the current group.
-// The PR forward pass is state-parallel: 16 threads per lane, one per
-// combined state, exchanging metrics by warp shuffles (its comment below
-// has the maps), in blocks of one warp (two lanes).
+// Design. Both tracebacks run one thread per lane, with the traceback
+// state in registers, in blocks of 32 threads (at B = 384: 4,608 lanes,
+// 144 warps spread over all 132 SMs), each thread prefetching the next
+// group's decision words into registers while it works on the current
+// group. Both forward passes are state-parallel, exchanging metrics by
+// warp shuffles with the observations one group ahead in registers: the
+// 4-state pass as a butterfly, 2 threads per lane with two states each
+// (9,216 threads, 288 warps at B = 384), the PR pass with 16 threads per
+// lane, one per combined state, both in blocks of one warp (their comments
+// below have the maps).
 //
 // What bounds them on an H100 at B = 384 (T = 21,528, L = 4,608): the
 // bytes are 397 MB of float32 obs (99 MB int8) plus 99 MB of decisions for
@@ -47,19 +49,18 @@
 // ms, under its operations bound of 0.367 ms at the fp32 peak) and 397 +
 // 99 MB for its traceback (0.148 ms). None of them comes near that: each
 // is a dependent chain of 21,528 steps. One thread per lane leaves one
-// warp per scheduler, so the 4-state pass and the tracebacks are bound by
-// the latency of their chain (~60 instructions a step for the 4-state
-// pass, a handful for a traceback step). The PR pass, one thread per lane,
-// ran ~400 dependent instructions a step (7.8 ms); 16 threads per lane cut
-// that to ~33 per thread and put ~17 warps on each SM, so it is bound by
-// issue and by the shuffle latency in each step's chain (metric -> shuffle
-// -> candidate -> minimum -> metric), at ~1/7 of the operations bound.
-// The 4-state pass stays one thread per lane for now: 4 states give 4
-// threads per lane, 576 warps for 528 schedulers, so the same design
-// there needs its own measurement.
+// warp per scheduler, so the tracebacks are bound by the latency of their
+// chain (a handful of instructions a traceback step). The forward passes,
+// one thread per lane, ran ~60 (4-state) and ~400 (PR) dependent
+// instructions a step; spread over 2 and 16 threads per lane they run ~30
+// and ~33 per thread, bound by issue and by the latency of each step's
+// chain (metric -> add -> minimum -> shuffle -> metric): the number of
+// lanes at B = 384 does not fill the schedulers twice over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -68,92 +69,139 @@ constexpr int kWpg = kGroup / 4;     // 4-state decision words per group
 constexpr int kThreads = 32;
 constexpr float kPilot = 1.25f;      // params.PILOT_OFFSET
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
 __device__ __forceinline__ float load_obs(float x, float) { return x; }
 __device__ __forceinline__ float load_obs(int8_t c, float inv) {
   return __fmul_rn(static_cast<float>(c), inv);  // ops.quantize SOFT_LEVEL_INV
 }
 
-// One 4-state add-compare-select (no renormalization): updates m0..m3 and
-// returns the decision byte, bits (2s, 2s+1) = (x1, z2) into new state s.
-__device__ __forceinline__ uint32_t acs_step(float o, float& m0, float& m1, float& m2,
-                                             float& m3) {
-  float d[8];
+// The branch metrics one thread needs for new states s' = 2a + b: the
+// Z2-resolved minima p[x1] = min(d[2 x1 + b], d[2 x1 + b + 4]) and their Z2
+// bits z[x1] = d[2 x1 + b + 4] < d[2 x1 + b] (strict), d[v] = (o - lv[v])^2.
+struct Branches {
+  float p0, p1;
+  uint32_t z0, z1;
+};
+
+__device__ __forceinline__ Branches branches(float o, const float (&lv)[4]) {
+  float d[4];  // levels b, b + 4, 2 + b, 6 + b
 #pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const float t = __fsub_rn(o, static_cast<float>(2 * v - 7) + kPilot);
-    d[v] = __fmul_rn(t, t);
+  for (int i = 0; i < 4; ++i) {
+    const float t = __fsub_rn(o, lv[i]);
+    d[i] = __fmul_rn(t, t);
   }
-  // parallel-branch (Z2) resolution per (x1, z0-branch) pair
-  const float p00 = fminf(d[0], d[4]);
-  const float p01 = fminf(d[1], d[5]);
-  const float p10 = fminf(d[2], d[6]);
-  const float p11 = fminf(d[3], d[7]);
-  const uint32_t zc00 = d[4] < d[0], zc01 = d[5] < d[1];
-  const uint32_t zc10 = d[6] < d[2], zc11 = d[7] < d[3];
-  // new state s' = 2a + b: predecessors 2b+a (X1=0) and 2b+1-a (X1=1)
-  uint32_t dec = 0;
-  float n[4];
-  const float c0[4] = {__fadd_rn(m0, p00), __fadd_rn(m2, p01), __fadd_rn(m1, p00),
-                       __fadd_rn(m3, p01)};
-  const float c1[4] = {__fadd_rn(m1, p10), __fadd_rn(m3, p11), __fadd_rn(m0, p10),
-                       __fadd_rn(m2, p11)};
-  const uint32_t z0[4] = {zc00, zc01, zc00, zc01};
-  const uint32_t z1[4] = {zc10, zc11, zc10, zc11};
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const bool x1 = c1[s] < c0[s];
-    n[s] = x1 ? c1[s] : c0[s];
-    const uint32_t z2 = x1 ? z1[s] : z0[s];
-    dec |= (static_cast<uint32_t>(x1) | (z2 << 1)) << (2 * s);
-  }
-  m0 = n[0];
-  m1 = n[1];
-  m2 = n[2];
-  m3 = n[3];
-  return dec;
+  return {fminf(d[0], d[1]), fminf(d[2], d[3]), d[1] < d[0], d[3] < d[2]};
 }
 
+// One survivor: candidates c0 (X1 = 0) and c1 (X1 = 1); returns the 2-bit
+// decision (x1 | z2 << 1) and sets m to the survivor. x1 = c1 < c0 (strict)
+// picks c1 only when it is smaller, so the survivor is fminf(c0, c1): the
+// same value (the metrics are finite and never -0.0), one instruction on
+// the metric chain instead of a compare and a select.
+__device__ __forceinline__ uint32_t survivor(float c0, float c1, const Branches& br, float& m) {
+  const bool x1 = c1 < c0;
+  m = fminf(c0, c1);
+  return static_cast<uint32_t>(x1) | ((x1 ? br.z1 : br.z0) << 1);
+}
+
+// The 4-state add-compare-select, state-parallel as a butterfly: 2
+// threads per lane, consecutive in a warp, in blocks of kAcsThreads (lanes
+// past `lanes` run along, the shuffles take the whole warp, but read and
+// write nothing). New state s' = 2a + b has predecessors 2b + a (X1 = 0)
+// and 2b + 1 - a (X1 = 1), and both read the branches of bit b. Thread b
+// holds states x = 3b and y = 1 + b. Both new states it makes read the
+// predecessor pair {x, y} ({0, 1} or {3, 2}): it keeps new state 3b
+// (X1 = 0 from x, X1 = 1 from y) and sends new state 2 - b (X1 = 0 from y,
+// X1 = 1 from x) to the other thread, whose send is its next y: one xor
+// shuffle a step and no select on the metric chain. Its decisions fill the
+// bits of its two states in each step's byte; one xor shuffle per 8 steps
+// merges the two threads' halves of 2 words, thread w storing word w. A
+// group of 24 steps is 3 x 8 steps of words, so the words of a group never
+// straddle a renormalization. The renormalizing minimum is taken by an xor
+// shuffle (fminf, exact in any order on these finite, non-negative
+// metrics). Observations are loaded by both threads of a lane (one address
+// per lane, a broadcast) one group ahead, into registers; float32 ones are
+// also prefetched into L2 kAcsAhead groups ahead by the lane's first
+// thread (it took the float32 pass from 1.16 to 0.92 ms at B = 384; int8
+// codes, a quarter of the bytes, gained nothing from it).
+// Measured at B = 384 on an H100 (32 threads per block, T = 21,528): 0.92
+// ms (float32) and 0.68 ms (int8), against 1.54 and 1.53 for one thread
+// per lane and 1.09 and 0.95 for 4 threads per lane, a state each.
+constexpr int kAcsThreads = 32;   // threads per block
+constexpr int kAcsAhead = 2;      // float32 observations: groups prefetched ahead into L2
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAcsThreads)
 acs_forward_kernel(const T* __restrict__ obs, const float* __restrict__ m_in,
                    int32_t* __restrict__ dec, float* __restrict__ m_out, int groups, int lanes,
                    float inv) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= lanes) return;
+  static_assert(kAcsThreads % 32 == 0, "whole warps");
+  const int tid = blockIdx.x * kAcsThreads + threadIdx.x;
+  // b: this thread holds states (x, y) = (3b, 1 + b). Written tid & 1 and
+  // tid >> 1, the same instructions schedule differently and the int8 pass
+  // took 1.07 ms instead of 0.67 (H100, B = 384, tools/torch_kernel_ab.py).
+  const int t = tid % 2;
+  const int l = tid / 2;
+  const int b = t & 1;
+  const bool valid = l < lanes;
+  const int lc = valid ? l : lanes - 1;  // lanes past the end read the last lane
   const size_t stride = static_cast<size_t>(lanes);
-  float m0 = m_in[l], m1 = m_in[stride + l], m2 = m_in[2 * stride + l],
-        m3 = m_in[3 * stride + l];
-  const T* src = obs + l;
+  float lv[4];  // the levels of this thread's four branches
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int v = b + (i & 1) * 4 + (i >> 1) * 2;  // b, b + 4, 2 + b, 6 + b
+    lv[i] = static_cast<float>(2 * v - 7) + kPilot;
+  }
+  float m = m_in[3 * b * stride + lc];
+  float m2 = m_in[(1 + b) * stride + lc];
+
+  const T* src = obs + lc;
   int32_t* out = dec + l;
   T cur[kGroup], nxt[kGroup];
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) cur[i] = src[i * stride];
+#pragma unroll 1
   for (int g = 0; g < groups; ++g) {
     if (g + 1 < groups) {
       const T* p = src + static_cast<size_t>(g + 1) * kGroup * stride;
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) nxt[i] = p[i * stride];
     }
+    if (sizeof(T) == 4 && kAcsAhead > 0 && g + kAcsAhead < groups && b == 0) {
+      const T* p = src + static_cast<size_t>(g + kAcsAhead) * kGroup * stride;
 #pragma unroll
-    for (int j = 0; j < kWpg; ++j) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        word |= acs_step(load_obs(cur[4 * j + k], inv), m0, m1, m2, m3) << (8 * k);
-      out[static_cast<size_t>(g * kWpg + j) * stride] = static_cast<int32_t>(word);
+      for (int i = 0; i < kGroup; ++i)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i * stride));
     }
-    const float mn = fminf(fminf(m0, m1), fminf(m2, m3));
-    m0 = __fsub_rn(m0, mn);
-    m1 = __fsub_rn(m1, mn);
+    int32_t* row = out + static_cast<size_t>(g) * kWpg * stride;
+    uint32_t w[2] = {0, 0};  // this thread's bits of the 2 words of 8 steps
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      const Branches br = branches(load_obs(cur[s], inv), lv);
+      float keep, send;  // new states 3b and 2 - b (the other thread's next y)
+      const uint32_t dk = survivor(__fadd_rn(m, br.p0), __fadd_rn(m2, br.p1), br, keep);
+      const uint32_t ds = survivor(__fadd_rn(m2, br.p0), __fadd_rn(m, br.p1), br, send);
+      m = keep;
+      m2 = __shfl_xor_sync(kFull, send, 1);
+      w[s % 8 / 4] |= ((dk << (6 * b)) | (ds << (4 - 2 * b))) << (8 * (s % 4));
+      if (s % 8 == 7) {  // words 2 (s / 8), 2 (s / 8) + 1 of the group
+        const uint32_t word = w[b] | __shfl_xor_sync(kFull, w[1 - b], 1);
+        if (valid) row[static_cast<size_t>(s / 8 * 2 + b) * stride] = static_cast<int32_t>(word);
+        w[0] = w[1] = 0;
+      }
+    }
+    float mn = fminf(m, m2);
+    mn = fminf(mn, __shfl_xor_sync(kFull, mn, 1));
+    m = __fsub_rn(m, mn);
     m2 = __fsub_rn(m2, mn);
-    m3 = __fsub_rn(m3, mn);
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) cur[i] = nxt[i];
   }
-  m_out[l] = m0;
-  m_out[stride + l] = m1;
-  m_out[2 * stride + l] = m2;
-  m_out[3 * stride + l] = m3;
+  if (valid) {
+    m_out[3 * b * stride + l] = m;
+    m_out[(1 + b) * stride + l] = m2;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -198,7 +246,6 @@ traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ st
 // sp = PRED0[s2] ^ x1 (PRED0 = 0, 2, 1, 3): four shuffles a step.
 constexpr int kPrS = 16;                     // threads per lane
 constexpr int kPrThreads = 32;              // threads per block
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __host__ __device__ constexpr int pred0(int s2) { return 2 * (s2 & 1) + (s2 >> 1); }
 
@@ -421,16 +468,18 @@ extern "C" {
 // contiguous on `device`. Launches on `stream`, returns cudaGetLastError().
 int atsc_acs_forward(int device, const void* obs, int obs_i8, const float* m_in, int32_t* dec,
                      float* m_out, int steps, int lanes, float inv, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(steps, lanes)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int groups = steps / kGroup;
+  const int blocks = static_cast<int>(
+      (static_cast<int64_t>(lanes) * 2 + kAcsThreads - 1) / kAcsThreads);
   if (obs_i8)
-    acs_forward_kernel<int8_t><<<grid_for(lanes), kThreads, 0, st>>>(
+    acs_forward_kernel<int8_t><<<blocks, kAcsThreads, 0, st>>>(
         static_cast<const int8_t*>(obs), m_in, dec, m_out, groups, lanes, inv);
   else
-    acs_forward_kernel<float><<<grid_for(lanes), kThreads, 0, st>>>(
+    acs_forward_kernel<float><<<blocks, kAcsThreads, 0, st>>>(
         static_cast<const float*>(obs), m_in, dec, m_out, groups, lanes, inv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -438,8 +487,8 @@ int atsc_acs_forward(int device, const void* obs, int obs_i8, const float* m_in,
 // dec, bits: (W, L) int32 with W = T/4 a multiple of 6; start: (L,) int32.
 int atsc_traceback(int device, const int32_t* dec, const int32_t* start, int32_t* bits,
                    int words, int lanes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(4 * words, lanes)) return static_cast<int>(cudaErrorInvalidValue);
   traceback_kernel<<<grid_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dec, start, bits, words / kWpg, lanes);
@@ -450,8 +499,8 @@ int atsc_traceback(int device, const int32_t* dec, const int32_t* start, int32_t
 // dec: (T, L) int32.
 int atsc_pr_acs_forward(int device, const float* obs, const int32_t* rc, const float* m_in,
                         int32_t* dec, float* m_out, int steps, int lanes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(steps, lanes)) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int lanes_per_block = kPrThreads / kPrS;
   pr_acs_forward_kernel<kPrThreads>
@@ -463,8 +512,8 @@ int atsc_pr_acs_forward(int device, const float* obs, const int32_t* rc, const f
 // dec: (T, L) int32; start: (L,) int32; bits: (T/4, L) int32.
 int atsc_pr_traceback(int device, const int32_t* dec, const int32_t* start, int32_t* bits,
                       int steps, int lanes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(steps, lanes)) return static_cast<int>(cudaErrorInvalidValue);
   pr_traceback_kernel<<<grid_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dec, start, bits, steps / kGroup, lanes);

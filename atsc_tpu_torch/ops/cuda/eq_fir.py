@@ -160,9 +160,10 @@ def _kernel_lib(device_index: int) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _tier(device_index: int, eq_k: int, exact: bool) -> int:
-    """The kernel tier of (eq_k, exact), its taps loaded into constant
-    memory on the device at first use (fast-tier taps rounded to bf16
-    here, once)."""
+    """The kernel tier of (eq_k, exact), its taps loaded on the device at
+    first use: the fast tier's rounded to bf16 here, once, and laid out
+    by the library as the tensor-core kernel's band matrices; the exact
+    tier's into constant memory. Call it with the device current."""
     tier = TIERS[(eq_k, exact)]
     p, q = _taps_f32(eq_k)
     if not exact:
@@ -191,7 +192,11 @@ def eq_fir_fused(
     operands, or (256, True), the fp32 exact tier.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-    eq_fir_plain.
+    eq_fir_plain. The kernels load win and osc 16 bytes at a time, so on
+    CUDA each must start at a 16-byte-aligned address: one that does not
+    (a window cut out of a longer device-resident stream at an odd
+    offset) is cloned first, a copy of the whole tensor on every call
+    (0.8 GB for a B=384 float32 window, about the kernel's own time).
     """
     global LAUNCHES
     _check(win, osc, eq_k, exact)
@@ -203,11 +208,15 @@ def eq_fir_fused(
     if b > 65535:
         raise ValueError(f"batch {b} > 65535 (the kernel's grid.y)")
     dev = win.device
+    if win.data_ptr() % 16:  # the kernels load the window 16 bytes at a time
+        win = win.clone()
+    if osc.data_ptr() % 16:
+        osc = osc.clone()
     out_mode = (2 if soft_q else 1) if soft else 0
     out = torch.empty((b, N_OUT), dtype=torch.float32 if out_mode == 1 else torch.int8,
                       device=dev)
-    tier = _tier(dev.index, eq_k, exact)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev):  # the first call loads the tier's taps on dev here
+        tier = _tier(dev.index, eq_k, exact)
         err = _kernel_lib(dev.index).atsc_eq_fir(
             dev.index, win.data_ptr(), _WIN_TYPE[win.dtype], osc.data_ptr(),
             out.data_ptr(), b, tier, out_mode, float(_scale(dequant)),

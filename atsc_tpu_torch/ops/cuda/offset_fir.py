@@ -144,12 +144,11 @@ def offset_fir_fused(
     if field.data_ptr() % 4:  # the kernel stages the field 4 symbols at a time
         field = field.clone()
     dev = field.device
-    lib = _kernel_lib(dev.index)
     out = torch.empty(shape, dtype=dtype, device=dev)
     osc = const(_osc_planar, dev)
     quantized = out_format != "cf32"
-    with torch.cuda.device(dev):
-        err = lib.atsc_offset_fir(
+    with torch.cuda.device(dev):  # the first call loads the taps on dev here
+        err = _kernel_lib(dev.index).atsc_offset_fir(
             dev.index, field.data_ptr(), phasor.data_ptr(), osc.data_ptr(),
             out.data_ptr(), field.shape[0], _FORMAT_CODE[(out_format, wire)],
             quantize_scale(out_format) if quantized else 0.0,

@@ -10,7 +10,9 @@ Phases, one JSON line each; any failed check exits non-zero:
    power limit; TF32 is switched off for matmul and cuDNN.
 2. build: nvcc builds csrc/offset_fir.cu, eq_fir.cu, viterbi_acs.cu,
    trellis_fused.cu and fir_variants.cu from this checkout, all at once;
-   seconds and ptxas' resource lines.
+   seconds and ptxas' resource lines; the RRC taps load on the chosen card.
+   After that and after each wrapper's first launches (phases 3, 7, 12, 17
+   and 18) the current CUDA device must still be the chosen one.
 3. kernel: offset_fir_fused against its plain PyTorch twin on the card at
    B=4, 1 and 3 (random symbols plus golden field 0): cf32 <= 2e-6,
    cs16/cs8 planar and wire <= 1 LSB over the valid [0, 260416); a field
@@ -29,7 +31,8 @@ Phases, one JSON line each; any failed check exits non-zero:
    tiers, f32/cs16/cs8 windows, hard/soft/soft-code outputs, on a clean
    loopback window (the port's Encoder on golden input) and a random one:
    soft <= 1e-4 (fast) / 1e-5 (exact); hard identical on the clean window
-   and, elsewhere, different only within 1e-4 of a decision boundary.
+   and, elsewhere, different only within 1e-4 of a decision boundary; a
+   window off a 16-byte boundary gives the aligned window's levels.
 8. golden_receive: IqReceiver(batch=1, device="cuda") decodes golden IQ to
    golden["input"][0:3] exactly, one kernel launch per equalized field.
 9. receive_full: B=384 distinct random TS encoded on the card, field
@@ -50,8 +53,9 @@ Phases, one JSON line each; any failed check exits non-zero:
    pr_acs_forward (segment-sync reset steps inside the span) and
    pr_traceback against their plain twins on the card, bit for bit, at
    B=384 and T=21,528 on real decommutated levels (the port's encoder, the
-   equalizer, plus AWGN), pr_acs_forward also at 12 and 60 lanes; each
-   kernel timed (CUDA events) beside one run of its plain twin.
+   equalizer, plus AWGN), each pass and its traceback also at 12 and 60
+   lanes (acs_forward in both observation types); each kernel timed (CUDA
+   events) beside one run of its plain twin.
 13. golden_soft: IqReceiver(batch=1, device="cuda") with trellis="soft",
    trellis="soft-i8" and ntsc="comb" decodes golden IQ to
    golden["input"][0:3] exactly, one launch of each kernel of its path per
@@ -80,7 +84,10 @@ Phases, one JSON line each; any failed check exits non-zero:
    valid [0, 260416), on random symbols with golden field 0 in channel 0;
    each run timed, the twin once.
 
-Then the kernels line, and last {"ok": true, "device": {...}}. Without a
+Then the kernels line (offset_fir_fused, eq_fir_fused, acs_forward and
+pr_acs_forward also carry `design`, a string fixed here beside the
+sources' constants; eq_fir_fused its fast tier's soft-level error at B=4
+and B=384), and last {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
 printing any result.
 """
@@ -111,6 +118,11 @@ ACS_FLOPS, PR_FLOPS = 32, 248
 # the designs of the two redesigned kernels, as their sources fix them
 FIR_DESIGN = "R=8 register window, 128 threads per block"   # csrc/offset_fir.cu
 PR_DESIGN = "state-parallel S=16, 32 threads per block"     # csrc/viterbi_acs.cu
+ACS_DESIGN = ("state-parallel butterfly S=2, 32 threads per block, "
+              "float32 obs prefetched 2 groups ahead into L2")  # csrc/viterbi_acs.cu
+EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
+             "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
+             "float32 chunks of 2 bands; exact: CUDA cores, Kahan chunks")  # csrc/eq_fir.cu
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -143,6 +155,16 @@ def timed(fn, reps: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_kept(dev, after: str) -> None:
+    """Fails unless dev is still the current CUDA device: no kernel entry
+    point or tap load may move it (on one card this cannot fail; with more
+    it would show a leak)."""
+    import torch
+
+    check(torch.cuda.current_device() == dev.index,
+          f"the current CUDA device moved to {torch.cuda.current_device()} after {after}")
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]:
@@ -209,12 +231,13 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
         futures = {k: pool.submit(_build.build, k) for k in sources}
         builds = {k: f.result() for k, f in futures.items()}
-    fir._kernel_lib(0)
-    eqk._kernel_lib(0)
-    vk._kernel_lib(0)
+    fir._kernel_lib(dev.index)   # loads the RRC taps on dev
+    eqk._kernel_lib(dev.index)
+    vk._kernel_lib(dev.index)
     tfk._kernel_lib()
     fvk._kernel_lib()
     wall = time.perf_counter() - t0
+    device_kept(dev, "the tap load")
     for kname, built in builds.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -263,6 +286,7 @@ def main() -> int:
     misaligned_same = torch.equal(fir.offset_fir_fused(buf[1:].view(1, -1), phasor[:1]),
                                   fir.offset_fir_fused(field[:1], phasor[:1]))
     check(misaligned_same, "a field off a 4-byte boundary gives other IQ")
+    device_kept(dev, "offset_fir_fused")
     emit("kernel", batch=[4, 1, 3], design=FIR_DESIGN, max_abs_err_cf32=errs["cf32"],
          max_lsb_err={k: v for k, v in errs.items() if k != "cf32"},
          misaligned_field_identical=misaligned_same,
@@ -445,6 +469,7 @@ def main() -> int:
 
     # -- 7-10. the receive path -------------------------------------------------
     eq_err = receive_kernel_vs_plain(golden, dev)
+    device_kept(dev, "eq_fir_fused")
     receive_golden(golden, dev)
     rx = receive_full_size(dev)
     receive_noisy(dev)
@@ -452,6 +477,7 @@ def main() -> int:
 
     # -- 12-16. the soft and NTSC trellis tiers --------------------------------
     vit = viterbi_kernels(dev)
+    device_kept(dev, "the Viterbi kernels")
     receive_golden_soft(golden, dev)
     vit_launches = receive_full_soft(dev)
     receive_noisy_soft(dev)
@@ -460,9 +486,11 @@ def main() -> int:
     # -- 17-18. the probe paths: neither kernel is on a main path above -------
     main_path = {"trellis_fused": tfk.LAUNCHES, "fir_variants": fvk.LAUNCHES}
     trellis = trellis_fused_kernel(dev)
+    device_kept(dev, "trellis_fused")
     variants = fir_variants_kernel(
         golden, dev, {"bound_ms": fir_bound, "bound_by": fir_bound_by,
                       "library_ms": fir_conv_ms, "library": "F.conv1d fp32"})
+    device_kept(dev, "run_variant")
 
     print(json.dumps({"kernels": [
         {
@@ -485,6 +513,7 @@ def main() -> int:
             "route": "cuda",
             "source": "atsc_tpu_torch/csrc/eq_fir.cu",
             "replaces": "atsc_tpu/ops/pallas/eq_fir.py:137",
+            "design": EQ_DESIGN,
             "launches": rx["launches"],
             "max_abs_err": rx["max_abs_err"],
             "max_abs_err_b4": eq_err,
@@ -649,9 +678,20 @@ def receive_kernel_vs_plain(golden, dev) -> float:
                           f"eq {key}: mismatch away from a decision boundary")
                     if wname == "clean" and mode == "hard":
                         check(not bool(diff.any()), f"eq {key}: hard symbols differ")
+    # a window one element into its storage (off a 16-byte boundary; the
+    # wrapper copies it) gives the aligned window's levels exactly
+    eq_k, _ = EQ_PROFILES["fast"]
+    osc = torch.tensor(_osc_planar(n - eq_k, n - eq_k + eqk.WIN_LEN, 0), device=dev)
+    win = _window(streams["cf32"], n, eq_k)
+    buf = torch.empty(win.numel() + 1, dtype=win.dtype, device=dev)
+    buf[1:] = win.reshape(-1)
+    misaligned_same = torch.equal(eqk.eq_fir_fused(buf[1:].view(win.shape), osc, soft=True),
+                                  eqk.eq_fir_fused(win, osc, soft=True))
     torch.cuda.synchronize()
     emit("eq_kernel", batch=b, max_abs_err_soft=worst, tolerance=tol,
-         mismatches={k: v for k, v in mismatches.items() if v})
+         mismatches={k: v for k, v in mismatches.items() if v},
+         misaligned_window_identical=misaligned_same)
+    check(misaligned_same, "eq: a window off a 16-byte boundary gives other levels")
     return worst["fast"]
 
 
@@ -1006,7 +1046,28 @@ def viterbi_kernels(dev) -> dict:
     _, same, err, ms, plain_ms = held(lambda: vk.traceback(dec, start),
                                       lambda: vk.traceback_plain(dec, start))
     checks["traceback"] = same
-    out["traceback"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    # and at 12 and 60 lanes: fewer lanes than one warp, and a part-empty
+    # block, each pass and observation type, then its traceback
+    small_acs, small_tb = {}, {}
+    for nb in (1, 5):
+        m_n = m4[:, :12 * nb].contiguous()
+        for key, o_n, inv in (("f32", obs, None), ("int8", codes, SOFT_LEVEL_INV)):
+            o_n = o_n[:, :12 * nb].contiguous()
+            (dec_n, mo_n), same_n, err_n, _, _ = held(
+                lambda: vk.acs_forward(o_n, m_n, inv),
+                lambda: vk.acs_forward_plain(o_n, m_n, inv))
+            checks[f"acs_forward_{key}_b{nb}"] = same_n
+            small_acs[f"{key}_b{nb}"] = err_n
+        st_n = torch.argmin(mo_n, dim=0).to(torch.int32)
+        _, same_n, err_n, _, _ = held(lambda: vk.traceback(dec_n, st_n),
+                                      lambda: vk.traceback_plain(dec_n, st_n))
+        checks[f"traceback_b{nb}"] = same_n
+        small_tb[f"b{nb}"] = err_n
+    out["acs_forward"].update(design=ACS_DESIGN, max_abs_err_small=small_acs)
+    out["acs_forward"]["max_abs_err"] = max(out["acs_forward"]["max_abs_err"],
+                                            *small_acs.values())
+    out["traceback"] = dict(max_abs_err=max(err, *small_tb.values()),
+                            max_abs_err_small=small_tb, ms=ms, plain_ms=plain_ms,
                             **_bound(2 * (t // 4) * l * 4 + l * 4, 0))
     del dec, obs, codes
     (dec, m_out), same, err, ms, plain_ms = held(

@@ -1,6 +1,8 @@
-"""Models of the index maps of two hand kernels of the PyTorch port, on the
-CPU: the state-parallel PR add-compare-select of csrc/viterbi_acs.cu and
-the register-blocked FIR tiling of csrc/offset_fir.cu.
+"""Models of the index maps of the redesigned hand kernels of the PyTorch
+port, on the CPU: the state-parallel PR and 4-state add-compare-select
+passes of csrc/viterbi_acs.cu, the register-blocked FIR tiling of
+csrc/offset_fir.cu and the tensor-core band tiling of the fast equalizer
+tier in csrc/eq_fir.cu.
 
 The kernels run only on a CUDA device (chip_smoke.py holds them against
 their plain twins there). These models replay, in numpy, what each thread
@@ -14,7 +16,19 @@ sources, so a wrong map shows here without a card:
 - the FIR model checks that the blocks and threads own every output of
   [0, 261120) exactly once, read only inside the field, and that each
   thread's register window and tap order give each output its 111 taps in
-  order k = 0..110.
+  order k = 0..110;
+- the 4-state model emulates the butterfly (2 threads per lane, two
+  states each) thread by thread: held states, the shuffled state,
+  decision packing and its merge into words, the 3 x 8 step words of a
+  24-step group and the renormalization, and must equal acs_forward_plain
+  bit for bit on float32 and int8 observations;
+- the equalizer model replays the fast tier's 16 x 16 tiles: the blocks,
+  warps and tiles own every output of [0, 260416) once, read only inside
+  the window, each lane's ldmatrix row addresses and the host-built B
+  operand image give the mma fragments of the band-16 product, which sums
+  to banded_fir_wl over the 128-wide band weights, and the kernel's
+  chunked float32 accumulation stays within the fast tier's 1e-4 of
+  eq_fir_plain.
 """
 
 import os
@@ -246,3 +260,320 @@ def test_fir_stores_cover_the_output_once_in_aligned_vectors(fmt, wire):
                 assert (start * size % (4 * size) == 0).all()
                 np.add.at(written, (start[:, None] + np.arange(4)).reshape(-1), 1)
     assert (written == 1).all()
+
+
+# -- the 4-state add-compare-select ------------------------------------------
+
+ACS_THREADS = _constant("viterbi_acs.cu", "kAcsThreads")
+_PILOT = np.float32(1.25)
+
+
+def _emulate_acs(obs: np.ndarray, m_in: np.ndarray, inv=None):
+    """Every thread of acs_forward_kernel (the butterfly, 2 threads per
+    lane), warp by warp, one step at a time, in float32 with one rounding
+    per operation. Returns (decisions (T/4, L) int32, metrics (4, L))."""
+    f32 = np.float32
+    steps, lanes = obs.shape
+    warps = -(-lanes * 2 // ACS_THREADS) * (ACS_THREADS // 32)
+    wl = np.arange(32)[None, :].repeat(warps, 0)
+    tid = np.arange(warps)[:, None] * 32 + wl
+    b, lane = tid & 1, tid >> 1
+    valid = lane < lanes
+    lc = np.where(valid, lane, lanes - 1)
+    rows = np.arange(warps)[:, None]
+    lv = [(2 * v - 7).astype(f32) + _PILOT for v in (b, b + 4, b + 2, b + 6)]
+    m, m2 = m_in[3 * b, lc], m_in[1 + b, lc]
+    dec = np.zeros((steps // 4, lanes), np.int64)
+
+    def survivor(c0, c1, z0, z1):
+        x1 = c1 < c0
+        return np.minimum(c0, c1), (x1 | (np.where(x1, z1, z0) << 1)).astype(np.uint64)
+
+    for g0 in range(0, steps, vk.GROUP):
+        w = np.zeros((2,) + m.shape, np.uint64)
+        for s in range(vk.GROUP):
+            o = obs[g0 + s, lc]
+            o = o if inv is None else o.astype(f32) * f32(inv)
+            d = []
+            for lvi in lv:
+                tt = o - lvi
+                d.append(tt * tt)
+            p0, z0 = np.minimum(d[0], d[1]), (d[1] < d[0]).astype(np.uint64)
+            p1, z1 = np.minimum(d[2], d[3]), (d[3] < d[2]).astype(np.uint64)
+            keep, dk = survivor(m + p0, m2 + p1, z0, z1)              # new state 3b
+            send, ds = survivor(m2 + p0, m + p1, z0, z1)              # new state 2 - b
+            m, m2 = keep, send[rows, wl ^ 1]                          # __shfl_xor_sync
+            byte = (dk << (6 * b).astype(np.uint64)) | (ds << (4 - 2 * b).astype(np.uint64))
+            w[s % 8 // 4] |= byte << np.uint64(8 * (s % 4))
+            if s % 8 == 7:
+                recv = np.where(b == 1, w[0], w[1])[rows, wl ^ 1]
+                word = np.where(b == 1, w[1], w[0]) | recv
+                row = g0 // 4 + s // 8 * 2 + b
+                dec[row[valid], lane[valid]] = word[valid].astype(np.int64)
+                w[:] = 0
+        mn = np.minimum(m, m2)                                         # renormalize
+        mn = np.minimum(mn, mn[rows, wl ^ 1])
+        m, m2 = m - mn, m2 - mn
+    m_out = np.zeros((4, lanes), np.float32)
+    m_out[3 * b[valid], lane[valid]] = m[valid]
+    m_out[1 + b[valid], lane[valid]] = m2[valid]
+    dec = np.where(dec >= 1 << 31, dec - (1 << 32), dec).astype(np.int32)
+    return dec, m_out
+
+
+def _acs_inputs(lanes: int, seed: int, int8: bool):
+    """48 steps (two renormalization groups) of random soft levels, or
+    their int8 codes, from mixed metrics with cold-started lanes."""
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_INV, quantize_soft_levels
+
+    rng = np.random.default_rng(seed)
+    obs = torch.tensor((4.0 * rng.standard_normal((48, lanes))).astype(np.float32))
+    m_in = rng.uniform(0.0, 60.0, (4, lanes)).astype(np.float32)
+    m_in[:, ::5] = 1e9
+    m_in[0, ::5] = 0.0
+    if int8:
+        return quantize_soft_levels(obs), torch.tensor(m_in), SOFT_LEVEL_INV
+    return obs, torch.tensor(m_in), None
+
+
+def test_acs_design_constant_is_a_modelled_one():
+    assert ACS_THREADS % 32 == 0 and vk.GROUP % 8 == 0
+
+
+@pytest.mark.parametrize("lanes", [1, 12, 13, 16, 17, 60])
+@pytest.mark.parametrize("int8", [False, True])
+def test_acs_state_parallel_model_equals_plain(lanes, int8):
+    """T=48 at one lane, one channel (12 lanes, fewer than a warp holds),
+    13 and 17 lanes (part-empty warps), 16 (one full warp) and five
+    channels: the emulated kernel's decisions and final metrics equal
+    acs_forward_plain bit for bit."""
+    obs, m_in, inv = _acs_inputs(lanes, seed=lanes + 14, int8=int8)
+    dec, m_out = _emulate_acs(obs.numpy(), m_in.numpy(), inv)
+    want_dec, want_m = vk.acs_forward_plain(obs, m_in, inv)
+    np.testing.assert_array_equal(dec, want_dec.numpy())
+    np.testing.assert_array_equal(m_out.view(np.int32), want_m.numpy().view(np.int32))
+
+
+def test_acs_butterfly_state_map():
+    """Thread b holds states (3b, 1 + b); the two threads hold each state
+    once. The new states it makes, 3b (kept) and 2 - b (sent), are the two
+    with low bit b, and their predecessors under the trellis (new state
+    2a + b from 2b + a at X1 = 0, 2b + 1 - a at X1 = 1) are the pair it
+    holds, in the order the kernel adds them: kept = (x, y), sent = (y, x)."""
+    held = {b: (3 * b, 1 + b) for b in (0, 1)}
+    assert sorted(held[0] + held[1]) == [0, 1, 2, 3]
+    for b, (x, y) in held.items():
+        for new, want in ((3 * b, (x, y)), (2 - b, (y, x))):
+            a = new >> 1
+            assert new & 1 == b
+            assert (2 * b + a, 2 * b + 1 - a) == want
+    # the sent state is the other thread's next y
+    assert [2 - b for b in (0, 1)] == [held[1 - b][1] for b in (0, 1)]
+
+
+# -- the tensor-core equalizer (fast tier) -----------------------------------
+
+def _eq_layout() -> dict:
+    """The fast tier's constants, from csrc/eq_fir.cu."""
+    k = {n: _constant("eq_fir.cu", n) for n in (
+        "kWinLen", "kNOut", "kFastK", "kBand", "kChunkBands", "kTcWarps", "kTilesPerWarp",
+        "kTcChannels", "kRowBytes")}
+    k["kBands"] = 2 * k["kFastK"] // k["kBand"] + 1
+    k["kTcCols"] = k["kTcWarps"] * k["kTilesPerWarp"] * k["kBand"] ** 2
+    k["kTcGrid"] = -(-k["kNOut"] // k["kTcCols"])
+    k["kRows"] = k["kTcCols"] // k["kBand"] + k["kBands"] - 1
+    k["kPlaneBytes"] = k["kRows"] * k["kRowBytes"]
+    return k
+
+
+EQL = _eq_layout()
+
+
+def _eq_tiles():
+    """(block base (G, 1), first staged row of each warp tile (1, W * TPW))."""
+    base = np.arange(EQL["kTcGrid"])[:, None] * EQL["kTcCols"]
+    a0 = np.arange(EQL["kTcWarps"] * EQL["kTilesPerWarp"])[None, :] * EQL["kBand"]
+    return base, a0
+
+
+def _a_fragment_samples(a0: int, band: int, plane: int) -> np.ndarray:
+    """(32, 4, 2): the staged sample (of the plane, relative to the block
+    base) that ldmatrix.x4 delivers to each lane, register and half, from
+    the kernel's row addresses (a_lane + a0 rows + plane + band rows)."""
+    lane = np.arange(32)
+    q = lane >> 3
+    addr = (plane * EQL["kPlaneBytes"]
+            + (a0 + band + (lane & 7) + 8 * (q & 1)) * EQL["kRowBytes"] + (q >> 1) * 16)
+    out = np.empty((32, 4, 2), np.int64)
+    for j in range(4):           # matrix j: rows from lanes 8j..8j+7; lane t gets row t // 4
+        for e in range(2):
+            byte = addr[8 * j + lane // 4] + 4 * (lane % 4) + 2 * e - plane * EQL["kPlaneBytes"]
+            assert (byte % EQL["kRowBytes"] < 2 * EQL["kBand"]).all()   # inside a row's data
+            out[:, j, e] = byte // EQL["kRowBytes"] * EQL["kBand"] + byte % EQL["kRowBytes"] // 2
+    return out
+
+
+def _b_image(p: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """atsc_eq_fir_set_taps' tier-0 image: (34, 32, 4, 2) tap values, band
+    plane bp = 2 s + (0 re, 1 im), lane, register r = 2 nt + hk, half e."""
+    bands = EQL["kBands"]
+    bp, lane, r, e = np.meshgrid(np.arange(2 * bands), np.arange(32), np.arange(4),
+                                 np.arange(2), indexing="ij")
+    n = 8 * (r // 2) + lane // 4
+    k = 2 * (lane % 4) + 8 * (r % 2)
+    t = EQL["kBand"] * (bp // 2) + k + e - n
+    taps = np.where(bp % 2 == 1, q[np.clip(t, 0, p.size - 1)],
+                    p[np.clip(t, 0, p.size - 1)])
+    return np.where((t >= 0) & (t < p.size), taps, 0.0).astype(np.float32)
+
+
+def _b_matrices(img: np.ndarray) -> np.ndarray:
+    """(34, 16, 16) B[k][n] from the image through the mma B layout: lane
+    (g, c), register {b0, b1} of column tile nt: k = 2c + (0, 1), n = 8 nt +
+    g; {b2, b3}: k + 8."""
+    out = np.full((img.shape[0], 16, 16), np.nan, np.float32)
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for r in range(4):
+            nt, hk = r // 2, r % 2
+            for e in range(2):
+                out[:, 2 * c + 8 * hk + e, 8 * nt + g] = img[:, lane, r, e]
+    assert not np.isnan(out).any()
+    return out
+
+
+def _eq_taps():
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    p, q = teq._taps_f32(EQL["kFastK"])
+    return teq._bf16_round(p), teq._bf16_round(q)
+
+
+def test_eq_constants_match_the_wrapper():
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    assert (EQL["kWinLen"], EQL["kNOut"]) == (teq.WIN_LEN, teq.N_OUT)
+    assert teq.TIERS[(EQL["kFastK"], False)] == 0
+
+
+def test_eq_tiles_own_every_output_once_and_read_inside_the_window():
+    """Blocks x warps x tiles x rows g + 8h: every output of [0, 260416)
+    stored once (rows past the end masked, 16 outputs a row); each block
+    stages [base, base + rows * 16) inside the window; every A operand row
+    lies in the staged rows."""
+    base, a0 = _eq_tiles()
+    rows = (base // EQL["kBand"] + a0)[..., None] + np.arange(16)       # (G, tiles, 16)
+    j = rows[..., None] * EQL["kBand"] + np.arange(EQL["kBand"])
+    stored = j[rows * EQL["kBand"] < EQL["kNOut"]]
+    owned = np.bincount(stored.reshape(-1), minlength=EQL["kNOut"])
+    assert owned.size == EQL["kNOut"] and (owned == 1).all()
+    span = EQL["kRows"] * EQL["kBand"]
+    assert base.min() >= 0 and (base + span).max() <= EQL["kWinLen"]
+    assert span % 16 == 0 and EQL["kTcCols"] % 16 == 0       # cp.async pieces, int8 too
+    assert a0.max() + 15 + EQL["kBands"] - 1 < EQL["kRows"]
+    # the last output reads sample 260416 - 1 + 256, inside the last block's span
+    assert (EQL["kNOut"] - 1 + 2 * EQL["kFastK"]) < base.max() + span
+
+
+def test_eq_ldmatrix_rows_are_the_band_operands():
+    """Lane t, register j, half e of ldmatrix.x4 at the kernel's addresses
+    holds A_s[row][k] = u[16 (a0 + s + row) + k] in the mma A layout:
+    row = t // 4 + 8 (j & 1), k = 2 (t % 4) + 8 (j >> 1) + e; and the 8
+    row addresses of each ldmatrix phase fall in distinct 16-byte bank
+    groups."""
+    lane = np.arange(32)
+    for a0 in (0, EQL["kBand"], 3 * EQL["kBand"]):
+        for band in range(EQL["kBands"]):
+            for plane in range(2):
+                got = _a_fragment_samples(a0, band, plane)
+                for j in range(4):
+                    for e in range(2):
+                        row = lane // 4 + 8 * (j & 1)
+                        k = 2 * (lane % 4) + 8 * (j >> 1) + e
+                        np.testing.assert_array_equal(got[:, j, e],
+                                                      16 * (a0 + band + row) + k)
+                q = lane >> 3
+                addr = (a0 + band + (lane & 7) + 8 * (q & 1)) * EQL["kRowBytes"] + (q >> 1) * 16
+                for j in range(4):
+                    slots = addr[8 * j:8 * j + 8] % 128 // 16
+                    assert len(set(slots.tolist())) == 8
+
+
+def test_eq_b_image_is_the_band_matrices():
+    """The host-built fragment image, read through the mma B layout, is
+    P_s[k][n] = p[16 s + k - n] and Q_s likewise (0 outside the taps)."""
+    p, q = _eq_taps()
+    mats = _b_matrices(_b_image(p, q))
+    k, n = np.arange(16)[:, None], np.arange(16)[None, :]
+    for bp in range(2 * EQL["kBands"]):
+        taps = q if bp % 2 else p
+        t = 16 * (bp // 2) + k - n
+        want = np.where((t >= 0) & (t < taps.size), taps[np.clip(t, 0, taps.size - 1)], 0.0)
+        np.testing.assert_array_equal(mats[bp], want)
+
+
+def _eq_planes(seed: int):
+    """A B=1 random window through the plain twin's derotation and bf16
+    rounding: (ur, ui) float32 holding bf16 values, and the window."""
+    from atsc_tpu_torch import params as TP
+    from atsc_tpu_torch.models.receiver import _osc_planar
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    n = TP.SYMBOLS_PER_FIELD
+    rng = np.random.default_rng(seed)
+    win = torch.tensor(rng.normal(0.0, 0.3, (1, 2, teq.WIN_LEN)).astype(np.float32))
+    osc = torch.tensor(_osc_planar(n - 128, n - 128 + teq.WIN_LEN, 0))
+    s = torch.tensor(teq._scale(1.0))
+    wr, wi, cr, ci = win[0, 0], win[0, 1], osc[0], osc[1]
+    ur = ((wr * cr + wi * ci) * s).to(torch.bfloat16).to(torch.float32)
+    ui = ((wi * cr - wr * ci) * s).to(torch.bfloat16).to(torch.float32)
+    return ur.numpy(), ui.numpy(), win, osc
+
+
+def _band16(ur, ui, mats, chunked: bool) -> np.ndarray:
+    """The kernel's sum over all tiles: per band s and plane the product
+    of the staged rows shifted by s with B_s, in float64 (chunked=False),
+    or as the kernel accumulates (chunked=True): products of a chunk of
+    kChunkBands bands from zero in float32, chunk sums added in float32."""
+    rows = EQL["kTcGrid"] * EQL["kTcCols"] // 16
+    need = (rows + EQL["kBands"] - 1) * 16
+    planes = [x[:need].reshape(-1, 16) for x in (ur, ui)]
+    dt = np.float32 if chunked else np.float64
+    total = None
+    for c0 in range(0, EQL["kBands"], EQL["kChunkBands"]):
+        acc = np.zeros((rows, 16), dt)
+        for s in range(c0, min(c0 + EQL["kChunkBands"], EQL["kBands"])):
+            for plane in range(2):
+                a = planes[plane][s:s + rows].astype(dt)
+                b = mats[2 * s + plane].astype(dt)
+                for k in range(16):          # one product at a time, rounded per add
+                    acc = acc + a[:, k:k + 1] * b[k][None, :]
+        total = acc if total is None else total + acc
+    return total.reshape(-1)[:EQL["kNOut"]]
+
+
+def test_eq_band16_sum_equals_banded_fir_wl():
+    """Summed in float64, the 34 shifted band products equal banded_fir_wl
+    over _band_weights(128) (the 128-wide bands of the TPU form) to 1e-12."""
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+    from atsc_tpu_torch.ops.rrc_filter import banded_fir_wl
+
+    ur, ui, _, _ = _eq_planes(21)
+    mats = _b_matrices(_b_image(*_eq_taps()))
+    got = _band16(ur, ui, mats, chunked=False)
+    w = teq._band_weights(EQL["kFastK"], "bfloat16").to(torch.float64)
+    want = banded_fir_wl(torch.tensor(ur, dtype=torch.float64),
+                         torch.tensor(ui, dtype=torch.float64), w, teq.N_OUT).numpy()
+    assert np.abs(got - want).max() < 1e-12
+
+
+def test_eq_chunked_float32_accumulation_within_the_fast_tier_limit():
+    """The kernel's chunked float32 accumulation stays within 1e-4 (the
+    fast tier's limit on soft levels) of eq_fir_plain."""
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    ur, ui, win, osc = _eq_planes(22)
+    mats = _b_matrices(_b_image(*_eq_taps()))
+    got = _band16(ur, ui, mats, chunked=True)
+    want = teq.eq_fir_plain(win, osc, soft=True)[0].numpy()
+    assert np.abs(got - want).max() < 1e-4

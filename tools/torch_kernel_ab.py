@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
-"""Two hand kernels of the PyTorch port, offset_fir_fused
-(csrc/offset_fir.cu, register-blocked) and pr_acs_forward
-(csrc/viterbi_acs.cu, state-parallel), head to head with design variants
-of their sources and, given checkouts of other trees, with those trees'
-kernels, on one CUDA device at B=384.
+"""The redesigned hand kernels of the PyTorch port, head to head with design
+variants of their sources and, given checkouts of other trees, with those
+trees' kernels, on one CUDA device at B=384:
 
-  offset_fir  outputs per thread, kR = 8 (this tree) against 4 and 12:
-              cf32, cs16 planar and cs8 wire timed, all five formats
-              compared
-  pr_acs      threads per block, kPrThreads = 32 (this tree) against 64,
-              128 and 256, at 16 threads per lane, on random observations
-              over all 21,528 steps of a field (segment-sync reset steps
-              included)
+  offset_fir  offset_fir_fused (csrc/offset_fir.cu): outputs per thread,
+              kR = 8 (this tree) against 4 and 12; cf32, cs16 planar and
+              cs8 wire timed, all five formats compared
+  pr_acs      pr_acs_forward (csrc/viterbi_acs.cu): threads per block,
+              kPrThreads = 32 (this tree) against 64, 128 and 256, on
+              random observations over the 21,528 steps of a field
+              (segment-sync reset steps included)
+  acs         acs_forward (csrc/viterbi_acs.cu, the butterfly): float32
+              groups prefetched into L2, kAcsAhead = 2 (this tree) against
+              0 (none); threads per block, kAcsThreads = 32 against 64; on
+              random float32 levels and their int8 codes over the 21,528
+              steps of a field
+  eq_fir      eq_fir_fused, fast tier (csrc/eq_fir.cu): 16 x 16 tiles per
+              warp, kTilesPerWarp = 4 (this tree) against 2, and channels
+              per block, kTcChannels = 16 against 8; cf32,
+              cs16 and cs8 windows (random IQ and its codes), hard, soft and
+              soft-code outputs
 
 A variant is a copy of this tree's source with that one constant changed;
 each build is compiled here with the package's nvcc flags into
 atsc_tpu_torch/_build/ab/. Every build runs on the same inputs through the
-package's own wrapper (offset_fir_fused, pr_acs_forward), routed to that
-build's library. Each is timed twice with CUDA events, the second pass in
-the reverse order of the first. One JSON line per build and format:
-{"kernel", "build", "format", "ms", "identical", "max_abs_err"}, compared
-with this tree's build (decisions and final metrics for pr_acs); the
-first line is nvidia-smi's name and power limit. Exit 1 if a build fails,
-a pr_acs build differs from this tree's in any bit, or an offset_fir build
-differs by more than 2e-6 (cf32) or 1 LSB (codes).
+package's own wrapper, routed to that build's library. Each is timed twice
+with CUDA events, the second pass in the reverse order of the first. One
+JSON line per build and case: {"kernel", "build", "ms", "identical",
+"max_abs_err", ...}, compared with this tree's build; the first line is
+nvidia-smi's name and power limit. Exit 1 if a build fails or differs
+from this tree's build beyond the kernel's limit: pr_acs and acs in any
+bit (decisions and final metrics); offset_fir by more than 2e-6 (cf32) or
+1 LSB (codes); eq_fir by more than 1e-4 in a soft level, or in a hard
+symbol or soft code other than by 1 within 1e-4 of a decision boundary
+(chip_smoke phase 7's limits).
 
-Usage: python tools/torch_kernel_ab.py [--earlier DIR ...] [--batch 384]
-       [--iters 10]
+Usage: python tools/torch_kernel_ab.py [--kernels NAME ...]
+       [--earlier DIR ...] [--batch 384] [--iters 10]
 (DIR: a checkout of another tree inside this one, for example a `git
 archive` of the parent commit unpacked into the git-ignored .archive_check/)
 """
@@ -51,20 +61,33 @@ import torch  # noqa: E402
 from atsc_tpu_torch import params as P  # noqa: E402
 from atsc_tpu_torch import resolve_device  # noqa: E402
 from atsc_tpu_torch.ops.cuda import _build  # noqa: E402
+from atsc_tpu_torch.ops.cuda import eq_fir as eqk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import offset_fir as fir  # noqa: E402
 from atsc_tpu_torch.ops.cuda import viterbi_acs as vk  # noqa: E402
-from atsc_tpu_torch.ops.quantize import unpack_wire  # noqa: E402
+from atsc_tpu_torch.ops.quantize import (  # noqa: E402
+    QMAX,
+    SOFT_LEVEL_INV,
+    SOFT_LEVEL_SCALE,
+    quantize_scale,
+    quantize_soft_levels,
+    unpack_wire,
+)
 
 AB_DIR = os.path.join(_build.BUILD_DIR, "ab")
-# kernel -> (source, wrapper module, constant, this tree's value, variants)
+# kernel -> (source, wrapper module, ((constant, this tree's value, variants), ...))
 KERNELS = {
-    "offset_fir": ("offset_fir", fir, "kR", 8, (4, 12)),
-    "pr_acs": ("viterbi_acs", vk, "kPrThreads", 32, (64, 128, 256)),
+    "offset_fir": ("offset_fir", fir, (("kR", 8, (4, 12)),)),
+    "pr_acs": ("viterbi_acs", vk, (("kPrThreads", 32, (64, 128, 256)),)),
+    "acs": ("viterbi_acs", vk,
+            (("kAcsAhead", 2, (0,)), ("kAcsThreads", 32, (64,)))),
+    "eq_fir": ("eq_fir", eqk, (("kTilesPerWarp", 4, (2,)), ("kTcChannels", 16, (8,)))),
 }
 FIR_FORMATS = (("cf32", False), ("cs16", False), ("cs8", False), ("cs16", True),
                ("cs8", True))
 FIR_TIMED = (("cf32", False), ("cs16", False), ("cs8", True))
 TOL_CF32, TOL_LSB = 2e-6, 1
+TOL_EQ_SOFT = 1e-4
+STEPS = 21528        # trellis steps of a field
 
 
 def mean_ms(fn, iters: int) -> float:
@@ -80,32 +103,35 @@ def mean_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def sources(earlier: list[str]) -> dict:
+def sources(kernels: list[str], earlier: list[str]) -> dict:
     """(kernel, build name) -> the .cu text, this tree's builds first."""
     out = {}
-    for kernel, (src, _, const, value, variants) in KERNELS.items():
+    for kernel in kernels:
+        src, _, consts = KERNELS[kernel]
         with open(os.path.join(_build.CSRC, src + ".cu")) as fh:
             text = fh.read()
         out[(kernel, "this tree")] = text
         for path in earlier:
             with open(os.path.join(path, "atsc_tpu_torch", "csrc", src + ".cu")) as fh:
                 out[(kernel, os.path.basename(os.path.normpath(path)))] = fh.read()
-        pattern = rf"(constexpr int {const} = ){value};"
-        if len(re.findall(pattern, text)) != 1:
-            raise RuntimeError(f"{src}.cu does not define {const} = {value} once")
-        for v in variants:
-            out[(kernel, f"{const}={v}")] = re.sub(pattern, rf"\g<1>{v};", text)
+        for const, value, variants in consts:
+            pattern = rf"(constexpr int {const} = ){value};"
+            if len(re.findall(pattern, text)) != 1:
+                raise RuntimeError(f"{src}.cu does not define {const} = {value} once")
+            for v in variants:
+                out[(kernel, f"{const}={v}")] = re.sub(pattern, rf"\g<1>{v};", text)
     return out
 
 
-def compile_cu(tag: str, text: str) -> tuple[str, str]:
-    """nvcc text (as <tag>.cu) into a shared library; (path, ptxas lines)."""
+def compile_cu(tag: str, text: str, include: str) -> tuple[str, list[str]]:
+    """nvcc text (as <tag>.cu, headers from `include`) into a shared
+    library; (path, ptxas lines)."""
     os.makedirs(AB_DIR, exist_ok=True)
     src, lib = os.path.join(AB_DIR, tag + ".cu"), os.path.join(AB_DIR, f"lib{tag}.so")
     with open(src, "w") as fh:
         fh.write(text)
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True, check=False)
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", include, "-o", lib,
+                           src], capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {src}:\n{proc.stdout}{proc.stderr}")
     log = proc.stdout + proc.stderr
@@ -114,26 +140,48 @@ def compile_cu(tag: str, text: str) -> tuple[str, str]:
 
 def bound(module, path: str, device_index: int) -> ctypes.CDLL:
     """The library at path, set up as the module's wrapper sets up its own
-    (entry points declared, the FIR's taps loaded on the device)."""
+    (entry points declared, the FIR's and the equalizer's fast-tier taps
+    loaded on the device)."""
     real = _build.load
     module._kernel_lib.cache_clear()
     _build.load = lambda name: ctypes.CDLL(path)
     try:
-        return module._kernel_lib(device_index)
+        lib = module._kernel_lib(device_index)
+        if module is eqk:
+            eqk._tier.cache_clear()
+            with torch.cuda.device(device_index):
+                eqk._tier(device_index, 128, False)
+        return lib
     finally:
         _build.load = real
         module._kernel_lib.cache_clear()
+        if module is eqk:
+            eqk._tier.cache_clear()
 
 
 @contextlib.contextmanager
 def routed(module, lib: ctypes.CDLL):
-    """The module's wrapper launches lib's kernel inside the block."""
+    """The module's wrapper launches lib's kernel inside the block (its
+    taps were loaded by `bound`)."""
     real = module._kernel_lib
     module._kernel_lib = lambda device_index: lib
+    if module is eqk:
+        real_tier = eqk._tier
+        eqk._tier = lambda device_index, eq_k, exact: eqk.TIERS[(eq_k, exact)]
     try:
         yield
     finally:
         module._kernel_lib = real
+        if module is eqk:
+            eqk._tier = real_tier
+
+
+def in_turns(names: list[str], run, iters: int) -> dict:
+    """Each build's ms, timed twice: in order, then in reverse order."""
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(mean_ms(lambda: run(n), iters))
+    return times
 
 
 def fir_diff(got: torch.Tensor, want: torch.Tensor, fmt: str, wire: bool) -> float:
@@ -151,8 +199,118 @@ def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
+def ab_offset_fir(libs, names, dev, gen, args) -> bool:
+    b = args.batch
+    field = torch.randint(0, 8, (b, P.PADDED_SYMBOLS), dtype=torch.int8, device=dev,
+                          generator=gen)
+    ang = torch.rand(b, device=dev, generator=gen) * 6.2831855
+    phasor = torch.stack([torch.cos(ang), torch.sin(ang)], 1).contiguous()
+    ok = True
+    for fmt, wire in FIR_FORMATS:
+        def run(n, fmt=fmt, wire=wire):
+            with routed(fir, libs[n]):
+                return fir.offset_fir_fused(field, phasor, out_format=fmt, wire=wire)
+
+        outs = {n: run(n) for n in names}
+        ms = in_turns(names, run, args.iters) if (fmt, wire) in FIR_TIMED else {}
+        for n in names:
+            err = fir_diff(outs[n], outs["this tree"], fmt, wire)
+            ok &= err <= (TOL_CF32 if fmt == "cf32" else TOL_LSB)
+            emit(kernel="offset_fir", build=n, format=fmt + ("_wire" if wire else ""),
+                 batch=b, ms=ms.get(n), identical=bool(torch.equal(outs[n], outs["this tree"])),
+                 max_abs_err=err)
+        del outs
+    return ok
+
+
+def ab_trellis(kernel: str, libs, names, dev, gen, args) -> bool:
+    """pr_acs_forward or acs_forward (float32 and int8 observations)."""
+    lanes = args.batch * P.TRELLIS_ENCODERS
+    obs = 4.0 * torch.randn((STEPS, lanes), device=dev, generator=gen)
+    ok = True
+    if kernel == "pr_acs":
+        rc = torch.tensor(vk._pr_rc_table(), device=dev)
+        m16 = torch.full((16, lanes), 1e9, device=dev)
+        m16[0] = 0.0
+        cases = {"float32": lambda: vk.pr_acs_forward(obs, rc, m16)}
+    else:
+        codes = quantize_soft_levels(obs)
+        m4 = torch.full((4, lanes), 1e9, device=dev)
+        m4[0] = 0.0
+        cases = {"float32": lambda: vk.acs_forward(obs, m4),
+                 "int8": lambda: vk.acs_forward(codes, m4, SOFT_LEVEL_INV)}
+    for case, fn in cases.items():
+        def run(n, fn=fn):
+            with routed(vk, libs[n]):
+                return fn()
+
+        outs = {n: run(n) for n in names}
+        times = in_turns(names, run, args.iters)
+        want = outs["this tree"]
+        for n in names:
+            got = outs[n]
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            ok &= same
+            emit(kernel="pr_acs_forward" if kernel == "pr_acs" else "acs_forward", build=n,
+                 obs=case, batch=args.batch, steps=STEPS, lanes=lanes, ms=times[n],
+                 identical=same, max_abs_err=float((got[1] - want[1]).abs().max()),
+                 decisions_differing=int((got[0] != want[0]).sum()))
+        del outs
+    return ok
+
+
+def ab_eq_fir(libs, names, dev, gen, args) -> bool:
+    """The fast tier on a random cf32 window and its cs16/cs8 codes."""
+    from atsc_tpu_torch.models.receiver import _osc_planar
+
+    n_out = P.SYMBOLS_PER_FIELD
+    b = args.batch
+    win = 0.5 * torch.randn((b, 2, eqk.WIN_LEN), device=dev, generator=gen)
+    osc = torch.tensor(_osc_planar(n_out - 128, n_out - 128 + eqk.WIN_LEN, 0), device=dev)
+    ok = True
+    for fmt in ("cf32", "cs16", "cs8"):
+        if fmt == "cf32":
+            w, dq = win, 1.0
+        else:
+            q = float(QMAX[fmt])
+            w = torch.clamp(torch.round(win * quantize_scale(fmt)), -q, q).to(
+                torch.int16 if fmt == "cs16" else torch.int8)
+            dq = 1.0 / quantize_scale(fmt)
+        soft_p = eqk.eq_fir_plain(w, osc, soft=True, dequant=dq)
+        for mode in ("hard", "soft", "codes"):
+            kw = dict(soft=mode != "hard", soft_q=mode == "codes", dequant=dq)
+
+            def run(n, w=w, kw=kw):
+                with routed(eqk, libs[n]):
+                    return eqk.eq_fir_fused(w, osc, **kw)
+
+            outs = {n: run(n) for n in names}
+            times = in_turns(names, run, args.iters)
+            want = outs["this tree"]
+            for n in names:
+                got = outs[n]
+                if mode == "soft":
+                    err = float((got - want).abs().max())
+                    within = err <= TOL_EQ_SOFT
+                else:
+                    scale, bias = (0.5, 5.75) if mode == "hard" else (SOFT_LEVEL_SCALE, 0.0)
+                    x = (soft_p + bias) * scale
+                    near = (x - x.floor() - 0.5).abs() < TOL_EQ_SOFT * scale
+                    diff = got != want
+                    err = float((got.int() - want.int()).abs().max())
+                    within = err <= 1 and not bool((diff & ~near).any())
+                ok &= within
+                emit(kernel="eq_fir_fused", build=n, tier="fast", format=fmt, output=mode,
+                     batch=b, ms=times[n], identical=bool(torch.equal(got, want)),
+                     max_abs_err=err, within_limits=within)
+            del outs
+        del soft_p
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", nargs="*", default=list(KERNELS), choices=list(KERNELS))
     ap.add_argument("--earlier", nargs="*", default=[], metavar="DIR",
                     help="checkouts of other trees, whose atsc_tpu_torch/csrc kernels "
                     "run beside this tree's (named by the directory's last part)")
@@ -165,71 +323,28 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
 
-    plan = sources(args.earlier)
+    plan = sources(args.kernels, args.earlier)
     tags = {k: f"{k[0]}-{i}" for i, k in enumerate(plan)}
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(plan)) as pool:
-        futs = {k: pool.submit(compile_cu, tags[k], text) for k, text in plan.items()}
+        futs = {k: pool.submit(compile_cu, tags[k], text, _build.CSRC)
+                for k, text in plan.items()}
         built = {k: f.result() for k, f in futs.items()}
     libs = {}
     for (kernel, name), (path, ptxas) in built.items():
-        libs[(kernel, name)] = bound(KERNELS[kernel][1], path, dev.index)
+        libs.setdefault(kernel, {})[name] = bound(KERNELS[kernel][1], path, dev.index)
         emit(kernel=kernel, build=name, library=os.path.relpath(path, ROOT), ptxas=ptxas)
+
     ok = True
-
-    # -- offset_fir ------------------------------------------------------------
     gen = torch.Generator(dev).manual_seed(5)
-    b = args.batch
-    field = torch.randint(0, 8, (b, P.PADDED_SYMBOLS), dtype=torch.int8, device=dev,
-                          generator=gen)
-    ang = torch.rand(b, device=dev, generator=gen) * 6.2831855
-    phasor = torch.stack([torch.cos(ang), torch.sin(ang)], 1).contiguous()
-    names = [n for k, n in plan if k == "offset_fir"]
-
-    def fir_run(n, fmt, wire):
-        with routed(fir, libs[("offset_fir", n)]):
-            return fir.offset_fir_fused(field, phasor, out_format=fmt, wire=wire)
-
-    for fmt, wire in FIR_FORMATS:
-        outs = {n: fir_run(n, fmt, wire) for n in names}
-        ms = dict.fromkeys(names)
-        if (fmt, wire) in FIR_TIMED:
-            ms = {n: [] for n in names}
-            for n in names + names[::-1]:
-                ms[n].append(mean_ms(lambda: fir_run(n, fmt, wire), args.iters))
-        for n in names:
-            err = fir_diff(outs[n], outs["this tree"], fmt, wire)
-            ok &= err <= (TOL_CF32 if fmt == "cf32" else TOL_LSB)
-            emit(kernel="offset_fir", build=n, format=fmt + ("_wire" if wire else ""),
-                 batch=b, ms=ms[n], identical=bool(torch.equal(outs[n], outs["this tree"])),
-                 max_abs_err=err)
-        del outs
-
-    # -- pr_acs_forward ----------------------------------------------------------
-    del field
-    t, lanes = 21528, b * P.TRELLIS_ENCODERS
-    obs = 4.0 * torch.randn((t, lanes), device=dev, generator=gen)
-    rc = torch.tensor(vk._pr_rc_table(), device=dev)
-    m16 = torch.full((16, lanes), 1e9, device=dev)
-    m16[0] = 0.0
-    names = [n for k, n in plan if k == "pr_acs"]
-
-    def pr_run(n):
-        with routed(vk, libs[("pr_acs", n)]):
-            return vk.pr_acs_forward(obs, rc, m16)
-
-    outs = {n: pr_run(n) for n in names}
-    times = {n: [] for n in names}
-    for n in names + names[::-1]:
-        times[n].append(mean_ms(lambda: pr_run(n), args.iters))
-    want = outs["this tree"]
-    for n in names:
-        got = outs[n]
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = float((got[1] - want[1]).abs().max())
-        ok &= same
-        emit(kernel="pr_acs_forward", build=n, batch=b, steps=t, lanes=lanes, ms=times[n],
-             identical=same, max_abs_err=err,
-             decisions_differing=int((got[0] != want[0]).sum()))
+    for kernel in args.kernels:
+        names = list(libs[kernel])
+        if kernel == "offset_fir":
+            ok &= ab_offset_fir(libs[kernel], names, dev, gen, args)
+        elif kernel == "eq_fir":
+            ok &= ab_eq_fir(libs[kernel], names, dev, gen, args)
+        else:
+            ok &= ab_trellis(kernel, libs[kernel], names, dev, gen, args)
+        torch.cuda.empty_cache()
     return 0 if ok else 1
 
 
