@@ -31,31 +31,35 @@
 // the reference: min/argmin of (c0, c1) and of (c2, c3), then the pair with
 // the strictly smaller minimum, the first pair on a tie.
 //
-// Design. Both tracebacks run one thread per lane, with the traceback
-// state in registers, in blocks of 32 threads (at B = 384: 4,608 lanes,
-// 144 warps spread over all 132 SMs), each thread prefetching the next
-// group's decision words into registers while it works on the current
-// group. Both forward passes are state-parallel, exchanging metrics by
+// Design. Both forward passes are state-parallel, exchanging metrics by
 // warp shuffles with the observations one group ahead in registers: the
 // 4-state pass as a butterfly, 2 threads per lane with two states each
 // (9,216 threads, 288 warps at B = 384), the PR pass with 16 threads per
 // lane, one per combined state, both in blocks of one warp (their comments
-// below have the maps).
+// below have the maps). Both tracebacks are chunk-parallel and exact: each
+// lane's field is cut into chunks of whole groups, one thread per (lane,
+// chunk), every chunk but the top one walked from all its entry states at
+// once until their chains merge, the entry states then resolved from the
+// top down in shared memory and each chunk's head walked again from its
+// real entry (chunked_traceback below); 16 chunks (4-state) and 8 (PR) at
+// B = 384 are 73,728 and 36,864 threads.
 //
 // What bounds them on an H100 at B = 384 (T = 21,528, L = 4,608): the
 // bytes are 397 MB of float32 obs (99 MB int8) plus 99 MB of decisions for
 // the 4-state forward pass (0.148 / 0.059 ms at 3.35 TB/s), 99 + 99 MB for
 // its traceback (0.059 ms), 397 + 397 MB for the PR forward pass (0.237
 // ms, under its operations bound of 0.367 ms at the fp32 peak) and 397 +
-// 99 MB for its traceback (0.148 ms). None of them comes near that: each
-// is a dependent chain of 21,528 steps. One thread per lane leaves one
-// warp per scheduler, so the tracebacks are bound by the latency of their
-// chain (a handful of instructions a traceback step). The forward passes,
-// one thread per lane, ran ~60 (4-state) and ~400 (PR) dependent
-// instructions a step; spread over 2 and 16 threads per lane they run ~30
-// and ~33 per thread, bound by issue and by the latency of each step's
-// chain (metric -> add -> minimum -> shuffle -> metric): the number of
-// lanes at B = 384 does not fill the schedulers twice over.
+// 99 MB for its traceback (0.148 ms). Each pass is a dependent chain of
+// 21,528 steps per lane. The forward passes, one thread per lane, ran ~60
+// (4-state) and ~400 (PR) dependent instructions a step; spread over 2 and
+// 16 threads per lane they run ~30 and ~33 per thread, bound by issue and
+// by the latency of each step's chain (metric -> add -> minimum -> shuffle
+// -> metric): the number of lanes at B = 384 does not fill the schedulers
+// twice over. The tracebacks do a handful of integer operations a step;
+// one thread per lane left ~1 warp per SM on a 21,528-step chain (0.68 and
+// 0.83 ms); cut into chunks they run ~17 (4-state) and ~9 (PR) warps per
+// SM on chains of ~1,345 and ~2,690 steps, at about half their bytes
+// bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +70,6 @@ namespace {
 
 constexpr int kGroup = 24;           // steps per renormalization
 constexpr int kWpg = kGroup / 4;     // 4-state decision words per group
-constexpr int kThreads = 32;
 constexpr float kPilot = 1.25f;      // params.PILOT_OFFSET
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -201,41 +204,6 @@ acs_forward_kernel(const T* __restrict__ obs, const float* __restrict__ m_in,
   if (valid) {
     m_out[3 * b * stride + l] = m;
     m_out[(1 + b) * stride + l] = m2;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
-                 int32_t* __restrict__ bits, int groups, int lanes) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= lanes) return;
-  const size_t stride = static_cast<size_t>(lanes);
-  uint32_t s = static_cast<uint32_t>(start[l]);
-  uint32_t cur[kWpg], nxt[kWpg];
-  const int32_t* src = dec + l;
-#pragma unroll
-  for (int j = 0; j < kWpg; ++j)
-    cur[j] = src[static_cast<size_t>((groups - 1) * kWpg + j) * stride];
-  for (int g = groups - 1; g >= 0; --g) {
-    if (g > 0) {
-#pragma unroll
-      for (int j = 0; j < kWpg; ++j)
-        nxt[j] = src[static_cast<size_t>((g - 1) * kWpg + j) * stride];
-    }
-#pragma unroll
-    for (int j = kWpg - 1; j >= 0; --j) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int k = 3; k >= 0; --k) {
-        const uint32_t byte = (cur[j] >> (8 * k)) & 0xFFu;
-        const uint32_t sel = (byte >> (2 * s)) & 3u;   // x1 | z2<<1 into s
-        word |= sel << (8 * k);
-        s = ((s & 1u) << 1) | ((s >> 1) ^ (sel & 1u));
-      }
-      bits[static_cast<size_t>(g * kWpg + j) * stride + l] = static_cast<int32_t>(word);
-    }
-#pragma unroll
-    for (int j = 0; j < kWpg; ++j) cur[j] = nxt[j];
   }
 }
 
@@ -416,44 +384,263 @@ pr_acs_forward_kernel(const float* __restrict__ obs, const int32_t* __restrict__
   if (valid) m_out[t * stride + l] = m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pr_traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
-                    int32_t* __restrict__ bits, int groups, int lanes) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= lanes) return;
-  const size_t stride = static_cast<size_t>(lanes);
-  uint32_t s = static_cast<uint32_t>(start[l]);
-  uint32_t cur[kGroup], nxt[kGroup];
-  const int32_t* src = dec + l;
-#pragma unroll
-  for (int i = 0; i < kGroup; ++i)
-    cur[i] = src[static_cast<size_t>((groups - 1) * kGroup + i) * stride];
-  for (int g = groups - 1; g >= 0; --g) {
-    if (g > 0) {
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-        nxt[i] = src[static_cast<size_t>((g - 1) * kGroup + i) * stride];
-    }
-#pragma unroll
-    for (int j = kWpg - 1; j >= 0; --j) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int k = 3; k >= 0; --k) {
-        const uint32_t h_prev = (cur[4 * j + k] >> (2 * s)) & 3u;
-        const uint32_t x1 = s & 1u;
-        word |= (s & 3u) << (8 * k);                      // x1 | z2<<1
-        const uint32_t s2 = s >> 2;
-        const uint32_t pred = ((2u * (s2 & 1u)) | (s2 >> 1)) ^ x1;
-        s = (pred << 2) | h_prev;
-      }
-      bits[static_cast<size_t>(g * kWpg + j) * stride + l] = static_cast<int32_t>(word);
-    }
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) cur[i] = nxt[i];
-  }
+// The two tracebacks, chunk-parallel and exact. A lane's field is cut into
+// `chunks` = min(K, groups) chunks of whole 24-step groups (chunk c holds
+// groups [c G / chunks, (c + 1) G / chunks)), so no output word is shared
+// between chunks, and one thread walks one (lane, chunk). K is kTbChunks
+// for the 4-state trellis and kPrTbChunks for the PR one. A warp is 32
+// consecutive lanes of one chunk (each decision row is one coalesced
+// 128-byte load, as for one thread per lane); a block is all the chunks of
+// those 32 lanes, so the hand-off between chunks goes through shared memory
+// inside one launch. At B = 384: 144 blocks of 16 warps (4-state) or 8
+// (PR), registers capped for two blocks per SM, so all are resident.
+// Three phases, a __syncthreads() after the first:
+// 1. The top chunk walks one chain from `start` and writes every word. Every
+//    other chunk starts at its top step with all S entry states at once (a
+//    map from entry state to current state: S = 4 entries of 2 bits in a
+//    uint32, or 16 of 4 bits in a uint64), one group at a time. At the end
+//    of the first group after which all S chains hold one state, it goes on
+//    from that state as one chain to the chunk's bottom, writing the words
+//    of those groups: below that point the path does not depend on the
+//    entry state. It records the map of its bottom states (constant if the
+//    chains merged) and the number of groups walked before the merge, its
+//    head (all of the chunk if they never merged).
+// 2. Each thread resolves its chunk's real entry state, from `start` down
+//    through the maps of the chunks above it (at most K - 1 lookups in
+//    shared memory).
+// 3. It walks its head again, as one chain from that entry state, and
+//    writes the head's words. Its state at the head's end is the merged
+//    state, so the words below, written in phase 1, are the ones this chain
+//    would write. A chunk whose chains never merged is walked twice in full:
+//    exact, slower, and only on decision words built to keep every chain
+//    apart.
+// Each walk holds one group of decision rows in registers and reloads each
+// output word's rows with the next group's as soon as they are used (one
+// group of loads in flight). Measured at B = 384 on an H100: 0.11 ms
+// (4-state) and 0.20 ms (PR) on real decisions, against 0.68 and 0.83 for
+// one thread per lane; two or three groups in registers gained at most 3 %
+// (4-state) and cost spills (PR); 8 chunks were as fast as 16 for the
+// 4-state trellis and faster for the PR one (fewer 16-chain heads), 32
+// (blocks of 1024 threads, not all resident) slower for both.
+constexpr int kTbLanes = 32;      // lanes per block
+constexpr int kTbChunks = 16;     // 4-state: chunks per lane, at most
+constexpr int kPrTbChunks = 8;    // PR: chunks per lane, at most
+
+__host__ __device__ constexpr int tb_min_blocks(int chunks) {
+  return kTbLanes * chunks <= 512 ? 2 : 1;
 }
 
-inline int grid_for(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+// The 4-state trellis: a decision row is one word of 4 steps. Entry e of
+// a map sits at bits 2e, 2e+1.
+struct Tb4 {
+  using Map = uint32_t;
+  static constexpr int kChunks = kTbChunks, kRowsPerWord = 1;
+  static constexpr Map kIdentity = 0xE4u;
+  __device__ static Map constant(uint32_t s) { return s * 0x55u; }
+  __device__ static uint32_t lookup(Map m, uint32_t e) { return (m >> (2 * e)) & 3u; }
+  __device__ static bool merged(Map m, uint32_t& s) {
+    s = m & 3u;
+    return m == constant(s);
+  }
+  // one chain over output word j of the rows from s: the word
+  template <int N>
+  __device__ static uint32_t chain(const uint32_t (&w)[N], int j, uint32_t& s) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      const uint32_t byte = (w[j] >> (8 * k)) & 0xFFu;
+      const uint32_t sel = (byte >> (2 * s)) & 3u;   // x1 | z2<<1 into s
+      word |= sel << (8 * k);
+      s = ((s & 1u) << 1) | ((s >> 1) ^ (sel & 1u));
+    }
+    return word;
+  }
+  // every chain of the map over word j. A step's predecessor of state s,
+  // ((s & 1) << 1) | ((s >> 1) ^ x1), as a table at bits 2s: 0xD8 (0, 2, 1,
+  // 3) with x1 (bit 2s of the byte) flipping the low bit.
+  template <int N>
+  __device__ static void all(const uint32_t (&w)[N], int j, Map& m) {
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      const uint32_t t = 0xD8u ^ ((w[j] >> (8 * k)) & 0x55u);
+      uint32_t n = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) n |= ((t >> (2 * ((m >> (2 * e)) & 3u))) & 3u) << (2 * e);
+      m = n;
+    }
+  }
+};
+
+// Bytes i = 0..3 of word q: the predecessor group of PR combined state
+// u = 4q + i (u = s2*4 + h', pred0(s2) ^ x1 with x1 = u & 1), shifted left 2.
+__host__ __device__ constexpr uint32_t pr_pred_bytes(int q) {
+  uint32_t t = 0;
+  for (int i = 0; i < 4; ++i) {
+    const int u = 4 * q + i;
+    t |= static_cast<uint32_t>((pred0(u >> 2) ^ (u & 1)) << 2) << (8 * i);
+  }
+  return t;
+}
+
+// The new states of the 4 map entries nibble-packed in m16 (16 bits) under
+// a step's table tb (byte u of the 16 = the predecessor of state u): byte
+// gathers by prmt from states m & 7 of each half of the table, then the
+// half by bit 3; the 4 bytes packed back to nibbles.
+__device__ __forceinline__ uint32_t pr_gather4(const uint32_t (&tb)[4], uint32_t m16) {
+  const uint32_t sel = m16 & 0x7777u;
+  const uint32_t lo = __byte_perm(tb[0], tb[1], sel);
+  const uint32_t hi = __byte_perm(tb[2], tb[3], sel);
+  const uint32_t r = __byte_perm(lo, hi, 0x3210u | ((m16 >> 1) & 0x4444u));
+  return __byte_perm(r | (r >> 4), 0u, 0x4420u);   // bytes 0, 2 of r | r >> 4
+}
+
+// The 16-state PR trellis: a decision row is one step, 4 rows an output
+// word. Entry e of a map sits at bits 4e..4e+3.
+struct TbPr {
+  using Map = uint64_t;
+  static constexpr int kChunks = kPrTbChunks, kRowsPerWord = 4;
+  static constexpr Map kIdentity = 0xFEDCBA9876543210ull;
+  __device__ static Map constant(uint32_t s) { return s * 0x1111111111111111ull; }
+  __device__ static uint32_t lookup(Map m, uint32_t e) {
+    return static_cast<uint32_t>(m >> (4 * e)) & 15u;
+  }
+  __device__ static bool merged(Map m, uint32_t& s) {
+    s = static_cast<uint32_t>(m) & 15u;
+    return m == constant(s);
+  }
+  template <int N>
+  __device__ static uint32_t chain(const uint32_t (&w)[N], int j, uint32_t& s) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      const uint32_t h_prev = (w[4 * j + k] >> (2 * s)) & 3u;
+      const uint32_t x1 = s & 1u;
+      word |= (s & 3u) << (8 * k);                      // x1 | z2<<1
+      const uint32_t s2 = s >> 2;
+      const uint32_t pred = ((2u * (s2 & 1u)) | (s2 >> 1)) ^ x1;
+      s = (pred << 2) | h_prev;
+    }
+    return word;
+  }
+  // every chain of the map over word j: a step's table of predecessors,
+  // byte u = pred << 2 | the 2-bit pick of u (the row's 2-bit fields
+  // spread to bytes), then 4 gathers of 4 entries
+  template <int N>
+  __device__ static void all(const uint32_t (&w)[N], int j, Map& m) {
+    uint32_t lo = static_cast<uint32_t>(m), hi = static_cast<uint32_t>(m >> 32);
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      uint32_t tb[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t x = (w[4 * j + k] >> (8 * q)) & 0xFFu;   // picks of states 4q..4q+3
+        x = (x | (x << 12)) & 0x000F000Fu;
+        x = (x | (x << 6)) & 0x03030303u;
+        tb[q] = x | pr_pred_bytes(q);
+      }
+      lo = pr_gather4(tb, lo & 0xFFFFu) | (pr_gather4(tb, lo >> 16) << 16);
+      hi = pr_gather4(tb, hi & 0xFFFFu) | (pr_gather4(tb, hi >> 16) << 16);
+    }
+    m = (static_cast<uint64_t>(hi) << 32) | lo;
+  }
+};
+
+// Walks groups top - 1 down to bottom. While `merged` is false it carries
+// every entry's chain in `map` and writes nothing; once all chains hold one
+// state at a group's end it sets `merged` and goes on from that state `s`
+// as one chain, writing each group's words. Returns the groups walked
+// before that (the head).
+template <class P>
+__device__ __forceinline__ int walk(const int32_t* src, int32_t* out, size_t stride, int top,
+                                    int bottom, bool& merged, uint32_t& s,
+                                    typename P::Map& map) {
+  constexpr int RW = P::kRowsPerWord, R = kWpg * RW;
+  uint32_t w[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) w[i] = src[static_cast<size_t>((top - 1) * R + i) * stride];
+  int head = 0;
+#pragma unroll 1
+  for (int g = top - 1; g >= bottom; --g) {
+    const bool more = g > bottom;
+    const int32_t* nxt = src + static_cast<size_t>(more ? g - 1 : g) * R * stride;
+    auto refill = [&](int j) {  // once word j's rows are used: the next group's
+      if (more) {
+#pragma unroll
+        for (int k = 0; k < RW; ++k)
+          w[j * RW + k] = nxt[static_cast<size_t>(j * RW + k) * stride];
+      }
+    };
+    if (merged) {
+      int32_t* row = out + static_cast<size_t>(g) * kWpg * stride;
+#pragma unroll
+      for (int j = kWpg - 1; j >= 0; --j) {
+        row[static_cast<size_t>(j) * stride] = static_cast<int32_t>(P::chain(w, j, s));
+        refill(j);
+      }
+    } else {
+#pragma unroll
+      for (int j = kWpg - 1; j >= 0; --j) {
+        P::all(w, j, map);
+        refill(j);
+      }
+      ++head;
+      merged = P::merged(map, s);
+    }
+  }
+  return head;
+}
+
+// blockDim.x = kTbLanes * chunks, chunks = min(P::kChunks, groups)
+template <class P>
+__device__ __forceinline__ void chunked_traceback(const int32_t* __restrict__ dec,
+                                                  const int32_t* __restrict__ start,
+                                                  int32_t* __restrict__ bits, int groups,
+                                                  int lanes) {
+  using Map = typename P::Map;
+  __shared__ Map s_map[P::kChunks][kTbLanes];   // each chunk's bottom state per entry
+  __shared__ int s_head[P::kChunks][kTbLanes];
+  const int chunks = blockDim.x / kTbLanes;
+  const int c = threadIdx.x / kTbLanes, ln = threadIdx.x % kTbLanes;
+  const int l = blockIdx.x * kTbLanes + ln;
+  const bool valid = l < lanes, top_chunk = c == chunks - 1;
+  const size_t stride = static_cast<size_t>(lanes);
+  const int top = (c + 1) * groups / chunks, bottom = c * groups / chunks;
+  const int32_t* src = dec + l;
+  int32_t* out = bits + l;
+  if (valid) {  // phase 1
+    bool merged = top_chunk;
+    uint32_t s = top_chunk ? static_cast<uint32_t>(start[l]) : 0u;
+    Map map = P::kIdentity;
+    s_head[c][ln] = walk<P>(src, out, stride, top, bottom, merged, s, map);
+    s_map[c][ln] = merged ? P::constant(s) : map;
+  }
+  __syncthreads();
+  if (!valid || top_chunk) return;
+  uint32_t s = static_cast<uint32_t>(start[l]);  // phase 2
+#pragma unroll 1
+  for (int k = chunks - 1; k > c; --k) s = P::lookup(s_map[k][ln], s);
+  bool merged = true;  // phase 3
+  Map map = 0;
+  walk<P>(src, out, stride, top, top - s_head[c][ln], merged, s, map);
+}
+
+__global__ void __launch_bounds__(kTbLanes * kTbChunks, tb_min_blocks(kTbChunks))
+traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
+                 int32_t* __restrict__ bits, int groups, int lanes) {
+  chunked_traceback<Tb4>(dec, start, bits, groups, lanes);
+}
+
+__global__ void __launch_bounds__(kTbLanes * kPrTbChunks, tb_min_blocks(kPrTbChunks))
+pr_traceback_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
+                    int32_t* __restrict__ bits, int groups, int lanes) {
+  chunked_traceback<TbPr>(dec, start, bits, groups, lanes);
+}
+
+inline int tb_grid(int lanes) { return (lanes + kTbLanes - 1) / kTbLanes; }
+
+inline int tb_threads(int groups, int chunks) {
+  return kTbLanes * (groups < chunks ? groups : chunks);
+}
 
 inline bool bad_shape(int steps, int lanes) {
   return steps < kGroup || steps % kGroup != 0 || lanes < 1;
@@ -490,8 +677,9 @@ int atsc_traceback(int device, const int32_t* dec, const int32_t* start, int32_t
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(4 * words, lanes)) return static_cast<int>(cudaErrorInvalidValue);
-  traceback_kernel<<<grid_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dec, start, bits, words / kWpg, lanes);
+  const int groups = words / kWpg;
+  traceback_kernel<<<tb_grid(lanes), tb_threads(groups, kTbChunks), 0,
+                     static_cast<cudaStream_t>(stream)>>>(dec, start, bits, groups, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -515,8 +703,9 @@ int atsc_pr_traceback(int device, const int32_t* dec, const int32_t* start, int3
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (bad_shape(steps, lanes)) return static_cast<int>(cudaErrorInvalidValue);
-  pr_traceback_kernel<<<grid_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dec, start, bits, steps / kGroup, lanes);
+  const int groups = steps / kGroup;
+  pr_traceback_kernel<<<tb_grid(lanes), tb_threads(groups, kPrTbChunks), 0,
+                        static_cast<cudaStream_t>(stream)>>>(dec, start, bits, groups, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,8 +54,11 @@ Phases, one JSON line each; any failed check exits non-zero:
    pr_traceback against their plain twins on the card, bit for bit, at
    B=384 and T=21,528 on real decommutated levels (the port's encoder, the
    equalizer, plus AWGN), each pass and its traceback also at 12 and 60
-   lanes (acs_forward in both observation types); each kernel timed (CUDA
-   events) beside one run of its plain twin.
+   lanes (acs_forward in both observation types); both tracebacks also on
+   decision words built so that no two survivor chains ever merge, at
+   B=384 and 12 lanes (timed as ms_unmerged); the chunked tracebacks' head
+   lengths on the real decisions; each kernel timed (CUDA events) beside
+   one run of its plain twin.
 13. golden_soft: IqReceiver(batch=1, device="cuda") with trellis="soft",
    trellis="soft-i8" and ntsc="comb" decodes golden IQ to
    golden["input"][0:3] exactly, one launch of each kernel of its path per
@@ -84,8 +87,8 @@ Phases, one JSON line each; any failed check exits non-zero:
    valid [0, 260416), on random symbols with golden field 0 in channel 0;
    each run timed, the twin once.
 
-Then the kernels line (offset_fir_fused, eq_fir_fused, acs_forward and
-pr_acs_forward also carry `design`, a string fixed here beside the
+Then the kernels line (offset_fir_fused, eq_fir_fused and the four
+Viterbi kernels also carry `design`, a string fixed here beside the
 sources' constants; eq_fir_fused its fast tier's soft-level error at B=4
 and B=384), and last {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
@@ -120,6 +123,12 @@ FIR_DESIGN = "R=8 register window, 128 threads per block"   # csrc/offset_fir.cu
 PR_DESIGN = "state-parallel S=16, 32 threads per block"     # csrc/viterbi_acs.cu
 ACS_DESIGN = ("state-parallel butterfly S=2, 32 threads per block, "
               "float32 obs prefetched 2 groups ahead into L2")  # csrc/viterbi_acs.cu
+TB_DESIGN = ("chunk-parallel: 16 chunks of whole groups per lane, a thread per (lane, chunk), "
+             "4 entry chains to the merge, entry states resolved in shared memory, heads "
+             "retraced")  # csrc/viterbi_acs.cu
+PR_TB_DESIGN = ("chunk-parallel: 8 chunks of whole groups per lane, a thread per (lane, chunk), "
+                "16 entry chains (prmt gathers) to the merge, entry states resolved in shared "
+                "memory, heads retraced")  # csrc/viterbi_acs.cu
 EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
              "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
              "float32 chunks of 2 bands; exact: CUDA cores, Kahan chunks")  # csrc/eq_fir.cu
@@ -1029,6 +1038,18 @@ def viterbi_kernels(dev) -> dict:
         err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
         return got, same, err, timed(kernel), plain_ms
 
+    ab = _tool("torch_kernel_ab")   # tb_heads, head_stats, unmerged_words
+
+    def unmerged(kernel, plain, pr, rows, start):
+        """Both tracebacks on words where no chains merge, at all lanes and
+        at 12: (identical at each, largest difference, the kernel's ms)."""
+        words = ab.unmerged_words(pr, rows, l, gen, dev)
+        _, same_u, err_u, ms_u, _ = held(lambda: kernel(words, start),
+                                         lambda: plain(words, start))
+        w12, s12 = words[:, :12].contiguous(), start[:12].contiguous()
+        _, same12, err12, _, _ = held(lambda: kernel(w12, s12), lambda: plain(w12, s12))
+        return same_u, same12, max(err_u, err12), ms_u
+
     out, checks = {}, {}
     (dec, m_out), same, err, ms, plain_ms = held(
         lambda: vk.acs_forward(obs, m4), lambda: vk.acs_forward_plain(obs, m4))
@@ -1046,6 +1067,10 @@ def viterbi_kernels(dev) -> dict:
     _, same, err, ms, plain_ms = held(lambda: vk.traceback(dec, start),
                                       lambda: vk.traceback_plain(dec, start))
     checks["traceback"] = same
+    heads = ab.head_stats(*ab.tb_heads(dec, False))
+    same_u, checks["traceback_unmerged_b1"], err_u, ms_u = unmerged(
+        vk.traceback, vk.traceback_plain, False, dec.shape[0], start)
+    checks["traceback_unmerged"] = same_u
     # and at 12 and 60 lanes: fewer lanes than one warp, and a part-empty
     # block, each pass and observation type, then its traceback
     small_acs, small_tb = {}, {}
@@ -1066,8 +1091,9 @@ def viterbi_kernels(dev) -> dict:
     out["acs_forward"].update(design=ACS_DESIGN, max_abs_err_small=small_acs)
     out["acs_forward"]["max_abs_err"] = max(out["acs_forward"]["max_abs_err"],
                                             *small_acs.values())
-    out["traceback"] = dict(max_abs_err=max(err, *small_tb.values()),
+    out["traceback"] = dict(design=TB_DESIGN, max_abs_err=max(err, err_u, *small_tb.values()),
                             max_abs_err_small=small_tb, ms=ms, plain_ms=plain_ms,
+                            ms_unmerged=ms_u, heads=heads,
                             **_bound(2 * (t // 4) * l * 4 + l * 4, 0))
     del dec, obs, codes
     (dec, m_out), same, err, ms, plain_ms = held(
@@ -1075,14 +1101,21 @@ def viterbi_kernels(dev) -> dict:
         lambda: vk.pr_acs_forward_plain(comb, rc, m16))
     checks["pr_acs_forward"] = same
     resets = int((rc & 1).sum()) * (l // 12)
-    # and at 12 and 60 lanes: a part-empty block, and fewer lanes than one
-    small = {}
+    # and at 12 and 60 lanes: a part-empty block, and fewer lanes than one,
+    # each pass and then its traceback
+    small, small_tb = {}, {}
     for nb in (1, 5):
         c_n, m_n = comb[:, :12 * nb].contiguous(), m16[:, :12 * nb].contiguous()
-        _, same_n, err_n, _, _ = held(lambda: vk.pr_acs_forward(c_n, rc, m_n),
-                                      lambda: vk.pr_acs_forward_plain(c_n, rc, m_n))
+        (dec_n, mo_n), same_n, err_n, _, _ = held(
+            lambda: vk.pr_acs_forward(c_n, rc, m_n),
+            lambda: vk.pr_acs_forward_plain(c_n, rc, m_n))
         checks[f"pr_acs_forward_b{nb}"] = same_n
         small[f"b{nb}"] = err_n
+        st_n = torch.argmin(mo_n, dim=0).to(torch.int32)
+        _, same_n, err_n, _, _ = held(lambda: vk.pr_traceback(dec_n, st_n),
+                                      lambda: vk.pr_traceback_plain(dec_n, st_n))
+        checks[f"pr_traceback_b{nb}"] = same_n
+        small_tb[f"b{nb}"] = err_n
     out["pr_acs_forward"] = dict(
         design=PR_DESIGN,
         max_abs_err=max(err, *small.values()), max_abs_err_small=small, ms=ms,
@@ -1092,7 +1125,14 @@ def viterbi_kernels(dev) -> dict:
     _, same, err, ms, plain_ms = held(lambda: vk.pr_traceback(dec, start),
                                       lambda: vk.pr_traceback_plain(dec, start))
     checks["pr_traceback"] = same
-    out["pr_traceback"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    heads = ab.head_stats(*ab.tb_heads(dec, True))
+    same_u, checks["pr_traceback_unmerged_b1"], err_u, ms_u = unmerged(
+        vk.pr_traceback, vk.pr_traceback_plain, True, t, start)
+    checks["pr_traceback_unmerged"] = same_u
+    out["pr_traceback"] = dict(design=PR_TB_DESIGN,
+                               max_abs_err=max(err, err_u, *small_tb.values()),
+                               max_abs_err_small=small_tb, ms=ms, plain_ms=plain_ms,
+                               ms_unmerged=ms_u, heads=heads,
                                **_bound(t * l * 4 + (t // 4) * l * 4 + l * 4, 0))
     del dec, comb
     emit("viterbi_kernels", batch=B_FULL, steps=t, lanes=l, identical=checks, **out)
@@ -1388,14 +1428,20 @@ def receive_cci(dev) -> None:
     check(same, "CCI levels: the card's NtscDecoder differs from the CPU's")
 
 
-def _run_tool(name: str, argv: list) -> tuple[object, int, list]:
-    """Run tools/<name>.py's main(argv) in this process; (the tool's
-    module, its exit code, the JSON lines it printed)."""
+def _tool(name: str):
+    """tools/<name>.py as a module (tools/ is not a package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", name + ".py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def _run_tool(name: str, argv: list) -> tuple[object, int, list]:
+    """Run tools/<name>.py's main(argv) in this process; (the tool's
+    module, its exit code, the JSON lines it printed)."""
+    tool = _tool(name)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = tool.main(argv)

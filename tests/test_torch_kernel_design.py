@@ -1,8 +1,8 @@
 """Models of the index maps of the redesigned hand kernels of the PyTorch
 port, on the CPU: the state-parallel PR and 4-state add-compare-select
-passes of csrc/viterbi_acs.cu, the register-blocked FIR tiling of
-csrc/offset_fir.cu and the tensor-core band tiling of the fast equalizer
-tier in csrc/eq_fir.cu.
+passes and the chunk-parallel tracebacks of csrc/viterbi_acs.cu, the
+register-blocked FIR tiling of csrc/offset_fir.cu and the tensor-core band
+tiling of the fast equalizer tier in csrc/eq_fir.cu.
 
 The kernels run only on a CUDA device (chip_smoke.py holds them against
 their plain twins there). These models replay, in numpy, what each thread
@@ -28,9 +28,18 @@ sources, so a wrong map shows here without a card:
   operand image give the mma fragments of the band-16 product, which sums
   to banded_fir_wl over the 128-wide band weights, and the kernel's
   chunked float32 accumulation stays within the fast tier's 1e-4 of
-  eq_fir_plain.
+  eq_fir_plain;
+- the traceback model runs the three phases of both chunked tracebacks
+  (the chunks of whole groups, every entry chain of a chunk to the group
+  where they merge, the map of an unmerged chunk, the entry states
+  resolved from the top chunk down, the heads walked again) and must
+  equal traceback_plain / pr_traceback_plain bit for bit on forward-pass,
+  random and never-merging decisions; it checks that the head walk writes
+  only words the first phase left, and that below the head it would write
+  the same words.
 """
 
+import importlib.util
 import os
 import re
 
@@ -577,3 +586,201 @@ def test_eq_chunked_float32_accumulation_within_the_fast_tier_limit():
     got = _band16(ur, ui, mats, chunked=True)
     want = teq.eq_fir_plain(win, osc, soft=True)[0].numpy()
     assert np.abs(got - want).max() < 1e-4
+
+
+# -- the chunk-parallel tracebacks -------------------------------------------
+
+TB_CHUNKS = _constant("viterbi_acs.cu", "kTbChunks")       # 4-state
+PR_TB_CHUNKS = _constant("viterbi_acs.cu", "kPrTbChunks")
+TB_LANES = _constant("viterbi_acs.cu", "kTbLanes")
+
+
+def _tb_step(pr: bool, dec: np.ndarray, t: int, states: np.ndarray):
+    """Step t of the traceback on every chain, states (L, n) = the states
+    into step t: (the step's x1 | z2<<1 pair of each chain, the states
+    into step t - 1). dec holds the words as unsigned int64."""
+    if pr:
+        h = (dec[t][:, None] >> (2 * states)) & 3
+        s2 = states >> 2
+        pred = ((2 * (s2 & 1)) | (s2 >> 1)) ^ (states & 1)
+        return states & 3, (pred << 2) | h
+    byte = (dec[t // 4] >> (8 * (t % 4))) & 0xFF
+    sel = (byte[:, None] >> (2 * states)) & 3
+    return sel, ((states & 1) << 1) | ((states >> 1) ^ (sel & 1))
+
+
+def _tb_group(pr: bool, dec: np.ndarray, g: int, states: np.ndarray):
+    """Group g, last step first: (pairs (24, L, n) in step order, the states
+    at the group's bottom)."""
+    out = np.empty((vk.GROUP,) + states.shape, np.int64)
+    for i in range(vk.GROUP - 1, -1, -1):
+        out[i], states = _tb_step(pr, dec, g * vk.GROUP + i, states)
+    return out, states
+
+
+def _emulate_tb(dec: np.ndarray, start: np.ndarray, pr: bool):
+    """The three phases of chunked_traceback<Tb4> (pr=False, dec (T/4, L))
+    or <TbPr> (dec (T, L)), every lane at once, chunk by chunk. A thread's
+    map is held as its S chains' states (L, S); a merged thread's chains
+    are all one state, so it walks them as its one chain. Phase 3 walks
+    each chunk to its bottom, writes only its head and checks that below
+    the head it would write exactly what phase 1 wrote. Returns (bits
+    (T/4, L) int32, heads (chunks, L) in groups, chunk sizes in groups)."""
+    n_s = 16 if pr else 4
+    groups = dec.shape[0] // (vk.GROUP if pr else vk.GROUP // 4)
+    lanes = dec.shape[1]
+    chunks = min(PR_TB_CHUNKS if pr else TB_CHUNKS, groups)
+    bounds = [(c * groups // chunks, (c + 1) * groups // chunks) for c in range(chunks)]
+    dec = dec.astype(np.int64) & 0xFFFFFFFF
+    start = start.astype(np.int64)
+    pair = np.full((groups * vk.GROUP, lanes), -1, np.int64)      # -1: not written
+    maps, heads, merged_state = [], [], []
+    for c, (bottom, top) in enumerate(bounds):                     # phase 1
+        top_chunk = c == chunks - 1
+        m = np.repeat(start[:, None], n_s, 1) if top_chunk else np.tile(np.arange(n_s),
+                                                                        (lanes, 1))
+        merged = np.full(lanes, top_chunk)
+        head = np.zeros(lanes, np.int64)
+        at = np.full(lanes, -1, np.int64)
+        for g in range(top - 1, bottom - 1, -1):
+            out, m_next = _tb_group(pr, dec, g, m)
+            rows = pair[g * vk.GROUP:(g + 1) * vk.GROUP]
+            rows[:, merged] = out[:, merged, 0]
+            head += ~merged
+            now = ~merged & (m_next == m_next[:, :1]).all(1)
+            at = np.where(now, m_next[:, 0], at)
+            merged |= now
+            m = m_next
+        maps.append(m)
+        heads.append(head)
+        merged_state.append(at)
+    entry = start                                                  # phase 2
+    for c in range(chunks - 2, -1, -1):
+        entry = maps[c + 1][np.arange(lanes), entry]
+        bottom, top = bounds[c]                                    # phase 3
+        s = entry[:, None]
+        for g in range(top - 1, bottom - 1, -1):
+            out, s_next = _tb_group(pr, dec, g, s)
+            rows = pair[g * vk.GROUP:(g + 1) * vk.GROUP]
+            in_head = g >= top - heads[c]
+            assert (rows[:, in_head] == -1).all()
+            np.testing.assert_array_equal(rows[:, ~in_head], out[:, ~in_head, 0])
+            rows[:, in_head] = out[:, in_head, 0]
+            end = (g == top - heads[c]) & (heads[c] < top - bottom)   # the merge group
+            np.testing.assert_array_equal(s_next[end, 0], merged_state[c][end])
+            s = s_next
+    assert (pair >= 0).all()
+    words = (pair.reshape(-1, 4, lanes) << (8 * np.arange(4))[None, :, None]).sum(1)
+    bits = np.where(words >= 1 << 31, words - (1 << 32), words).astype(np.int32)
+    return bits, np.stack(heads), np.array([top - bottom for bottom, top in bounds])
+
+
+def _tb_decisions(pr: bool, kind: str, steps: int, lanes: int, seed: int):
+    """(decisions, start) of one kind: "real", the forward pass's on noisy
+    8-level symbols (σ 0.5, through the PR comb's reset rows for pr);
+    "random" words; "unmerged", words on which no two chains ever merge
+    (4-state: in every byte the x1 bits of states 0 and 2 are equal, and
+    those of 1 and 3; PR: the four states of each predecessor group pick
+    four distinct symbols)."""
+    rng = np.random.default_rng(seed)
+    n_s = 16 if pr else 4
+    rows = steps if pr else steps // 4
+    start = rng.integers(0, n_s, lanes).astype(np.int32)
+    if kind == "real":
+        lv = 2.0 * rng.integers(0, 8, (steps, lanes)) - 7.0 + (0.0 if pr else float(_PILOT))
+        obs = torch.tensor((lv + 0.5 * rng.standard_normal((steps, lanes))).astype(np.float32))
+        m = torch.full((n_s, lanes), 1e9)
+        m[0] = 0.0
+        if pr:
+            dec, m = vk.pr_acs_forward_plain(obs, torch.tensor(vk._pr_rc_table()[:steps]), m)
+        else:
+            dec, m = vk.acs_forward_plain(obs, m)
+        return dec.numpy(), torch.argmin(m, dim=0).to(torch.int32).numpy()
+    if kind == "random":
+        return rng.integers(-2 ** 31, 2 ** 31, (rows, lanes)).astype(np.int32), start
+    u = np.arange(n_s)
+    if pr:
+        s2 = u >> 2
+        group = ((2 * (s2 & 1)) | (s2 >> 1)) ^ (u & 1)
+        picks = np.empty((rows, lanes, n_s), np.int64)
+        for p in range(4):
+            picks[..., group == p] = np.argsort(rng.random((rows, lanes, 4)), -1)
+        words = (picks << (2 * u)).sum(-1)
+    else:
+        sel = rng.integers(0, 4, (steps, lanes, n_s))
+        sel[..., 2] = (sel[..., 2] & 2) | (sel[..., 0] & 1)
+        sel[..., 3] = (sel[..., 3] & 2) | (sel[..., 1] & 1)
+        byte = (sel << (2 * u)).sum(-1)
+        words = (byte.reshape(rows, 4, lanes) << (8 * np.arange(4))[None, :, None]).sum(1)
+    return np.where(words >= 1 << 31, words - (1 << 32), words).astype(np.int32), start
+
+
+def test_tb_design_constants_and_map_tables():
+    """A block is kTbLanes lanes (one warp a chunk) times at most kTbChunks
+    (4-state) or kPrTbChunks (PR) chunks, within 1024 threads; the 4-state map's identity (0xE4) and
+    predecessor table (0xD8, x1 flipping bit 2s) and the PR map's identity,
+    as the source writes them, are the trellis' own."""
+    src = _source("viterbi_acs.cu")
+    assert TB_LANES == 32 and TB_LANES * max(TB_CHUNKS, PR_TB_CHUNKS) <= 1024
+    ident4 = int(re.search(r"Map kIdentity = (0x[0-9A-F]+)u;", src).group(1), 16)
+    ident16 = int(re.search(r"Map kIdentity = (0x[0-9A-F]+)ull;", src).group(1), 16)
+    table4 = int(re.search(r"const uint32_t t = (0x[0-9A-F]+)u \^", src).group(1), 16)
+    assert [(ident4 >> (2 * e)) & 3 for e in range(4)] == list(range(4))
+    assert [(ident16 >> (4 * e)) & 15 for e in range(16)] == list(range(16))
+    for byte in range(256):
+        t = table4 ^ (byte & 0x55)
+        for s in range(4):
+            sel = (byte >> (2 * s)) & 3
+            assert (t >> (2 * s)) & 3 == ((s & 1) << 1) | ((s >> 1) ^ (sel & 1))
+
+
+@pytest.mark.parametrize("lanes,steps", [(1, 24), (12, 48), (13, 24 * 37), (60, 24 * 40)])
+@pytest.mark.parametrize("kind", ["real", "random", "unmerged"])
+@pytest.mark.parametrize("pr", [False, True], ids=["tb4", "pr"])
+def test_tb_chunked_model_equals_plain(pr, kind, lanes, steps):
+    """One and two groups (fewer than the chunks), 37 and 40 groups (cut
+    into ragged chunks), one lane, one channel, 13 lanes and five
+    channels: the emulated chunked traceback equals traceback_plain /
+    pr_traceback_plain bit for bit on forward-pass, random and
+    never-merging decisions. Real decisions merge (some head is shorter
+    than its chunk); never-merging ones leave every head its whole chunk."""
+    dec, start = _tb_decisions(pr, kind, steps, lanes, seed=steps + lanes)
+    bits, heads, sizes = _emulate_tb(dec, start, pr)
+    plain = vk.pr_traceback_plain if pr else vk.traceback_plain
+    want = plain(torch.tensor(dec), torch.tensor(start)).numpy()
+    np.testing.assert_array_equal(bits, want)
+    assert (heads[-1] == 0).all()                      # the top chunk walks one chain
+    inner = heads[:-1]
+    if kind == "unmerged":
+        assert (inner == sizes[:-1, None]).all()
+    elif kind == "real" and steps >= 24 * 37:
+        assert (inner < sizes[:-1, None]).any()
+
+
+def _ab_tool():
+    """tools/torch_kernel_ab.py as a module (tools/ is not a package)."""
+    path = os.path.join(os.path.dirname(CSRC), os.pardir, "tools", "torch_kernel_ab.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_ab", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("pr", [False, True], ids=["tb4", "pr"])
+def test_tb_tool_heads_and_unmerged_words(pr):
+    """tools/torch_kernel_ab.py's head lengths (plain torch, what the card
+    runs report) equal the model's on forward-pass decisions, 37 groups in
+    16 ragged chunks; its never-merging words leave every head its whole
+    chunk, and the model equals the plain twin on them."""
+    ab = _ab_tool()
+    dec, start = _tb_decisions(pr, "real", 24 * 37, 13, seed=5)
+    _, heads, sizes = _emulate_tb(dec, start, pr)
+    got, got_sizes = ab.tb_heads(torch.tensor(dec), pr)
+    np.testing.assert_array_equal(got.numpy(), heads[:-1])
+    np.testing.assert_array_equal(got_sizes.numpy(), sizes[:-1])
+    words = ab.unmerged_words(pr, dec.shape[0], 13, torch.Generator().manual_seed(3),
+                              torch.device("cpu"))
+    bits, heads, sizes = _emulate_tb(words.numpy(), start, pr)
+    assert (heads[:-1] == sizes[:-1, None]).all()
+    plain = vk.pr_traceback_plain if pr else vk.traceback_plain
+    np.testing.assert_array_equal(bits, plain(words, torch.tensor(start)).numpy())

@@ -15,6 +15,13 @@ trees' kernels, on one CUDA device at B=384:
               0 (none); threads per block, kAcsThreads = 32 against 64; on
               random float32 levels and their int8 codes over the 21,528
               steps of a field
+  tb          traceback and pr_traceback (csrc/viterbi_acs.cu, chunk-parallel):
+              chunks per lane, kTbChunks = 16 (this tree) against 8 and 32
+              (4-state), kPrTbChunks = 8 against 16 and 32 (PR); lanes per
+              block (both), kTbLanes = 32 against 16 and 8; on the
+              decisions of acs_forward / pr_acs_forward over random levels
+              (with each chunk's head length, in groups of 24 steps) and on
+              decision words on which no two chains ever merge
   eq_fir      eq_fir_fused, fast tier (csrc/eq_fir.cu): 16 x 16 tiles per
               warp, kTilesPerWarp = 4 (this tree) against 2, and channels
               per block, kTcChannels = 16 against 8; cf32,
@@ -30,10 +37,10 @@ JSON line per build and case: {"kernel", "build", "ms", "identical",
 "max_abs_err", ...}, compared with this tree's build; the first line is
 nvidia-smi's name and power limit. Exit 1 if a build fails or differs
 from this tree's build beyond the kernel's limit: pr_acs and acs in any
-bit (decisions and final metrics); offset_fir by more than 2e-6 (cf32) or
-1 LSB (codes); eq_fir by more than 1e-4 in a soft level, or in a hard
-symbol or soft code other than by 1 within 1e-4 of a decision boundary
-(chip_smoke phase 7's limits).
+bit (decisions and final metrics); tb in any bit; offset_fir by more
+than 2e-6 (cf32) or 1 LSB (codes); eq_fir by more than 1e-4 in a soft
+level, or in a hard symbol or soft code other than by 1 within 1e-4 of a
+decision boundary (chip_smoke phase 7's limits).
 
 Usage: python tools/torch_kernel_ab.py [--kernels NAME ...]
        [--earlier DIR ...] [--batch 384] [--iters 10]
@@ -64,6 +71,7 @@ from atsc_tpu_torch.ops.cuda import _build  # noqa: E402
 from atsc_tpu_torch.ops.cuda import eq_fir as eqk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import offset_fir as fir  # noqa: E402
 from atsc_tpu_torch.ops.cuda import viterbi_acs as vk  # noqa: E402
+from atsc_tpu_torch.ops.ntsc import _pr_tables  # noqa: E402
 from atsc_tpu_torch.ops.quantize import (  # noqa: E402
     QMAX,
     SOFT_LEVEL_INV,
@@ -80,6 +88,8 @@ KERNELS = {
     "pr_acs": ("viterbi_acs", vk, (("kPrThreads", 32, (64, 128, 256)),)),
     "acs": ("viterbi_acs", vk,
             (("kAcsAhead", 2, (0,)), ("kAcsThreads", 32, (64,)))),
+    "tb": ("viterbi_acs", vk, (("kTbChunks", 16, (8, 32)), ("kPrTbChunks", 8, (16, 32)),
+                                ("kTbLanes", 32, (16, 8)))),
     "eq_fir": ("eq_fir", eqk, (("kTilesPerWarp", 4, (2,)), ("kTcChannels", 16, (8,)))),
 }
 FIR_FORMATS = (("cf32", False), ("cs16", False), ("cs8", False), ("cs16", True),
@@ -259,6 +269,132 @@ def ab_trellis(kernel: str, libs, names, dev, gen, args) -> bool:
     return ok
 
 
+def tb_chunks(pr: bool, name: str = "this tree") -> int | None:
+    """The chunks per lane, at most, of build `name`'s traceback (pr: the PR
+    one): its constant's variant value, else this tree's; None for a build
+    of another tree."""
+    const = "kPrTbChunks" if pr else "kTbChunks"
+    if name.startswith(const + "="):
+        return int(name.split("=")[1])
+    if name != "this tree" and "=" not in name:
+        return None
+    with open(os.path.join(_build.CSRC, "viterbi_acs.cu")) as fh:
+        return int(re.search(rf"constexpr int {const} = (\d+);", fh.read()).group(1))
+
+
+def tb_heads(dec: torch.Tensor, pr: bool, max_chunks: int | None = None):
+    """The head of every chunk but the top one of the chunked traceback
+    (csrc/viterbi_acs.cu, chunked_traceback) on decisions dec (T/4, L)
+    (pr: (T, L)) cut into min(max_chunks, groups) chunks as the kernel cuts
+    them (max_chunks: this tree's constant by default): the groups walked
+    from the chunk's top before all its entry chains hold one state (the
+    whole chunk if they never do). Plain torch on dec's device. Returns
+    (heads (chunks - 1, L), chunk sizes (chunks - 1,)) in groups of 24
+    steps."""
+    n_s = 16 if pr else 4
+    groups = dec.shape[0] // (vk.GROUP if pr else vk.GROUP // 4)
+    chunks = min(max_chunks or tb_chunks(pr), groups)
+    dev = dec.device
+    tops = torch.tensor([(c + 1) * groups // chunks for c in range(chunks - 1)],
+                        dtype=torch.int64, device=dev)
+    sizes = tops - torch.tensor([c * groups // chunks for c in range(chunks - 1)],
+                                dtype=torch.int64, device=dev)
+    words = dec.to(torch.int64) & 0xFFFFFFFF
+    s_pred = torch.from_numpy(_pr_tables()[1]).to(device=dev, dtype=torch.int64)
+    states = torch.arange(n_s, device=dev).expand(chunks - 1, dec.shape[1], n_s).clone()
+    heads = sizes[:, None].expand(-1, dec.shape[1]).clone()
+    done = torch.zeros(heads.shape, dtype=torch.bool, device=dev)
+    for g in range(int(sizes.max()) if chunks > 1 else 0):
+        for i in range(vk.GROUP - 1, -1, -1):
+            t = ((tops - 1 - g) * vk.GROUP + i).clamp(min=0)    # a step per chunk
+            if pr:
+                states = (s_pred[states] << 2) | ((words[t][..., None] >> (2 * states)) & 3)
+            else:
+                byte = (words[t // 4] >> (8 * (t % 4))[:, None]) & 0xFF
+                x1 = (byte[..., None] >> (2 * states)) & 1
+                states = ((states & 1) << 1) | ((states >> 1) ^ x1)
+        now = (states == states[..., :1]).all(-1) & ~done & (g < sizes)[:, None]
+        heads[now] = g + 1
+        done |= now
+        if bool((done | (g + 1 >= sizes)[:, None]).all()):
+            break
+    return heads, sizes
+
+
+def head_stats(heads: torch.Tensor, sizes: torch.Tensor) -> dict:
+    """Head lengths over all (chunk, lane): mean and largest in steps, the
+    share of each length in groups (4 = 4 or more), and the share that
+    took the whole chunk (never merged, or merged in its last group)."""
+    h = heads.double()
+    whole = heads == sizes[:, None]
+    return {"chunks": heads.shape[0] + 1, "mean_steps": float(h.mean()) * vk.GROUP,
+            "max_steps": int(heads.max()) * vk.GROUP,
+            "share_groups": {str(k): float((heads.clamp(max=4) == k).double().mean())
+                             for k in range(1, 5)},
+            "share_whole_chunk": float(whole.double().mean())}
+
+
+def unmerged_words(pr: bool, rows: int, lanes: int, gen, dev) -> torch.Tensor:
+    """Random decision words (rows, L) int32 on which no two traceback
+    chains ever merge: 4-state, in every byte the x1 bits (bits 2s) of
+    states 0 and 2 are equal, and those of 1 and 3 (each state's
+    predecessor is then distinct); PR, the four states u of each
+    predecessor group p pick j_u ^ k_p, j_u = u's rank in the group and
+    k_p two random bits: four distinct picks."""
+    r = torch.randint(0, 1 << 32, (rows, lanes), dtype=torch.int64, device=dev, generator=gen)
+    if not pr:
+        return vk._to_int32((r & ~0x50505050) | ((r & 0x05050505) << 4))
+    word = torch.zeros_like(r)
+    rank = [0, 0, 0, 0]
+    for u, p in enumerate(_pr_tables()[1].tolist()):
+        word |= (rank[p] ^ ((r >> (2 * p)) & 3)) << (2 * u)
+        rank[p] += 1
+    return vk._to_int32(word)
+
+
+def ab_tb(libs, names, dev, gen, args) -> bool:
+    """traceback and pr_traceback on forward-pass decisions over random
+    levels and on never-merging words."""
+    lanes = args.batch * P.TRELLIS_ENCODERS
+    obs = 4.0 * torch.randn((STEPS, lanes), device=dev, generator=gen)
+    ok = True
+    for pr in (False, True):
+        n_s = 16 if pr else 4
+        m = torch.full((n_s, lanes), 1e9, device=dev)
+        m[0] = 0.0
+        with routed(vk, libs["this tree"]):
+            dec, m = (vk.pr_acs_forward(obs, torch.tensor(vk._pr_rc_table(), device=dev), m)
+                      if pr else vk.acs_forward(obs, m))
+        start = torch.argmin(m, dim=0).to(torch.int32)
+        tb = vk.pr_traceback if pr else vk.traceback
+        for case in ("forward", "unmerged"):
+            if case == "unmerged":
+                dec = unmerged_words(pr, dec.shape[0], lanes, gen, dev)
+            heads = {}
+            for n in names:
+                chunks = tb_chunks(pr, n)
+                if chunks and chunks not in heads:
+                    heads[chunks] = head_stats(*tb_heads(dec, pr, chunks))
+
+            def run(n, dec=dec):
+                with routed(vk, libs[n]):
+                    return tb(dec, start)
+
+            outs = {n: run(n) for n in names}
+            times = in_turns(names, run, args.iters)
+            want = outs["this tree"]
+            for n in names:
+                same = bool(torch.equal(outs[n], want))
+                ok &= same
+                emit(kernel="pr_traceback" if pr else "traceback", build=n, decisions=case,
+                     batch=args.batch, steps=STEPS, lanes=lanes, ms=times[n], identical=same,
+                     words_differing=int((outs[n] != want).sum()),
+                     heads=heads.get(tb_chunks(pr, n)))
+            del outs
+        del dec
+    return ok
+
+
 def ab_eq_fir(libs, names, dev, gen, args) -> bool:
     """The fast tier on a random cf32 window and its cs16/cs8 codes."""
     from atsc_tpu_torch.models.receiver import _osc_planar
@@ -342,6 +478,8 @@ def main(argv=None) -> int:
             ok &= ab_offset_fir(libs[kernel], names, dev, gen, args)
         elif kernel == "eq_fir":
             ok &= ab_eq_fir(libs[kernel], names, dev, gen, args)
+        elif kernel == "tb":
+            ok &= ab_tb(libs[kernel], names, dev, gen, args)
         else:
             ok &= ab_trellis(kernel, libs[kernel], names, dev, gen, args)
         torch.cuda.empty_cache()
