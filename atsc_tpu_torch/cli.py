@@ -20,11 +20,14 @@ Usage:
 Flags of the JAX CLI that this package does not have yet (encode: --mesh,
 --mux, --rate, --ppm, --checkpoint, --resume, --profile, --realtime, the
 soapy sink; decode: --mesh, --demux, --sro, --rate, --cfo, --align,
---resync, --equalizer other than zf, --viterbi-chunks other than 1,
---erasures, --checkpoint, --resume, --profile, the soapy source; the
-analyze subcommand) stop with an error naming them; none is silently
-ignored. Decode runs the trellis tiers `--trellis hard|viterbi|viterbi-i8`
-and the NTSC comb `--ntsc off|comb|auto`.
+--resync, --viterbi-chunks other than 1, --checkpoint, --resume,
+--profile, the soapy source; the analyze subcommand) stop with an error
+naming them; none is silently ignored. Decode runs the equalizers
+`--equalizer zf|adaptive|adaptive-dd` (with `--forgetting` and
+`--train-every` for the adaptive ones), the trellis tiers `--trellis
+hard|viterbi|viterbi-i8`, the NTSC comb `--ntsc off|comb|auto` and the RS
+erasure tier `--erasures off|burst`. A cs16/cs8 capture under an adaptive
+equalizer is dequantized on the host (the codes path is the zf kernel's).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.models.encoder import Encoder
 from atsc_tpu_torch.models.receiver import IqReceiver
-from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE
+from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE, dequantize_iq
 from atsc_tpu_torch.runtime.io import IqSink, TsReader
 from atsc_tpu_torch.utils.profiling import ThroughputMeter
 
@@ -162,12 +165,13 @@ def run(input_paths, output: str = "null", channels: int = 1,
 
 
 # decode flags of atsc_tpu.cli that are not ported yet, with the default
-# that means "not given" (--equalizer zf and --viterbi-chunks 1 are the
-# path this package runs)
+# that means "not given" (--viterbi-chunks 1 is the exact Viterbi this
+# package runs; --sro 0, --cfo 0, --align none and --resync off condition
+# nothing)
 _DECODE_NOT_PORTED = {
     "mesh": None, "demux": 0, "sro": "0", "rate": None, "cfo": "0",
-    "align": "none", "resync": "off", "equalizer": "zf", "viterbi_chunks": 1,
-    "erasures": "off", "checkpoint": None, "resume": False, "profile": None,
+    "align": "none", "resync": "off", "viterbi_chunks": 1,
+    "checkpoint": None, "resume": False, "profile": None,
 }
 
 #: CLI --trellis value -> IqReceiver trellis mode
@@ -209,6 +213,26 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                          "16-state partial-response ML trellis decoding; "
                          "'auto' lets the first field's slicer residuals "
                          "decide (the comb costs ~3 dB against white noise)")
+    ap.add_argument("--equalizer", default="zf",
+                    choices=("zf", "adaptive", "adaptive-dd"),
+                    help="'zf': fixed zero-forcing inverse of the known TX "
+                         "chain (ideal channel); 'adaptive': widely-linear "
+                         "RLS trained on each field's sync symbols, for "
+                         "captures through an unknown linear channel "
+                         "(multipath, gain/phase, ripple); 'adaptive-dd': + a "
+                         "decision-directed second pass per field (~1 dB "
+                         "more sensitivity near threshold)")
+    ap.add_argument("--forgetting", type=float, default=1.0,
+                    help="adaptive equalizer memory: 1.0 = average all "
+                         "fields (static channel), 0.0 = retrain per field")
+    ap.add_argument("--train-every", type=int, default=1, metavar="K",
+                    help="adaptive equalizer retrain cadence: train + solve "
+                         "on every K-th field, apply the cached taps between")
+    ap.add_argument("--erasures", default="off", choices=("off", "burst"),
+                    help="'burst': detect impulse-noise bursts from slicer "
+                         "residuals and pass the affected bytes to RS as "
+                         "erasures (2*errors + erasures <= 20 per segment "
+                         "instead of errors <= 10)")
     ap.add_argument("--max-fields", type=int, default=0)
     ap.add_argument("--stats", action="store_true",
                     help="print a JSON decode summary to stderr")
@@ -238,6 +262,20 @@ def _decode_not_ported(args) -> str:
     return ""
 
 
+_CODE_DTYPE = {"cs16": np.int16, "cs8": np.int8}
+
+
+def _block_to_complex(buf: bytes, fmt: str, channels: int) -> np.ndarray:
+    """One field block of wire bytes -> (channels, 260416) complex64,
+    cs16/cs8 codes dequantized on the host."""
+    if fmt == "cf32":
+        iq = np.frombuffer(buf, dtype=np.float32)
+    else:
+        iq = dequantize_iq(np.frombuffer(buf, dtype=_CODE_DTYPE[fmt]), fmt)
+    iq = np.ascontiguousarray(iq.reshape(-1, 2)).view(np.complex64)[:, 0]
+    return iq.reshape(channels, P.SYMBOLS_PER_FIELD)
+
+
 def run_decode(args) -> dict:
     """Decode a capture (args from build_decode_argparser) to TS; returns
     the summary (printed to stderr with --stats)."""
@@ -247,15 +285,21 @@ def run_decode(args) -> dict:
     fmt, channels = args.in_format, args.channels
     dev = resolve_device(args.device)
     # cs16/cs8 codes are buffered and uploaded verbatim (2-4x less H2D
-    # traffic) and dequantized inside the equalizer kernel
-    codes_path = fmt in ("cs16", "cs8")
+    # traffic) and dequantized inside the zf equalizer kernel; the adaptive
+    # equalizers take float samples, dequantized on the host
+    codes_path = fmt in ("cs16", "cs8") and args.equalizer == "zf"
     trellis = _TRELLIS_MODE[args.trellis]
     rx = IqReceiver(batch=channels, first_field=args.first_field,
-                    trellis=trellis, wire_format=fmt, eq_profile=args.eq_profile,
+                    backend="device" if args.equalizer == "zf" else args.equalizer,
+                    forgetting=args.forgetting, trellis=trellis,
+                    erasures=None if args.erasures == "off" else args.erasures,
+                    wire_format=fmt if codes_path else "cf32",
+                    eq_profile=args.eq_profile,
                     ntsc=None if args.ntsc == "off" else args.ntsc,
                     # the i8 tier's int8 level codes cannot feed the MER
                     # accumulator; --stats still reports everything else
-                    measure_mer=args.stats and trellis != "soft-i8", device=dev)
+                    measure_mer=args.stats and trellis != "soft-i8",
+                    train_every=args.train_every, device=dev)
     block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
     fields = 0
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
@@ -277,13 +321,10 @@ def run_decode(args) -> dict:
                           "block at EOF", file=sys.stderr)
                 break
             if codes_path:
-                codes = np.frombuffer(
-                    buf, dtype=np.int16 if fmt == "cs16" else np.int8)
+                codes = np.frombuffer(buf, dtype=_CODE_DTYPE[fmt])
                 emit(rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2)))
             else:
-                iq = np.frombuffer(buf, dtype=np.float32).reshape(-1, 2)
-                iq = np.ascontiguousarray(iq).view(np.complex64)[:, 0]
-                emit(rx.push(iq.reshape(channels, P.SYMBOLS_PER_FIELD)))
+                emit(rx.push(_block_to_complex(buf, fmt, channels)))
             if args.max_fields and fields >= args.max_fields:
                 break
         if not args.max_fields or fields < args.max_fields:
@@ -300,6 +341,8 @@ def run_decode(args) -> dict:
         "segments_uncorrectable": rx.decoder.segments_uncorrectable,
         "device": str(dev),
     }
+    if args.erasures != "off":
+        summary["segments_erasure_assisted"] = rx.decoder.segments_erasure_assisted
     if args.ntsc != "off":
         summary["ntsc_comb"] = rx.ntsc_active
     if rx.mer is not None:

@@ -16,8 +16,11 @@ src/atsc/atsc.cpp:34).
 Two more tiers decode soft levels instead of sliced symbols, with the same
 latency: SoftDecoder (maximum-likelihood 4-state Viterbi, ops/viterbi.py,
 float32 levels or int8 soft-level codes) and NtscDecoder (12-symbol comb +
-16-state partial-response Viterbi, ops/ntsc.py). RS erasure flags and the
-chunk-parallel Viterbi are not ported yet.
+16-state partial-response Viterbi, ops/ntsc.py). Every tier takes optional
+per-symbol erasure flags (Decoder.decode's erasure_flags): they ride the
+same gathers to the codewords, whose flagged bytes the errors-and-erasures
+corrector treats as erasures. The chunk-parallel Viterbi is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -35,10 +38,15 @@ from atsc_tpu_torch.ops.decode import (
     deinterleave_field,
     derandomize_field,
     enc_major_to_round_major,
+    propagate_erasure_flags,
     trellis_decode_field,
 )
 from atsc_tpu_torch.ops.ntsc import comb_field, init_pr_metrics, viterbi_pr_decode_field
-from atsc_tpu_torch.ops.rs_decode import rs_correct_field, syndrome_field
+from atsc_tpu_torch.ops.rs_decode import (
+    rs_correct_field,
+    rs_correct_field_erasures,
+    syndrome_field,
+)
 from atsc_tpu_torch.ops.viterbi import (
     _not_ported_chunks,
     init_metrics,
@@ -161,8 +169,10 @@ class Decoder:
         self.batch = batch
         self._state = init_decoder_state(batch, device=self.device)
         self._step = decode_field
+        self.flag_il: torch.Tensor | None = None  # carried erasure flags
         self.segments_corrected = 0
         self.segments_uncorrectable = 0
+        self.segments_erasure_assisted = 0
 
     @property
     def state(self) -> DecoderState:
@@ -180,22 +190,48 @@ class Decoder:
         (B, 58656) uint8 of field k-1, n_errors (B, 312) int32; -1 marks
         uncorrectable), both host numpy.
 
+        erasure_flags: optional (B, >=260416) uint8/bool per-symbol
+        unreliability flags for the same received field (e.g. from
+        ops/erasures.py's burst detector); flagged bytes are RS erasures,
+        2*errors + erasures <= 20 per segment instead of errors <= 10.
+        The flags carry one field of state (`flag_il`), like the symbols:
+        once used, a call without flags counts as all-clear flags.
+
         The first call after a cold start returns the all-zero pre-start
         field (see module docstring); callers should drop it.
         """
-        if erasure_flags is not None:
-            raise NotImplementedError(
-                "RS erasure flags are not yet ported to atsc_tpu_torch")
         if not isinstance(field, torch.Tensor):
             field = torch.as_tensor(np.asarray(field))
         self._state, codewords, syn = self._step(self._state, field.to(self.device))
+        cw_flags = None   # stays on the device, for the erasure corrector
+        if erasure_flags is not None or self.flag_il is not None:
+            if self.flag_il is None:
+                self.flag_il = torch.zeros((self.batch, P.DATA_PER_FIELD),
+                                           dtype=torch.uint8, device=self.device)
+            if erasure_flags is None:
+                flags_in = torch.zeros((self.batch, P.SYMBOLS_PER_FIELD),
+                                       dtype=torch.uint8, device=self.device)
+            else:
+                if not isinstance(erasure_flags, torch.Tensor):
+                    erasure_flags = torch.as_tensor(np.asarray(erasure_flags))
+                flags_in = erasure_flags.to(self.device)
+            cw_flags, self.flag_il = propagate_erasure_flags(flags_in, self.flag_il)
         n_errors = np.zeros((self.batch, P.DATA_SEGMENTS), dtype=np.int32)
         dirty = (syn != 0).any(dim=-1)
         if bool(dirty.any()):
-            codewords, n_dev = rs_correct_field(codewords, syn)
+            # the whole field in one pass: the errors-and-erasures
+            # corrector where flags exist (with its per-segment
+            # errors-only fallback), else the errors-only one
+            if cw_flags is not None:
+                codewords, n_dev = rs_correct_field_erasures(codewords, syn, cw_flags)
+            else:
+                codewords, n_dev = rs_correct_field(codewords, syn)
             n_errors = n_dev.cpu().numpy()
             self.segments_corrected += int((n_errors > 0).sum())
             self.segments_uncorrectable += int((n_errors < 0).sum())
+            if cw_flags is not None:
+                flagged = (dirty & (cw_flags != 0).any(dim=-1)).cpu().numpy()
+                self.segments_erasure_assisted += int(((n_errors > 0) & flagged).sum())
         ts = derandomize_field(codewords).cpu().numpy()
         return ts, n_errors
 

@@ -1,30 +1,39 @@
-"""IQ-domain 8VSB receiver: zero-forcing VSB equalizer + field decoder.
+"""IQ-domain 8VSB receiver: equalizer + field decoder.
 
-Counterpart of atsc_tpu/models/receiver.py, the device ("zf") backend with
-its trellis tiers: hard decisions, soft Viterbi on float32 levels or int8
-soft-level codes, and NTSC comb rejection. It starts at the transmitted
-complex baseband and recovers transport-stream bytes:
+Counterpart of atsc_tpu/models/receiver.py with all four equalizer
+backends and every trellis tier: hard decisions, soft Viterbi on float32
+levels or int8 soft-level codes, and NTSC comb rejection. It starts at the
+transmitted complex baseband and recovers transport-stream bytes:
 
 1. **Derotate** by the known oscillator (tables/oscillator.py, with the
    reference's float32-argument phase quirk and the per-field phasor
    drift). After derotation the chain is one stationary anti-causal
    complex-tap FIR.
-2. **Zero forcing with conjugate combining.** The level sequence is real,
-   so every spectral bin is observed twice, through C(f) and conj(C(-f)),
-   and |C(f)|^2 + |C(-f)|^2 is flat by the RRC pair's root-Nyquist
-   complementarity. The least-squares combiner (`_equalizer_dft`) has a
-   compactly supported time response, so it collapses to two short real
-   FIRs on the planar I/Q (`_wl_eq_taps`):
+2. **Zero forcing with conjugate combining** (backend "device", zf). The
+   level sequence is real, so every spectral bin is observed twice,
+   through C(f) and conj(C(-f)), and |C(f)|^2 + |C(-f)|^2 is flat by the
+   RRC pair's root-Nyquist complementarity. The least-squares combiner
+   (`_equalizer_dft`) has a compactly supported time response, so it
+   collapses to two short real FIRs on the planar I/Q (`_wl_eq_taps`):
    lev = p (*) Re(u) + q (*) Im(u). The hand kernel csrc/eq_fir.cu
    (ops/cuda/eq_fir.py) derotates, filters and slices in one pass.
+   Backend "numpy" is the same combiner in float64 on the host, by FFT
+   (`equalize_span`), the high-precision reference path.
 3. **Slice** to 3-bit symbols and feed models/decoder.py, whose RS stage
    absorbs residual or noise-induced symbol errors; or, with
    trellis="soft"/"soft-i8" or ntsc="comb"/"auto", keep the soft levels
    for the maximum-likelihood decoders (SoftDecoder, NtscDecoder).
 
+For captures that passed through an unknown linear channel (multipath,
+front-end ripple, complex gain/phase, DC offset) the zf inverse no longer
+applies; backend="adaptive" trains a widely-linear least-squares equalizer
+on the known sync symbols of every field (ops/adaptive_eq.py), and
+"adaptive-dd" adds a decision-directed second pass. erasures="burst" runs
+the slicer-residual burst detector (ops/erasures.py) on the equalized
+levels and hands its flags to the decoder's errors-and-erasures RS tier.
+
 Scope: sample-synchronous loopback/monitoring with a known carrier epoch.
-The numpy and adaptive backends, erasures, resync and the chunk-parallel
-Viterbi are not ported yet and raise.
+Resync and the chunk-parallel Viterbi are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ import torch
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.models.decoder import Decoder, NtscDecoder, SoftDecoder
+from atsc_tpu_torch.ops.adaptive_eq import AdaptiveEqualizer
 from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN, eq_fir_fused
+from atsc_tpu_torch.ops.erasures import burst_erasure_flags_dev
 from atsc_tpu_torch.ops.ntsc import detect_ntsc
 from atsc_tpu_torch.ops.quantize import quantize_scale
 from atsc_tpu_torch.ops.slicer import ideal_levels, slice_symbols
@@ -50,6 +61,8 @@ from atsc_tpu_torch.tables.oscillator import (
 from atsc_tpu_torch.tables.rrc import rrc_taps
 
 _N = P.SYMBOLS_PER_FIELD
+_MARGIN = 8192  # numpy backend: context per side of a field window (>> the
+#                 ~112-sample effective equalizer span; FFT cost is negligible)
 _EQ_K = 256                # one-sided support of the full equalizer taps
 # samples past a field the receiver waits for before equalizing it (more
 # than the K <= 256 samples of right context a window's FIR reads)
@@ -89,6 +102,46 @@ def _oscillator_for_span(g0: int, g1: int, first_field: int) -> np.ndarray:
         )
         g += n
     return out
+
+
+def equalize_span(
+    iq: np.ndarray, g0: int, first_field: int = 0, n_out: int = _N,
+    margin: int = _MARGIN, stream_offset: int = 0,
+) -> np.ndarray:
+    """Recover `n_out` symbol levels starting at stream sample g0, in
+    float64 on the host (the numpy backend).
+
+    iq: (B, n_samples) complex baseband covering stream samples
+    [stream_offset, stream_offset + n_samples); g0 is an absolute stream
+    index (sample 0 = start of field `first_field`). Context missing at
+    either edge is zero-filled (perturbs only ~112 boundary samples).
+    Returns (B, n_out) float64 levels.
+    """
+    iq = np.atleast_2d(iq)
+    g1 = g0 + n_out
+    lo, hi = g0 - margin, g1 + margin
+    avail_lo = max(lo, stream_offset)
+    avail_hi = min(hi, stream_offset + iq.shape[1])
+    win = np.zeros((iq.shape[0], hi - lo), np.complex128)
+    if avail_hi > avail_lo:
+        win[:, avail_lo - lo : avail_hi - lo] = iq[
+            :, avail_lo - stream_offset : avail_hi - stream_offset
+        ]
+    osc = _oscillator_for_span(lo, hi, first_field)
+    u = win * np.conj(osc) / (P.OSC_AMPLITUDE ** 2)
+
+    w_a, w_b = _equalizer_dft(u.shape[1])
+    uf = np.fft.fft(u, axis=-1)
+    levf = w_a * uf + w_b * np.conj(_flip(uf))
+    lev = np.real(np.fft.ifft(levf, axis=-1))
+    return lev[:, margin : margin + n_out]
+
+
+def slice_levels(levels: np.ndarray) -> np.ndarray:
+    """Hard-decision levels -> (B, >=260416) int8 3-bit symbol values
+    (host)."""
+    sym = np.rint((levels - P.PILOT_OFFSET + 7.0) / 2.0)
+    return np.clip(sym, 0, 7).astype(np.int8)
 
 
 #: receive accuracy tiers: profile -> (one-sided tap support K, exact).
@@ -292,15 +345,27 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to atsc_tpu_torch")
 
 
+#: equalizer profile -> apply precision of the adaptive equalizer's FIRs
+_ADAPTIVE_PRECISION = {"exact": "highest", "fast": "default"}
+
+
 class IqReceiver:
     """Streaming IQ -> TS: push complex baseband, collect decoded fields.
 
-    The device ("zf") backend on `device`. Assumes the stream begins at a
-    field boundary with the oscillator epoch of `first_field`. Emits (ts
-    (B, 58656) uint8, n_errors (B, 312) int32) host numpy per decoded
-    field, with the decoder's one-field interleaver latency; the first
-    (pre-start) output field is dropped internally, and its RS statistics
-    are rolled back.
+    backend: "device" (the zf inverse of the known TX chain through the
+    eq_fir kernel — ideal channel), "numpy" (float64 host reference of the
+    same), "adaptive" (per-field sync-trained widely-linear RLS — unknown
+    linear channels; forgetting, ridge and the train_every retrain cadence
+    as AdaptiveEqualizer takes them) or "adaptive-dd" (adaptive + a
+    decision-directed second pass per field, ~1 dB more sensitivity near
+    threshold). The numpy backend equalizes on the host; everything else
+    runs on `device`.
+
+    Assumes the stream begins at a field boundary with the oscillator
+    epoch of `first_field`. Emits (ts (B, 58656) uint8, n_errors (B, 312)
+    int32) host numpy per decoded field, with the decoder's one-field
+    interleaver latency; the first (pre-start) output field is dropped
+    internally, and its RS statistics are rolled back.
 
     trellis: "hard" slices the equalized levels; "soft" decodes float32
     levels by maximum likelihood (Viterbi); "soft-i8" the same on int8
@@ -309,18 +374,24 @@ class IqReceiver:
     Viterbi; "auto" lets the first field's levels vote per channel
     (detect_ntsc, `ntsc_votes`) and engages the comb (`ntsc_active`) when a
     majority wants it, warning on stderr when the channels disagree.
-    wire_format cs16/cs8: push_codes() buffers the integer codes verbatim;
-    the equalizer kernel dequantizes. measure_mer=True accumulates the MER
-    of the equalized levels on the device.
+    erasures="burst": the slicer-residual burst detector flags the
+    equalized levels and RS treats the flagged bytes as erasures
+    (`decoder.segments_erasure_assisted` counts the segments it helped).
+    wire_format cs16/cs8 (device backend only): push_codes() buffers the
+    integer codes verbatim; the equalizer kernel dequantizes.
+    measure_mer=True accumulates the MER of the equalized levels on the
+    device.
     """
 
     def __init__(self, batch: int = 1, first_field: int = 0,
-                 backend: str = "device",
+                 margin: int | None = None, backend: str = "device",
+                 forgetting: float = 1.0, ridge: float = 1e-4,
                  trellis: str = "hard", erasures: str | None = None,
                  wire_format: str = "cf32", eq_profile: str = "auto",
                  ntsc: str | None = None, viterbi_chunks: int = 1,
                  measure_mer: bool = False,
-                 resync: str | None = None, *, device: str | torch.device):
+                 resync: str | None = None, train_every: int = 1, *,
+                 device: str | torch.device):
         # the JAX package's validation, in its order
         if backend not in ("device", "numpy", "adaptive", "adaptive-dd"):
             raise ValueError(f"unknown equalizer backend {backend!r}")
@@ -350,12 +421,15 @@ class IqReceiver:
                              "assumes the plain 8-level slicer)")
         if wire_format not in ("cf32", "cs16", "cs8"):
             raise ValueError(f"unknown wire format {wire_format!r}")
+        if wire_format != "cf32" and backend != "device":
+            raise ValueError("quantized wire input needs backend='device' "
+                             "(dequantize on the host for other backends)")
         if resync not in (None, "auto"):
             raise ValueError(f"unknown resync mode {resync!r}")
-        if backend != "device":
-            raise _not_ported(f"backend {backend!r}")
-        if erasures is not None:
-            raise _not_ported(f"erasures {erasures!r}")
+        if resync is not None and not backend.startswith("adaptive"):
+            raise ValueError("resync='auto' needs an adaptive backend: a "
+                             "re-acquired epoch carries an unknown phase "
+                             "offset only a trained equalizer absorbs")
         if resync is not None:
             raise _not_ported(f"resync {resync!r}")
         if viterbi_chunks > 1:
@@ -363,14 +437,37 @@ class IqReceiver:
         self.device = resolve_device(device)
         self.batch = batch
         self.first_field = first_field
+        self.backend = backend
         self.trellis = trellis
+        self.erasures = erasures
         self.wire_format = wire_format
         self.eq_profile = eq_profile
         if wire_format == "cf32":
-            self._dequant, stream_dtype = 1.0, np.float32
+            self._dequant = 1.0
+            # the numpy backend is the high-precision reference path: it
+            # keeps float64 planes (the device paths are float32 anyway)
+            stream_dtype = np.float64 if backend == "numpy" else np.float32
         else:
             self._dequant = 1.0 / quantize_scale(wire_format)
             stream_dtype = np.int16 if wire_format == "cs16" else np.int8
+        self.margin = margin if margin is not None else (
+            _MARGIN if backend == "numpy" else _DEV_MARGIN)
+        if backend != "numpy" and self.margin != _DEV_MARGIN:
+            raise ValueError("device/adaptive backends use a fixed window; "
+                             "leave margin unset or use backend='numpy'")
+        if train_every != 1 and not backend.startswith("adaptive"):
+            raise ValueError("train_every is the adaptive equalizer's "
+                             "retrain cadence — zf/numpy backends do "
+                             "not train")
+        self.train_every = train_every
+        self._adaptive = None
+        if backend.startswith("adaptive"):
+            key = DEFAULT_EQ_PROFILE if eq_profile == "auto" else eq_profile
+            self._adaptive = AdaptiveEqualizer(
+                batch=batch, forgetting=forgetting, ridge=ridge,
+                apply_precision=_ADAPTIVE_PRECISION[key],
+                decision_directed=backend == "adaptive-dd",
+                train_every=train_every, device=self.device)
         self.ntsc = ntsc
         self.viterbi_chunks = viterbi_chunks
         self.measure_mer = measure_mer
@@ -403,6 +500,11 @@ class IqReceiver:
         return self._decoder
 
     @property
+    def adaptive(self) -> AdaptiveEqualizer | None:
+        """The adaptive backends' equalizer (its taps and carried state)."""
+        return self._adaptive
+
+    @property
     def mer(self) -> np.ndarray | None:
         """(B,) running modulation-error-ratio estimate in dB over every
         equalized field so far; None until the first measured field
@@ -413,25 +515,49 @@ class IqReceiver:
             self._mer_sig / np.maximum(self._mer_err, 1e-30)
         )
 
+    def _equalize(self, rel0: int, g0: int, want_levels: bool):
+        """Field `rel0 / N` (stream sample g0) through the backend: int8
+        symbols, or float32 soft levels (int8 codes for soft-i8) when
+        want_levels — a tensor on the device, or host numpy for the numpy
+        backend."""
+        if self.backend == "numpy":
+            w = self._stream.window(g0 - self.margin, g0 + _N + self.margin)
+            cplx = w[:, 0].astype(np.complex128)
+            cplx += 1j * w[:, 1]
+            # oscillator coordinates are epoch-relative (rel0), the
+            # buffered stream's absolute (g0)
+            lev = equalize_span(cplx, rel0, first_field=self.first_field,
+                                margin=self.margin, stream_offset=rel0 - self.margin)
+            return lev.astype(np.float32) if want_levels else slice_levels(lev)
+        if self._adaptive is not None:
+            win = self._stream.window(g0 - _DEV_MARGIN, g0 + _N + _DEV_MARGIN)
+            osc = _osc_planar(rel0 - _DEV_MARGIN, rel0 + _N + _DEV_MARGIN,
+                              self.first_field)
+            parity = (self.first_field + self._next_field) % 2
+            return self._adaptive.process_field(win, osc, parity, soft=want_levels)
+        lo_off, wlen = eq_window_bounds(self.eq_profile)
+        win = self._stream.window(g0 + lo_off, g0 + lo_off + wlen)
+        osc = _osc_planar(rel0 + lo_off, rel0 + lo_off + wlen, self.first_field)
+        step = device_eq_step(want_levels, self._dequant, self.eq_profile,
+                              soft_q=self.trellis == "soft-i8")
+        return step(torch.from_numpy(win).to(self.device),
+                    torch.from_numpy(osc).to(self.device))
+
     def _decode_available(self, final: bool) -> list[tuple[np.ndarray, np.ndarray]]:
         out = []
-        lo_off, wlen = eq_window_bounds(self.eq_profile)
         while True:
             rel0 = self._next_field * _N
             g0 = self._epoch + rel0
-            need = g0 + _N if final else g0 + _N + _DEV_MARGIN
+            need = g0 + _N if final else g0 + _N + self.margin
             if self._stream.end < need:
                 break
-            win = self._stream.window(g0 + lo_off, g0 + lo_off + wlen)
-            osc = _osc_planar(rel0 + lo_off, rel0 + lo_off + wlen,
-                              self.first_field)
             soft = self.trellis.startswith("soft")
-            want_levels = (soft or self._ntsc_pending or self.ntsc_active
+            want_levels = (soft or self.erasures is not None
+                           or self._ntsc_pending or self.ntsc_active
                            or self.measure_mer)
-            step = device_eq_step(want_levels, self._dequant, self.eq_profile,
-                                  soft_q=self.trellis == "soft-i8")
-            field = step(torch.from_numpy(win).to(self.device),
-                         torch.from_numpy(osc).to(self.device))
+            field = self._equalize(rel0, g0, want_levels)
+            if want_levels and isinstance(field, np.ndarray):
+                field = torch.from_numpy(field).to(self.device)
             if self.measure_mer:
                 sig, err = _mer_components_dev(field)
                 self._mer_sig += sig.cpu().numpy().astype(np.float64)
@@ -450,11 +576,18 @@ class IqReceiver:
                 if votes.mean() > 0.5:
                     self.ntsc_active = True
                     self._decoder = self._make_decoder()
-            if not soft and want_levels and not self.ntsc_active:
+            flags = None
+            if self.erasures is not None:
+                # detector -> slice for the hard path -> decode with flags
+                flags = burst_erasure_flags_dev(field)
+                if not soft:
+                    field = slice_symbols(field)
+            elif not soft and want_levels and not self.ntsc_active:
                 field = slice_symbols(field)   # the hard decoder wants symbols
             corrected = self._decoder.segments_corrected
             uncorrectable = self._decoder.segments_uncorrectable
-            ts, nerr = self._decoder.decode(field)
+            assisted = self._decoder.segments_erasure_assisted
+            ts, nerr = self._decoder.decode(field, erasure_flags=flags)
             if self._primed:
                 out.append((ts, nerr))
                 self.fields_emitted += 1
@@ -463,11 +596,12 @@ class IqReceiver:
                 # stats back so summaries reflect *emitted* fields only
                 self._decoder.segments_corrected = corrected
                 self._decoder.segments_uncorrectable = uncorrectable
+                self._decoder.segments_erasure_assisted = assisted
             self._primed = True
             self._next_field += 1
             # drop samples no window will touch again
             self._stream.trim(
-                max(self._epoch + self._next_field * _N - _DEV_MARGIN, 0)
+                max(self._epoch + self._next_field * _N - self.margin, 0)
             )
         return out
 

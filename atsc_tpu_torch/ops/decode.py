@@ -18,6 +18,8 @@ its RS decoder is dead code, reference src/atsc/reed_solomon.h:41-190):
   gather; RS field N gathers from received fields N and N+1 (one field of
   latency; the previous received field is the carried state).
 * De-randomizer: the PN XOR is self-inverse; the 0x47 syncs go back in.
+* Erasure flags ride the same gathers (propagate_erasure_flags), so each
+  RS codeword learns which of its bytes came from flagged symbols.
 """
 
 from __future__ import annotations
@@ -142,6 +144,30 @@ def deinterleave_field(
     """
     both = torch.cat([cur_il, prev_il], dim=-1)
     return torch.index_select(both, -1, const(_deinterleave_src, both.device))
+
+
+def propagate_erasure_flags(
+    flag_field: torch.Tensor, prev_flag_il: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Carry per-symbol unreliability flags through the inverse chain.
+
+    A symbol flagged unreliable (e.g. by the receiver's burst detector,
+    ops/erasures.py) marks its trellis byte, which lands in some RS
+    codeword position: the same gathers decode_field uses move the flags,
+    so each codeword learns which of its bytes came from flagged symbols
+    and RS can treat them as erasures.
+
+    flag_field: (B, >=260416) uint8/bool flags of received field k;
+    prev_flag_il: (B, 64584) uint8 carried flags (previous field).
+    Returns (codeword flags (B, 312, 207) uint8 for RS field k-1, new
+    carried flags (B, 64584) uint8).
+    """
+    f = decommutate_field(flag_field.to(torch.uint8))
+    b = f.shape[0]
+    fb = f.reshape(b, P.TRELLIS_ENCODERS, _NB, 4).amax(dim=-1)
+    cur = enc_major_to_round_major(fb)
+    rs = deinterleave_field(cur, prev_flag_il)
+    return rs.reshape(b, P.DATA_SEGMENTS, P.SEGMENT_FEC_BYTES), cur
 
 
 def derandomize_field(rs_data: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Reed-Solomon RS(207,187) decoder, errors-only tier: syndromes and error
+"""Reed-Solomon RS(207,187) decoder: syndromes, and error and erasure
 correction on the device.
 
 Counterpart of atsc_tpu/ops/rs_decode.py (reference src/atsc/
@@ -9,16 +9,23 @@ decoder, dead code there):
   syndrome bits are codeword_bits @ S (mod 2), one product for all 312
   segments of every channel.
 * `rs_correct_field` — the errors-only decode as fixed-shape, branch-free
-  arithmetic over all (B, 312) segments at once: GF(256) multiply as an
-  8-round carryless shift/XOR, inversion as a^254, the inversionless
+  arithmetic over all (B, 312) segments at once: GF(256) multiply and
+  inverse as lookups in 64K/256-entry tables, the inversionless
   Berlekamp-Massey (RiBM) in 20 fixed rounds, and the Chien search and
   Forney evaluations as GF(2) bit products against precomputed matrices.
+  (The JAX package multiplies by an 8-round carryless shift/XOR and
+  inverts as a^254, because the TPU gathers poorly; on the card a gather
+  from a table that stays in cache is one pass where those are ~90 and
+  ~1100, and the integers are the same.)
+* `rs_correct_field_erasures` — the errors-and-erasures decode (2*errors
+  + erasures <= 20 per segment) on the same fixed-shape machinery, with a
+  per-segment errors-only fallback for wrong or excessive flags.
 
 CUDA matmul takes no integer operands, so every GF(2) bit product is a
 float32 matmul reduced `& 1`. It is exact: the operands are 0/1 and each
 sum is an integer <= 1656 < 2^24, and 0/1 survive TF32 too. These are
 plain products that the JAX package leaves to XLA, so they go to
-torch.matmul. The erasure tier is not ported yet.
+torch.matmul.
 """
 
 from __future__ import annotations
@@ -119,31 +126,33 @@ def syndrome_field(codewords: torch.Tensor) -> torch.Tensor:
 # Clean segments fall through untouched with n = 0 (delta stays 0 for all
 # 20 rounds, so C = 1 and nothing matches).
 
+@functools.lru_cache(maxsize=1)
+def _gf_mul_flat() -> np.ndarray:
+    """(65536,) int32 GF(256) products: [a << 8 | b] = a * b."""
+    a = np.arange(256)
+    return gf_mul(a[:, None], a[None, :]).astype(np.int32).reshape(-1)
+
+
+@functools.lru_cache(maxsize=1)
+def _gf_inv_table() -> np.ndarray:
+    """(256,) int32 GF(256) inverses, 0 -> 0."""
+    exp, log = gf_tables()
+    inv = np.zeros(256, np.int32)
+    inv[1:] = exp[(255 - log[1:].astype(np.int64)) % 255]
+    return inv
+
+
 def _gf_mul_dev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise GF(256) multiply (int32 in, int32 out, broadcasting):
-    carryless multiply with interleaved 0x11d reduction — 8 shift/mask/XOR
-    rounds, no gathers."""
-    b = b.to(torch.int32)
-    cur = a.to(torch.int32)
-    acc = torch.zeros(torch.broadcast_shapes(a.shape, b.shape),
-                      dtype=torch.int32, device=cur.device)
-    for i in range(8):
-        acc = acc ^ torch.where(((b >> i) & 1) != 0, cur, 0)
-        if i < 7:
-            cur = ((cur << 1) & 0xFF) ^ torch.where((cur & 0x80) != 0, 0x1D, 0)
-    return acc
+    """Elementwise GF(256) multiply (int32 in, int32 out, broadcasting): a
+    lookup in the 64K product table."""
+    idx = (a.to(torch.int32) << 8) | b.to(torch.int32)
+    return const(_gf_mul_flat, idx.device)[idx]
 
 
 def _gf_inv_dev(a: torch.Tensor) -> torch.Tensor:
-    """Elementwise GF(256) inverse a^254 (Fermat); maps 0 -> 0 (callers
-    must reject den == 0 explicitly)."""
-    sq = _gf_mul_dev(a, a)          # a^2
-    r = sq
-    cur = sq
-    for _ in range(6):              # a^4 .. a^128
-        cur = _gf_mul_dev(cur, cur)
-        r = _gf_mul_dev(r, cur)
-    return r                        # a^(2+4+...+128) = a^254
+    """Elementwise GF(256) inverse; maps 0 -> 0 (callers must reject
+    den == 0 explicitly)."""
+    return const(_gf_inv_table, a.device)[a.to(torch.int32)]
 
 
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -208,14 +217,19 @@ def _alpha_j() -> np.ndarray:
     return exp[(_N - 1 - np.arange(_N)) % 255].astype(np.int32)
 
 
-def _ribm(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _ribm(s: torch.Tensor, n_active: torch.Tensor | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inversionless Berlekamp-Massey (RiBM), 20 fixed rounds.
 
-    s: (..., 20) int32 syndrome sequence. Returns (C (..., 21) int32, the
-    locator scaled by the accumulated gamma product — the scale cancels
-    in Forney's Omega/C' ratio — and ell (...,) int32, the register
-    length = error count). Round r's discrepancy window s[r-i] is a slice
-    of the padded reversed syndromes; out-of-range terms are zero, so the
+    s: (..., 20) int32 syndrome sequence. n_active: optional (...,) int32
+    per-segment count of active rounds — rounds r >= n_active freeze every
+    register (the errors-and-erasures tier runs BM on a shifted
+    modified-syndrome sequence whose valid length, 20 - e, is a
+    per-segment value, not a shape). Returns (C (..., 21) int32, the
+    locator scaled by the accumulated gamma product — the scale cancels in
+    Forney's Omega/C' ratio — and ell (...,) int32, the register length =
+    error count). Round r's discrepancy window s[r-i] is a slice of the
+    padded reversed syndromes; out-of-range terms are zero, so the
     full-width product equals the r+1-term one.
     """
     lead = s.shape[:-1]
@@ -239,7 +253,13 @@ def _ribm(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         xk = torch.cat([zero_col, k[..., :-1]], dim=-1)
         c_new = _gf_mul_dev(gamma[..., None], c) ^ _gf_mul_dev(delta[..., None], xk)
         upd = (delta != 0) & (2 * ell <= r)
-        k = torch.where(upd[..., None], c, xk)
+        if n_active is None:
+            k = torch.where(upd[..., None], c, xk)
+        else:
+            act = r < n_active
+            upd = upd & act
+            c_new = torch.where(act[..., None], c_new, c)
+            k = torch.where(upd[..., None], c, torch.where(act[..., None], xk, k))
         gamma = torch.where(upd, delta, gamma)
         ell = torch.where(upd, r + 1 - ell, ell)
         c = c_new
@@ -315,3 +335,109 @@ def rs_correct_field(
     out = torch.where(ok[..., None], corrected, cw).to(torch.uint8)
     n = torch.where(ok, nroots, -1)
     return out, n
+
+
+def _erasure_locator(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 207) uint8/bool byte-erasure flags -> (Gamma (..., 21) int32
+    erasure-locator coefficients, e (...,) int32 erasure counts).
+
+    Gamma(x) = prod_{flagged i} (1 - X_i x), X_i = alpha^(206-i), built by
+    a 207-step loop multiplying in one linear factor per flagged position
+    (each step: one GF multiply over 21 lanes and a 1-slot slide). Degrees
+    past 20 are silently truncated — callers reject e > 20 before using
+    Gamma.
+    """
+    f = flags != 0
+    e = f.sum(dim=-1, dtype=torch.int32)
+    lead = f.shape[:-1]
+    dev = f.device
+    g = torch.zeros(lead + (_NROOTS + 1,), dtype=torch.int32, device=dev)
+    g[..., 0] = 1
+    zero_col = torch.zeros(lead + (1,), dtype=torch.int32, device=dev)
+    xs = const(_alpha_j, dev)
+    for i in range(_N):
+        shifted = torch.cat([zero_col, _gf_mul_dev(g[..., :-1], xs[i])], dim=-1)
+        g = torch.where(f[..., i, None], g ^ shifted, g)
+    return g, e
+
+
+def rs_correct_field_erasures(
+    codewords: torch.Tensor, syn: torch.Tensor, flags: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched errors-and-erasures RS correction, entirely on the device.
+
+    Corrects any mix of nu errors + e flagged byte erasures with 2*nu + e
+    <= 20 per segment (against errors <= 10), falling back per segment to
+    the errors-only decode where the erasure decode fails (wrong or
+    excessive flags).
+
+    Formulation: erasure locator Gamma by a loop over the 207 positions
+    (_erasure_locator); modified syndromes T = S*Gamma mod x^20; the error
+    locator from the same inversionless BM as the errors-only tier, run on
+    the shifted sequence U_r = T_{e+r} (valid length 20 - e, handled by
+    masking BM rounds); combined locator Psi = C*Gamma; Omega = S*Psi mod
+    x^20; Chien/Forney on Psi through the same bit products. Acceptance:
+    2*ell + e <= 20, #roots == ell + e, no root at Psi' == 0, Psi's degree
+    fits, and the patched codeword's recomputed syndromes are zero.
+
+    codewords/syn as rs_correct_field; flags (..., 207) uint8/bool.
+    Returns (corrected (..., 207) uint8, n (...,) int32): n >= 0 bytes
+    changed, -1 uncorrectable either way.
+    """
+    s = syn.to(torch.int32)
+    cw = codewords.to(torch.int32)
+
+    gamma, e = _erasure_locator(flags)
+    t_mod = _poly_mul_mod20(gamma, s)
+
+    # U_r = T_{e+r}, zero past the valid window (the BM rounds are masked
+    # by n_active = 20 - e anyway, so the fill value is immaterial)
+    idx = e[..., None] + torch.arange(_NROOTS, dtype=torch.int32, device=s.device)
+    u = torch.where(idx < _NROOTS,
+                    torch.gather(t_mod, -1, torch.clamp(idx, max=_NROOTS - 1).to(torch.int64)),
+                    0)
+
+    # the erasure branch and its per-segment errors-only fallback ride
+    # every shared stage as one doubled batch: [0] = errors-only on S,
+    # [1] = the erasure decode on U
+    s2 = torch.stack([s, u])
+    n_act = torch.stack([torch.full_like(e, _NROOTS), _NROOTS - e])
+    c2, ell2 = _ribm(s2, n_active=n_act)
+    c_plain, c_era = c2[0], c2[1]
+    ell = ell2[1]
+
+    # combined locator Psi = C * Gamma: the full product (41 coefficients),
+    # its tail required zero (deg Psi = ell + e <= 20 whenever decodable)
+    psi_full = _poly_mul_scan(c_era, gamma, 2 * _NROOTS + 1)
+    psi = psi_full[..., : _NROOTS + 1]
+    tail_ok = ~torch.any(psi_full[..., _NROOTS + 1 :] != 0, dim=-1)
+
+    loc2 = torch.stack([c_plain, psi])
+    omega2 = _poly_mul_mod20(loc2, s.expand(s2.shape))
+    root2, nroots2, mag2, den2 = _chien_forney(loc2, omega2)
+
+    ok_plain = (
+        (ell2[0] <= _NROOTS // 2)
+        & (nroots2[0] == ell2[0])
+        & ~torch.any(root2[0] & (den2[0] == 0), dim=-1)
+    )
+    ok_era = (
+        (e <= _NROOTS)
+        & (2 * ell + e <= _NROOTS)
+        & (nroots2[1] == ell + e)
+        & tail_ok
+        & ~torch.any(root2[1] & (den2[1] == 0), dim=-1)
+    )
+    ok2 = torch.stack([ok_plain, ok_era])
+    cand2 = torch.where(root2 & ok2[..., None], cw ^ mag2, cw)
+    syn2 = syndrome_field(cand2.to(torch.uint8))
+    ok2 = ok2 & ~torch.any(syn2 != 0, dim=-1)
+    n_changed = (root2[1] & (mag2[1] != 0)).sum(dim=-1, dtype=torch.int32)
+
+    # the erasure decode wins where it verified; else the errors-only
+    # fallback (it succeeds whenever the true errors are <= 10); else the
+    # codeword unchanged with n = -1
+    out = torch.where(ok2[1][..., None], cand2[1],
+                      torch.where(ok2[0][..., None], cand2[0], cw))
+    n = torch.where(ok2[1], n_changed, torch.where(ok2[0], nroots2[0], -1))
+    return out.to(torch.uint8), n.to(torch.int32)

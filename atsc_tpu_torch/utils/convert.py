@@ -10,7 +10,13 @@ continues in the other and gives the same bytes:
     rx_state = decoder_state_from_numpy(jax_rx_leaves, device="cuda")
 
 and the soft and NTSC decoders' states likewise
-(soft_decoder_state_from_numpy, ntsc_decoder_state_from_numpy).
+(soft_decoder_state_from_numpy, ntsc_decoder_state_from_numpy). The
+receiver's two other carries move the same way: a Decoder's erasure flags
+(`decoder.flag_il = flag_il_from_numpy(np.asarray(jax_decoder._flag_il),
+device)`) and an AdaptiveEqualizer's RLS state
+(`eq.state = adaptive_state_from_numpy({"r": ..., "v": ..., "w": ...,
+"fields_seen": ...}, device)`, from the JAX equalizer's `_r`, `_v`,
+`_w_dev` and `_fields_seen`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.models.decoder import (
     DecoderState,
@@ -28,6 +35,7 @@ from atsc_tpu_torch.models.decoder import (
     init_soft_decoder_state,
 )
 from atsc_tpu_torch.models.encoder import EncoderState, init_state
+from atsc_tpu_torch.ops.adaptive_eq import EQ_DIM, AdaptiveState
 
 
 def state_from_numpy(leaves: dict, device: str | torch.device) -> EncoderState:
@@ -121,3 +129,48 @@ def ntsc_decoder_state_from_numpy(d: dict, device: str | torch.device) -> NtscDe
 def ntsc_decoder_state_to_numpy(state: NtscDecoderState) -> dict:
     """NtscDecoderState -> {leaf name: numpy array} on the host."""
     return _leaves_to_numpy(state)
+
+
+def flag_il_from_numpy(flags: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """(B, 64584) uint8 carried erasure flags (a Decoder's `flag_il`, the
+    JAX Decoder's `_flag_il`) -> a tensor on `device`. Raises on another
+    shape or dtype."""
+    arr = np.asarray(flags)
+    if arr.dtype != np.uint8 or arr.ndim != 2 or arr.shape[1] != P.DATA_PER_FIELD:
+        raise ValueError(f"carried erasure flags: want (B, {P.DATA_PER_FIELD}) uint8, "
+                         f"got {arr.shape} {arr.dtype}")
+    return torch.tensor(arr, device=resolve_device(device))
+
+
+def adaptive_state_from_numpy(d: dict, device: str | torch.device) -> AdaptiveState:
+    """{"r": (B, D, D), "v": (B, D), "w": (B, D) or None, "fields_seen":
+    int} -> AdaptiveState on `device` (float32 leaves, D = 515): an
+    adaptive stream trained in the JAX package goes on in this one. Raises
+    on a missing or extra leaf, or a dtype or shape other than these."""
+    dev = resolve_device(device)
+    want = {"r", "v", "w", "fields_seen"}
+    if set(d) != want:
+        raise ValueError(f"adaptive state leaves {sorted(d)} != {sorted(want)}")
+    r = np.asarray(d["r"])
+    if r.ndim != 3:
+        raise ValueError(f"adaptive state leaf r must be (B, D, D), got {r.shape}")
+    b = r.shape[0]
+    shapes = {"r": (b, EQ_DIM, EQ_DIM), "v": (b, EQ_DIM), "w": (b, EQ_DIM)}
+    out = {}
+    for name, shape in shapes.items():
+        if name == "w" and d["w"] is None:
+            out["w"] = None
+            continue
+        arr = np.asarray(d[name])
+        if arr.dtype != np.float32 or arr.shape != shape:
+            raise ValueError(f"adaptive state leaf {name}: want {shape} float32, "
+                             f"got {arr.shape} {arr.dtype}")
+        out[name] = torch.tensor(arr, device=dev)
+    return AdaptiveState(out["r"], out["v"], out["w"], int(d["fields_seen"]))
+
+
+def adaptive_state_to_numpy(state: AdaptiveState) -> dict:
+    """AdaptiveState -> {"r", "v", "w", "fields_seen"} on the host."""
+    return {"r": state.r.cpu().numpy(), "v": state.v.cpu().numpy(),
+            "w": None if state.w is None else state.w.cpu().numpy(),
+            "fields_seen": state.fields_seen}

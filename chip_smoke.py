@@ -86,6 +86,32 @@ Phases, one JSON line each; any failed check exits non-zero:
    run_variant_plain and against offset_fir_fused cf32, <= 2e-6 over the
    valid [0, 260416), on random symbols with golden field 0 in channel 0;
    each run timed, the twin once.
+19. erasures: B=8 with a 3,000-sample x6 impulse burst at N + 40,000 in
+   every channel: zf alone leaves uncorrectable segments; erasures="burst"
+   returns every TS exactly, hard and soft (the soft run launching
+   acs_forward and traceback), with erasure-assisted segments in every
+   channel; the card's Decoder with flags equals the CPU's (TS, n_errors,
+   counters, carried flags).
+20. adaptive: B=8 through multipath + complex gain: zf fails, adaptive,
+   adaptive + soft and train_every=4 return every TS; at 20 dB AWGN over a
+   multipath channel adaptive leaves uncorrectable segments and
+   adaptive-dd none; backend="numpy" decodes golden IQ exactly; the card's
+   AdaptiveEqualizer against the CPU's on the same windows (levels
+   <= 2e-3 inside a field, taps <= 0.1, identical TS from both
+   receivers); one `cli decode --equalizer adaptive --erasures burst
+   --stats` of a multipath + burst capture.
+21. full_adaptive: B=384 through a two-path channel, the adaptive receive
+   step (train + solve + apply, hard -> decode_field -> derandomize) over
+   3 warm + 10 timed fields for adaptive, train_every=4 and adaptive-dd,
+   every channel's TS byte-exact; ms/field, real-time channels, peak
+   memory, and each stage timed alone (derotate + windows, Gram, solve,
+   apply, slice, decode; dd's Gram); one more field runs with
+   torch.cuda.set_sync_debug_mode("error"): the equalizer never syncs.
+22. full_erasures: B=384 zf with a burst in every field and channel, the
+   erasure receive step (eq soft levels -> detector -> slice ->
+   decode_field -> flag propagation -> RS erasure correction ->
+   derandomize) over 3 warm + 10 timed fields, every channel's TS
+   byte-exact; ms/field, channels, peak memory, each stage alone.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -115,6 +141,9 @@ HOST_FIELDS = 4     # fields timed through IqReceiver at B_FULL
 NOISY_SNR_DB = 20.0  # IQ-domain AWGN: hard decisions err, RS corrects all
 NOISY_SOFT_SNR_DB = 15.0  # hard slicing leaves uncorrectable segments, soft does not
 KERNEL_LEVEL_SIGMA = 0.5  # level-domain AWGN under the Viterbi kernel comparisons
+# the impulse burst of tests/test_receiver.py: BURST_LEN samples of
+# complex Gaussian noise x BURST_SCALE, BURST_AT samples into a field
+BURST_AT, BURST_LEN, BURST_SCALE = 40_000, 3000, 6.0
 # float ops of one trellis step and lane: 4-state (8 sub, 8 mul, 4 min, 8
 # add, 4 select), PR (8 sub, 64 add, 64 mul, 64 add, 48 min)
 ACS_FLOPS, PR_FLOPS = 32, 248
@@ -500,6 +529,12 @@ def main() -> int:
         golden, dev, {"bound_ms": fir_bound, "bound_by": fir_bound_by,
                       "library_ms": fir_conv_ms, "library": "F.conv1d fp32"})
     device_kept(dev, "run_variant")
+
+    # -- 19-22. the erasure tier and the trained equalizers --------------------
+    receive_erasures(dev)
+    receive_adaptive(golden, dev)
+    full_adaptive(dev)
+    full_erasures(dev)
 
     print(json.dumps({"kernels": [
         {
@@ -1556,6 +1591,427 @@ def fir_variants_kernel(golden, dev, kernel1: dict) -> dict:
             "ms_by_run": ms, "plain_ms": plain_ms, "bound_ms": kernel1["bound_ms"],
             "bound_by": kernel1["bound_by"], "executed_flop_per_s": rate,
             "library_ms": kernel1["library_ms"]}
+
+
+def _burst_host(iq, rng, field: int = 1):
+    """The impulse burst added to every channel of a host capture at
+    BURST_AT samples into `field`."""
+    from atsc_tpu_torch import params as P
+
+    s0 = field * P.SYMBOLS_PER_FIELD + BURST_AT
+    shape = (iq.shape[0], BURST_LEN)
+    iq = iq.copy()
+    iq[:, s0 : s0 + BURST_LEN] += (rng.normal(size=shape)
+                                   + 1j * rng.normal(size=shape)) * BURST_SCALE
+    return iq
+
+
+def _multipath_host(iq, rng, noise: float = 0.01):
+    """tests/test_adaptive_eq.py's multipath + complex gain + noise."""
+    import numpy as np
+
+    h = np.zeros(24, np.complex128)
+    h[0], h[7], h[23] = 0.85 * np.exp(0.4j), 0.2 * np.exp(-1.3j), -0.1 + 0.05j
+    y = np.stack([np.convolve(r, h)[: iq.shape[1]] for r in iq])
+    return y + (rng.normal(size=y.shape) + 1j * rng.normal(size=y.shape)) * noise
+
+
+def _launches() -> dict:
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+
+    return {"eq_fir_fused": eqk.LAUNCHES, **vk.LAUNCHES}
+
+
+def _zero_all_launches() -> None:
+    from atsc_tpu_torch.ops.cuda import eq_fir as eqk
+
+    eqk.LAUNCHES = 0
+    _zero_launches()
+
+
+def receive_erasures(dev) -> None:
+    """Phase 19: the burst erasure tier at B=8 on the card, hard and soft,
+    and the card's Decoder with flags against the CPU's."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import Decoder
+    from atsc_tpu_torch.models.receiver import equalize_field_device
+    from atsc_tpu_torch.ops.decode import propagate_erasure_flags
+    from atsc_tpu_torch.ops.erasures import burst_erasure_flags_dev
+    from atsc_tpu_torch.ops.slicer import slice_symbols
+
+    n = P.SYMBOLS_PER_FIELD
+    ts, cap = _noisy_capture(dev, 19, _burst_host)
+    zf, zf_out = _receive(dev, cap)
+    tiers = {}
+    for trellis in ("hard", "soft"):
+        _zero_all_launches()
+        rx, out = _receive(dev, cap, erasures="burst", trellis=trellis)
+        tiers[trellis] = {"ts_exact": _exact(out, ts), "launches": _launches(),
+                          "segments_corrected": rx.decoder.segments_corrected,
+                          "segments_uncorrectable": rx.decoder.segments_uncorrectable,
+                          "segments_erasure_assisted": rx.decoder.segments_erasure_assisted}
+    card, host = Decoder(batch=B_NOISY, device=dev), Decoder(batch=B_NOISY, device="cpu")
+    carry = torch.zeros((B_NOISY, P.DATA_PER_FIELD), dtype=torch.uint8, device=dev)
+    assisted = np.zeros(B_NOISY, np.int64)
+    same = True
+    for k in range(3):
+        lev = equalize_field_device(cap, k * n, soft=True, device=dev)
+        flags = burst_erasure_flags_dev(lev)
+        sym = slice_symbols(lev)
+        tc, nc = card.decode(sym, erasure_flags=flags)
+        th, nh = host.decode(sym.cpu(), erasure_flags=flags.cpu())
+        same &= np.array_equal(tc, th) and np.array_equal(nc, nh)
+        same &= torch.equal(card.flag_il.cpu(), host.flag_il)
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(card.state, host.state))
+        cw_flags, carry = propagate_erasure_flags(flags, carry)
+        assisted += ((nc > 0) & (cw_flags != 0).any(dim=-1).cpu().numpy()).sum(axis=-1)
+    counters = ("segments_corrected", "segments_uncorrectable", "segments_erasure_assisted")
+    same &= all(getattr(card, c) == getattr(host, c) for c in counters)
+    emit("erasures", batch=B_NOISY, burst={"at": n + BURST_AT, "samples": BURST_LEN,
+                                          "scale": BURST_SCALE},
+         zf_segments_uncorrectable=zf.decoder.segments_uncorrectable,
+         zf_ts_exact=_exact(zf_out, ts), tiers=tiers,
+         decoder_card_equals_cpu=bool(same),
+         decoder_erasure_assisted_per_channel=assisted.tolist(),
+         decoder_counters={c: getattr(card, c) for c in counters})
+    check(zf.decoder.segments_uncorrectable > 0, "burst: zf alone left no uncorrectable segment")
+    for trellis, r in tiers.items():
+        check(r["ts_exact"] and r["segments_uncorrectable"] == 0
+              and r["segments_erasure_assisted"] > 0,
+              f"burst: erasures='burst' with trellis={trellis} did not return the sent TS")
+        want = {"eq_fir_fused": 4, "acs_forward": 4 if trellis == "soft" else 0,
+                "traceback": 4 if trellis == "soft" else 0}
+        check(all(r["launches"][k] == v for k, v in want.items()),
+              f"burst {trellis}: launches {r['launches']}, want {want}")
+    check(same, "burst: the card's Decoder with flags differs from the CPU's")
+    check(bool((assisted > 0).all()), f"burst: erasure-assisted segments per channel {assisted}")
+
+
+def receive_adaptive(golden, dev) -> None:
+    """Phase 20: the adaptive and numpy backends at B=8 on the card, the
+    card's AdaptiveEqualizer against the CPU's, and the decode CLI with
+    the new flags."""
+    import numpy as np
+
+    from atsc_tpu_torch import cli
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.receiver import IqReceiver, field_window
+    from atsc_tpu_torch.ops.adaptive_eq import WINDOW_MARGIN, AdaptiveEqualizer
+
+    n = P.SYMBOLS_PER_FIELD
+    ts, cap = _noisy_capture(dev, 20, _multipath_host)
+    zf, zf_out = _receive(dev, cap)
+    runs = {}
+    for name, kw in (("adaptive", dict(backend="adaptive")),
+                     ("adaptive_soft", dict(backend="adaptive", trellis="soft")),
+                     ("train_every4", dict(backend="adaptive", train_every=4))):
+        _zero_all_launches()
+        rx, out = _receive(dev, cap, **kw)
+        runs[name] = {"ts_exact": _exact(out, ts), "launches": _launches(),
+                      "segments_corrected": rx.decoder.segments_corrected,
+                      "segments_uncorrectable": rx.decoder.segments_uncorrectable}
+        if name == "adaptive":
+            card_out = out
+
+    def awgn_multipath(iq, rng):
+        y = np.stack([np.convolve(r, [0.9 * np.exp(0.5j), 0, 0.2 * np.exp(-1.3j), 0, 0.08j])
+                      [: iq.shape[1]] for r in iq])
+        p = float(np.mean(np.abs(y) ** 2))
+        noise = rng.normal(size=y.shape) + 1j * rng.normal(size=y.shape)
+        return y + noise * np.sqrt(p / 10 ** (20.0 / 10.0) / 2.0)
+
+    ts20, cap20 = _noisy_capture(dev, 21, awgn_multipath)
+    for name, backend in (("sync_only_20db", "adaptive"), ("dd_20db", "adaptive-dd")):
+        rx, out = _receive(dev, cap20, backend=backend)
+        runs[name] = {"ts_exact": _exact(out, ts20),
+                      "segments_corrected": rx.decoder.segments_corrected,
+                      "segments_uncorrectable": rx.decoder.segments_uncorrectable}
+    rx = IqReceiver(batch=1, backend="numpy", device=dev)
+    iq = golden["iq"][:4].reshape(1, -1)
+    out = rx.push(iq[:, :400_000]) + rx.push(iq[:, 400_000:]) + rx.flush()
+    numpy_exact = len(out) == 3 and all(
+        np.array_equal(t[0], golden["input"][k]) for k, (t, _) in enumerate(out))
+
+    # the card's equalizer against the CPU's on the same windows, and the
+    # CPU receiver's TS against the card's
+    ce = AdaptiveEqualizer(batch=B_NOISY, apply_precision="highest", device=dev)
+    he = AdaptiveEqualizer(batch=B_NOISY, apply_precision="highest", device="cpu")
+    lev_err = edge_err = tap_err = 0.0
+    for k in range(3):
+        win, osc = field_window(cap, k * n, 0, margin=WINDOW_MARGIN)
+        a = ce.process_field(win, osc, k % 2, soft=True).cpu()
+        b = he.process_field(win, osc, k % 2, soft=True)
+        err = (a - b).abs()
+        lev_err = max(lev_err, float(err[:, WINDOW_MARGIN:-WINDOW_MARGIN].max()))
+        edge_err = max(edge_err, float(err.max()))
+        tap_err = max(tap_err, float(np.abs(ce.taps - he.taps).max()))
+    _, host_out = _receive("cpu", cap, backend="adaptive")
+    ts_same = len(host_out) == len(card_out) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(card_out, host_out))
+
+    # the decode CLI: a cf32 capture through multipath with a burst
+    mp_burst = _burst_host(cap, np.random.default_rng(22))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        path = os.path.join(tmp, "cap.iq")
+        blocks = np.stack([mp_burst[:, k * n : (k + 1) * n] for k in range(4)])
+        np.stack([blocks.real, blocks.imag], -1).astype(np.float32).tofile(path)
+        err_buf = io.StringIO()
+        with contextlib.redirect_stderr(err_buf):
+            rc = cli.main(["decode", path, "--channels", str(B_NOISY), "--equalizer",
+                           "adaptive", "--erasures", "burst", "--stats",
+                           "-o", os.path.join(tmp, "back.ts")])
+        stats = json.loads(err_buf.getvalue().strip().splitlines()[-1])
+        back = np.fromfile(os.path.join(tmp, "back.ts"), np.uint8).reshape(
+            -1, B_NOISY, P.FIELD_TS_BYTES)
+    cli_exact = back.shape[0] == 3 and all(np.array_equal(back[k], ts[k]) for k in range(3))
+    emit("adaptive", batch=B_NOISY, zf_ts_exact=_exact(zf_out, ts),
+         zf_segments_uncorrectable=zf.decoder.segments_uncorrectable, runs=runs,
+         numpy_golden_exact=numpy_exact, card_vs_cpu={
+             "max_abs_err_levels": lev_err, "max_abs_err_levels_edges": edge_err,
+             "max_abs_err_taps": tap_err, "ts_and_n_errors_identical": ts_same},
+         tolerance={"levels": 2e-3, "levels_edges": 2e-2, "taps": 0.1},
+         cli={"rc": rc, "ts_exact": cli_exact, "stats": stats})
+    check(not _exact(zf_out, ts), "multipath: zf decoded it, the channel is too benign")
+    for name in ("adaptive", "adaptive_soft", "train_every4", "dd_20db"):
+        check(runs[name]["ts_exact"] and runs[name]["segments_uncorrectable"] == 0,
+              f"adaptive {name}: the sent TS did not come back")
+    check(runs["sync_only_20db"]["segments_uncorrectable"] > 0,
+          "20 dB: sync-only training left no uncorrectable segment")
+    check(all(runs[k]["launches"]["eq_fir_fused"] == 0 for k in ("adaptive", "train_every4")),
+          f"adaptive: eq_fir_fused launched {runs}")
+    check(runs["adaptive_soft"]["launches"]["acs_forward"] == 4
+          and runs["adaptive_soft"]["launches"]["traceback"] == 4,
+          f"adaptive soft: launches {runs['adaptive_soft']['launches']}")
+    check(numpy_exact, "numpy backend: golden IQ did not decode to golden input[0:3]")
+    check(lev_err <= 2e-3 and edge_err <= 2e-2 and tap_err <= 0.1,
+          f"adaptive: card vs CPU levels {lev_err} / {edge_err}, taps {tap_err}")
+    check(ts_same, "adaptive: the card's and the CPU's receivers disagree")
+    check(rc == 0 and cli_exact and stats["segments_uncorrectable"] == 0
+          and stats["segments_erasure_assisted"] > 0 and stats["fields_decoded"] == 3,
+          f"cli decode --equalizer adaptive --erasures burst: rc {rc}, {stats}")
+
+
+def _stream_planes(dev, ts, margin: int):
+    """Encode ts (F, B, 58656) on the card: (B, 2, margin + F*N) cf32
+    planes with `margin` zero samples before the first field."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+
+    n = P.SYMBOLS_PER_FIELD
+    enc = Encoder(batch=ts.shape[1], device=dev)
+    out = torch.zeros((ts.shape[1], 2, margin + ts.shape[0] * n), dtype=torch.float32,
+                      device=dev)
+    for k in range(ts.shape[0]):
+        out[..., margin + k * n : margin + (k + 1) * n] = enc.encode(ts[k])[..., :n]
+    return out
+
+
+def _step_timing(run, n_fields: int, dev) -> tuple[float, int, int]:
+    """run(k) over WARM untimed then TIMED timed fields: (ms/field by CUDA
+    events, peak bytes allocated in the timed fields, that peak less what
+    was allocated before them: the phase's own inputs)."""
+    import torch
+
+    for k in range(WARM):
+        run(k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(WARM, n_fields):
+        run(k)
+    stop.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    return start.elapsed_time(stop) / TIMED, peak, peak - base
+
+
+def full_adaptive(dev) -> None:
+    """Phase 21: the adaptive receive step at B=384, timed, for adaptive,
+    train_every=4 and adaptive-dd; then each stage alone."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import decode_field, init_decoder_state
+    from atsc_tpu_torch.models.receiver import _osc_planar
+    from atsc_tpu_torch.ops import adaptive_eq as ae
+    from atsc_tpu_torch.ops.decode import derandomize_field
+    from atsc_tpu_torch.ops.slicer import slice_symbols
+
+    n = P.SYMBOLS_PER_FIELD
+    m = ae.WINDOW_MARGIN
+    n_fields = WARM + TIMED
+    ts = _random_ts_dev(dev, n_fields + 1, 2121)
+    x = _stream_planes(dev, ts, m)
+    # a two-path channel, y = h0 x + h5 x[n-5] with h0 = 0.9 e^{0.3i},
+    # h5 = 0.15 e^{-0.9i}, in planar form
+    y = torch.zeros_like(x)
+    for (c, d), lag in (((0.9 * 0.955336, 0.9 * 0.295520), 0),
+                        ((0.15 * 0.621610, -0.15 * 0.783327), 5)):
+        xr, xi = x[:, 0, : x.shape[-1] - lag], x[:, 1, : x.shape[-1] - lag]
+        y[:, 0, lag:] += c * xr - d * xi
+        y[:, 1, lag:] += c * xi + d * xr
+    del x, xr, xi
+    wins = [y[..., k * n : k * n + n + 2 * m] for k in range(n_fields)]
+    oscs = [torch.tensor(_osc_planar(k * n - m, k * n + n + m, 0), device=dev)
+            for k in range(n_fields)]
+    for name, kw in (("adaptive", {}), ("train_every4", dict(train_every=4)),
+                     ("adaptive_dd", dict(decision_directed=True))):
+        eq = ae.AdaptiveEqualizer(batch=B_FULL, apply_precision="default", device=dev, **kw)
+        state = init_decoder_state(B_FULL, device=dev)
+        outs, syns = [], []
+
+        def run(k):
+            nonlocal state
+            sym = eq.process_field(wins[k], oscs[k], k % 2)
+            state, cw, syn = decode_field(state, sym)
+            outs.append(derandomize_field(cw))
+            syns.append(syn)
+
+        ms, peak, above = _step_timing(run, n_fields, dev)
+        exact = all(torch.equal(outs[k], ts[k - 1]) for k in range(1, n_fields))
+        clean = not any(bool(syns[k].any()) for k in range(1, n_fields))
+        del outs, syns
+        # one more field with host syncs made errors: the equalizer (its
+        # Gram, Cholesky and triangular solves) never waits for the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eq.process_field(wins[WARM], oscs[WARM], WARM % 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # each stage alone, on the first timed field's inputs
+        win, osc = wins[WARM], oscs[WARM]
+        t = ae.const(ae._sync_targets, dev)[WARM % 2]
+        stages = {}
+
+        def design():
+            ur, ui = ae._derotate(win, osc)
+            return ae._design(ae._training_windows(ur, m), ae._training_windows(ui, m))
+
+        stages["derotate_windows"] = timed(design, reps=5)
+        xd = design()
+        xt = xd.transpose(1, 2)
+
+        def gram():
+            with ae.fp32_matmul():
+                return torch.bmm(xt, xd), xt @ t
+
+        stages["gram"] = timed(gram, reps=5)
+        r, v = eq.state.r, eq.state.v
+        with ae.fp32_matmul():
+            stages["solve"] = timed(lambda: ae._solve_taps(r, v, eq._ridge), reps=5)
+            w = ae._solve_taps(r, v, eq._ridge)
+        stages["apply"] = timed(lambda: ae._apply_taps(w, win, osc, m, True, "default"), reps=5)
+        lev = ae._apply_taps(w, win, osc, m, True, "default")
+        # the dd step solves and applies twice (first pass, then refined)
+        runs = {"solve": 2, "apply": 2} if kw.get("decision_directed") else {}
+        if runs:
+            stages["dd_gram"] = timed(lambda: ae.dd_gram(r, v, lev, win, osc, margin=m), reps=2)
+        stages["slice"] = timed(lambda: slice_symbols(lev), reps=5)
+        sym = slice_symbols(lev)
+        st0 = init_decoder_state(B_FULL, device=dev)
+        stages["decode"] = timed(lambda: derandomize_field(decode_field(st0, sym)[1]), reps=5)
+        del xd, xt, lev, sym, eq
+        torch.cuda.empty_cache()
+        per_field = {k: v2 * runs.get(k, 1) for k, v2 in stages.items()}
+        total = sum(per_field.values())
+        emit("full_adaptive", batch=B_FULL, variant=name, apply_precision="default",
+             timed_fields=TIMED, ms_per_field=ms,
+             realtime_channels=B_FULL / (ms / 1e3 * P.FIELD_RATE),
+             max_memory_allocated=peak, step_memory_above_inputs=above,
+             ts_exact_all_channels=exact, syndromes_zero=clean, host_syncs_in_a_field=0,
+             stages_ms=stages, stage_runs_per_trained_field=runs, stages_sum_ms=total,
+             stage_shares={k: v2 / total for k, v2 in per_field.items()})
+        check(exact, f"B={B_FULL} {name}: decoded TS differs from the sent TS")
+    del wins, oscs, y, ts
+    torch.cuda.empty_cache()
+
+
+def full_erasures(dev) -> None:
+    """Phase 22: the zf + burst-erasure receive step at B=384 with a burst
+    in every field, timed; then each stage alone."""
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import decode_field, init_decoder_state
+    from atsc_tpu_torch.models.receiver import EQ_PROFILES, device_eq_step
+    from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN
+    from atsc_tpu_torch.ops.decode import derandomize_field, propagate_erasure_flags
+    from atsc_tpu_torch.ops.erasures import burst_erasure_flags_dev
+    from atsc_tpu_torch.ops.rs_decode import rs_correct_field, rs_correct_field_erasures
+    from atsc_tpu_torch.ops.slicer import slice_symbols
+
+    n = P.SYMBOLS_PER_FIELD
+    eq_k, _ = EQ_PROFILES["fast"]
+    n_fields = WARM + TIMED
+    ts = _random_ts_dev(dev, n_fields + 1, 2222)
+    x = _stream_planes(dev, ts, eq_k)
+    gen = torch.Generator(dev).manual_seed(22)
+    for k in range(n_fields + 1):
+        s0 = eq_k + k * n + BURST_AT
+        x[..., s0 : s0 + BURST_LEN] += BURST_SCALE / 2 ** 0.5 * torch.randn(
+            (B_FULL, 2, BURST_LEN), generator=gen, device=dev)
+    wins = [x[..., k * n : k * n + WIN_LEN].contiguous() for k in range(n_fields)]
+    del x
+    oscs = _field_oscs(dev, n_fields, eq_k)
+    step = device_eq_step(True, 1.0, "fast")
+    state = init_decoder_state(B_FULL, device=dev)
+    carry = torch.zeros((B_FULL, P.DATA_PER_FIELD), dtype=torch.uint8, device=dev)
+    outs, ns = [], []
+
+    def run(k):
+        nonlocal state, carry
+        lev = step(wins[k], oscs[k])
+        flags = burst_erasure_flags_dev(lev)
+        state, cw, syn = decode_field(state, slice_symbols(lev))
+        cw_flags, carry = propagate_erasure_flags(flags, carry)
+        cw, nerr = rs_correct_field_erasures(cw, syn, cw_flags)
+        outs.append(derandomize_field(cw))
+        ns.append(nerr)
+
+    ms, peak, above = _step_timing(run, n_fields, dev)
+    exact = all(torch.equal(outs[k], ts[k - 1]) for k in range(1, n_fields))
+    decodable = all(bool((ns[k] >= 0).all()) for k in range(1, n_fields))
+    corrected = int(sum(int((ns[k] > 0).sum()) for k in range(WARM, n_fields)))
+    del outs, ns
+    win, osc = wins[WARM], oscs[WARM]
+    stages = {"eq": timed(lambda: step(win, osc), reps=5)}
+    lev = step(win, osc)
+    stages["detector"] = timed(lambda: burst_erasure_flags_dev(lev), reps=5)
+    flags = burst_erasure_flags_dev(lev)
+    stages["slice"] = timed(lambda: slice_symbols(lev), reps=5)
+    sym = slice_symbols(lev)
+    st0 = init_decoder_state(B_FULL, device=dev)
+    stages["decode_field"] = timed(lambda: decode_field(st0, sym), reps=5)
+    _, cw, syn = decode_field(st0, sym)
+    c0 = torch.zeros_like(carry)
+    stages["flag_propagation"] = timed(lambda: propagate_erasure_flags(flags, c0), reps=5)
+    cw_flags, _ = propagate_erasure_flags(flags, carry)
+    stages["rs_erasures"] = timed(lambda: rs_correct_field_erasures(cw, syn, cw_flags), reps=3)
+    stages["derandomize"] = timed(lambda: derandomize_field(cw), reps=5)
+    total = sum(stages.values())
+    # not a stage of the step: the errors-only corrector on the same field
+    errors_only_ms = timed(lambda: rs_correct_field(cw, syn), reps=3)
+    emit("full_erasures", batch=B_FULL, profile="fast", timed_fields=TIMED,
+         burst={"at": BURST_AT, "samples": BURST_LEN, "scale": BURST_SCALE,
+                "every_field": True},
+         ms_per_field=ms, realtime_channels=B_FULL / (ms / 1e3 * P.FIELD_RATE),
+         max_memory_allocated=peak, step_memory_above_inputs=above,
+         ts_exact_all_channels=exact, segments_corrected_timed=corrected, stages_ms=stages, stages_sum_ms=total,
+         stage_shares={k: v / total for k, v in stages.items()},
+         rs_errors_only_ms=errors_only_ms)
+    check(exact and decodable, f"B={B_FULL} erasures: decoded TS differs from the sent TS")
+    check(corrected > 0, f"B={B_FULL} erasures: RS corrected nothing")
+    del wins, oscs, ts, lev, flags, sym, cw, syn, cw_flags
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
