@@ -18,37 +18,59 @@ Usage:
   python -m atsc_tpu_torch.cli decode out.cs8 -c 8 --format cs8 -o back.ts
 
 Flags of the JAX CLI that this package does not have yet (encode: --mesh,
---mux, --rate, --ppm, --checkpoint, --resume, --profile, --realtime, the
-soapy sink; decode: --mesh, --demux, --sro, --rate, --cfo, --align,
---resync, --viterbi-chunks other than 1, --checkpoint, --resume,
---profile, the soapy source; the analyze subcommand) stop with an error
-naming them; none is silently ignored. Decode runs the equalizers
+--mux, --checkpoint, --resume, --profile, --realtime, the soapy sink;
+decode: --mesh, --demux, --viterbi-chunks other than 1, --checkpoint,
+--resume, --profile, the soapy source; the analyze subcommand) stop with an
+error naming them; none is silently ignored. Decode runs the equalizers
 `--equalizer zf|adaptive|adaptive-dd` (with `--forgetting` and
 `--train-every` for the adaptive ones), the trellis tiers `--trellis
 hard|viterbi|viterbi-i8`, the NTSC comb `--ntsc off|comb|auto` and the RS
 erasure tier `--erasures off|burst`. A cs16/cs8 capture under an adaptive
 equalizer is dequantized on the host (the codes path is the zf kernel's).
+
+Capture conditioning (single channel): `decode --rate SPS` resamples a
+capture clocked at any rate to the symbol rate as it streams, numeric
+`--sro PPM` undoes a known clock error the same way, `--sro auto` measures
+it over the whole capture first; `--align auto` finds the first field
+boundary, `--cfo HZ|auto|track` removes a carrier offset (`track`
+re-estimates it every 8 fields), `--resync auto` re-acquires after a sample
+slip. Each of them promotes the zf equalizer to the adaptive one.
+`encode --rate SPS` / `--ppm PPM` resample the cf32 output to an SDR's
+clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import sys
+from fractions import Fraction
 
 import numpy as np
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
 from atsc_tpu_torch.models.encoder import Encoder
-from atsc_tpu_torch.models.receiver import IqReceiver
+from atsc_tpu_torch.models.receiver import (
+    CfoCorrector,
+    IqReceiver,
+    estimate_cfo,
+    estimate_sro,
+    find_field_sync_iq,
+    resample_stream,
+)
 from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE, dequantize_iq
+from atsc_tpu_torch.ops.resample import (
+    SYMBOL_RATE_FRACTION,
+    StreamResampler,
+    capture_rate,
+)
 from atsc_tpu_torch.runtime.io import IqSink, TsReader
 from atsc_tpu_torch.utils.profiling import ThroughputMeter
 
 # flags of atsc_tpu.cli's encode path that are not ported yet
-_NOT_PORTED = ("mesh", "mux", "rate", "ppm", "checkpoint", "resume",
-               "profile", "realtime")
+_NOT_PORTED = ("mesh", "mux", "checkpoint", "resume", "profile", "realtime")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -76,9 +98,23 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
-    for name in ("mesh", "rate", "checkpoint", "profile"):
+    ap.add_argument("--rate", default=None, metavar="SPS",
+                    help="output sample rate in samples/s (e.g. 20e6 for a "
+                         "20 MS/s SDR master clock): polyphase-resample the "
+                         "baseband from the nominal 10.762238 MHz symbol "
+                         "rate before the sink, tracking the conversion "
+                         "position as an exact rational so an unbounded "
+                         "run never drifts; `decode --rate` inverts it. cf32 "
+                         "output only (quantized wire formats are produced "
+                         "in-kernel at the nominal rate)")
+    ap.add_argument("--ppm", type=float, default=0.0,
+                    help="emulate a transmit clock error of this many parts "
+                         "per million: the output is resampled as if the "
+                         "DAC ran at nominal*(1+ppm/1e6), the TX mirror of "
+                         "`decode --sro` (controlled-SRO captures for "
+                         "receiver testing; composes with --rate)")
+    for name in ("mesh", "checkpoint", "profile"):
         ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--ppm", type=float, default=None, help=argparse.SUPPRESS)
     for name in ("mux", "resume", "realtime"):
         ap.add_argument(f"--{name}", action="store_true", help=argparse.SUPPRESS)
     return ap
@@ -104,10 +140,24 @@ def _read_field(readers, field_bytes: int):
     return ts, checked, bad
 
 
+def _is_live(path: str) -> bool:
+    """A SoapySDR device ('soapy' or 'soapy:<module>'), not a file."""
+    return path == "soapy" or path.startswith("soapy:")
+
+
+def _write_planar(sink, arr: np.ndarray) -> None:
+    """Write a (B, 2, m) planar chunk whose every sample is valid (a
+    resampled stream has no padded tail)."""
+    if arr.shape[-1]:
+        sink.write_planar(arr, arr.shape[-1])
+
+
 def run(input_paths, output: str = "null", channels: int = 1,
         out_format: str = "cf32", max_fields: int = 0, stats: bool = False,
-        device: str = "cuda") -> dict:
-    """Encode TS input(s) to an IQ sink; returns the throughput summary."""
+        device: str = "cuda", rate=None, ppm: float = 0.0) -> dict:
+    """Encode TS input(s) to an IQ sink; returns the throughput summary.
+    rate (samples/s, exact as a Fraction) and ppm resample the output
+    (cf32, one channel)."""
     dev = resolve_device(device)
     if isinstance(input_paths, str):
         input_paths = [input_paths]
@@ -115,7 +165,37 @@ def run(input_paths, output: str = "null", channels: int = 1,
         raise ValueError(f"{len(input_paths)} inputs for {channels} channels")
     if out_format not in ("cf32", "cs16", "cs8"):
         raise ValueError(f"unknown format {out_format!r}")
-    if output == "soapy" or output.startswith("soapy:"):
+    resampler = None
+    out_sps = None  # output sample rate per emitted stream (Hz)
+    if rate is not None or ppm:
+        if out_format != "cf32":
+            raise ValueError("--rate/--ppm emit cf32 only (quantized wire "
+                             "formats are produced in-kernel at the "
+                             "nominal rate)")
+        if channels > 1:
+            # per-channel resampled streams emit a variable number of
+            # samples per field: a channel-interleaved output would be
+            # unparseable
+            raise ValueError("--rate/--ppm with --channels > 1 requires "
+                             "--mux (one wideband stream); separate "
+                             "resampled outputs need one encode run per "
+                             "channel")
+        native = SYMBOL_RATE_FRACTION
+        target = Fraction(rate) if rate is not None else native
+        if ppm:
+            # a DAC clocked ppm fast stretches the sample grid: emit
+            # 1 + ppm/1e6 samples per nominal sample (decode --sro ppm is
+            # the exact inverse)
+            target = target * (1 + Fraction(ppm) / 1_000_000)
+        band = 6_000_000
+        if target < band:
+            raise ValueError(
+                f"--rate {float(target):.0f} cannot carry the occupied "
+                f"+-{band / 2e6:g} MHz band (needs >= {band / 1e6:g} MS/s)")
+        if target != native:
+            resampler = StreamResampler(native / target, batch=channels, device=dev)
+        out_sps = float(target)
+    if _is_live(output):
         raise NotImplementedError(
             "the soapy sink is not yet ported to atsc_tpu_torch")
     # quantized formats leave the kernel as packed wire lanes whose bytes
@@ -137,15 +217,19 @@ def run(input_paths, output: str = "null", channels: int = 1,
             sync_bad += bad
             if ts.shape[0] == 1 and channels > 1:
                 ts = np.broadcast_to(ts, (channels, field_bytes))
-            iq = enc.encode(ts).cpu().numpy()
-            if wire:
-                sink.write_wire(iq, P.SYMBOLS_PER_FIELD)
+            iq = enc.encode(ts)
+            if resampler is not None:
+                _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+            elif wire:
+                sink.write_wire(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
             else:
-                sink.write_planar(iq, P.SYMBOLS_PER_FIELD)
+                sink.write_planar(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
             meter.add_fields(channels)
             fields_done += 1
             if max_fields and fields_done >= max_fields:
                 break
+        if resampler is not None:
+            _write_planar(sink, resampler.flush_planar())
     finally:
         for r in readers:
             r.close()
@@ -153,6 +237,8 @@ def run(input_paths, output: str = "null", channels: int = 1,
 
     summary = meter.summary()
     summary["device"] = str(dev)
+    if out_sps is not None:
+        summary["output_rate"] = out_sps
     summary["ts_sync_errors"] = sync_bad
     summary["ts_packets"] = sync_checked
     if stats:
@@ -166,11 +252,9 @@ def run(input_paths, output: str = "null", channels: int = 1,
 
 # decode flags of atsc_tpu.cli that are not ported yet, with the default
 # that means "not given" (--viterbi-chunks 1 is the exact Viterbi this
-# package runs; --sro 0, --cfo 0, --align none and --resync off condition
-# nothing)
+# package runs)
 _DECODE_NOT_PORTED = {
-    "mesh": None, "demux": 0, "sro": "0", "rate": None, "cfo": "0",
-    "align": "none", "resync": "off", "viterbi_chunks": 1,
+    "mesh": None, "demux": 0, "viterbi_chunks": 1,
     "checkpoint": None, "resume": False, "profile": None,
 }
 
@@ -184,7 +268,8 @@ def build_decode_argparser() -> argparse.ArgumentParser:
         description="8VSB receiver (PyTorch + CUDA): baseband IQ -> MPEG-TS",
     )
     ap.add_argument("input", help="IQ capture ('-' = stdin) produced by the "
-                                  "encoder, starting at the stream epoch")
+                                  "encoder, starting at the stream epoch "
+                                  "(anywhere, with --align auto)")
     ap.add_argument("-o", "--output", default="-",
                     help="TS output path or '-' (stdout); channels are "
                          "interleaved per field (a '{ch}' template is not "
@@ -196,6 +281,49 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                     help="IQ wire format of the capture")
     ap.add_argument("--first-field", type=int, default=0,
                     help="oscillator epoch (field index) of the stream start")
+    ap.add_argument("--sro", default="0", metavar="PPM|auto",
+                    help="sample-rate offset of the capture: a fixed ppm "
+                         "value (streaming, composes with --rate), or "
+                         "'auto' to estimate it from the sync-peak drift "
+                         "across the capture (sub-ppm; reads the whole "
+                         "input up front). The stream is polyphase-"
+                         "resampled to the nominal symbol rate; implies "
+                         "--align auto (the resampler's bulk delay shifts "
+                         "the field boundaries)")
+    ap.add_argument("--rate", default=None, metavar="SPS",
+                    help="sample rate of the capture in samples/s (e.g. "
+                         "20e6 for a 20 MS/s SDR): streaming polyphase-"
+                         "resample to the nominal symbol rate, tracking "
+                         "the conversion position as an exact rational so "
+                         "an unbounded live run never drifts. Implies "
+                         "--align auto; single-channel only")
+    ap.add_argument("--cfo", default="0", metavar="HZ|auto|track",
+                    help="carrier frequency offset of the capture: a fixed "
+                         "Hz value, or 'auto' to estimate it from the pilot "
+                         "tone (windowed-FFT peak + quadratic interpolation, "
+                         "sub-Hz from ~2 fields). 'track' re-estimates the "
+                         "residual every 8 fields from the pilot in the last "
+                         "two field blocks and retunes the corrector phase-"
+                         "continuously, for long captures whose tuner "
+                         "drifts or steps; pair with --forgetting < 1 so "
+                         "the equalizer re-trains quickly after a step. "
+                         "Non-zero CFO implies --equalizer adaptive")
+    ap.add_argument("--align", default="none", choices=("none", "auto"),
+                    help="'auto': locate the first field boundary by PN511 "
+                         "correlation (phase/gain-robust) and decode from "
+                         "there, for captures that do not start at a field "
+                         "boundary. Single-channel only; implies "
+                         "--equalizer adaptive (the epoch phase offset is "
+                         "absorbed by training)")
+    ap.add_argument("--resync", default="off", choices=("off", "auto"),
+                    help="'auto': detect sync loss (a run of fields whose RS "
+                         "segments are mostly uncorrectable, e.g. after an "
+                         "SDR overflow dropped an unknown number of samples) "
+                         "and re-acquire the field boundary by PN511 "
+                         "correlation in the buffered stream, resetting "
+                         "decoder/equalizer state there. Implies "
+                         "--equalizer adaptive (the re-acquired epoch "
+                         "carries an unknown phase offset)")
     ap.add_argument("--eq-profile", default="auto",
                     choices=("auto", "exact", "fast"),
                     help="zf equalizer tier: 'exact' = +-256 taps in fp32 "
@@ -253,7 +381,7 @@ def _decode_not_ported(args) -> str:
     """'' when args ask only for what this package runs, else the error."""
     given = [f"--{n.replace('_', '-')}" for n, d in _DECODE_NOT_PORTED.items()
              if getattr(args, n) != d]
-    if args.input == "soapy" or args.input.startswith("soapy:"):
+    if _is_live(args.input):
         given.append("the soapy source")
     if "{ch}" in args.output:
         given.append("-o with '{ch}' (one TS file per channel)")
@@ -265,46 +393,171 @@ def _decode_not_ported(args) -> str:
 _CODE_DTYPE = {"cs16": np.int16, "cs8": np.int8}
 
 
-def _block_to_complex(buf: bytes, fmt: str, channels: int) -> np.ndarray:
-    """One field block of wire bytes -> (channels, 260416) complex64,
+def _parse_sps(s: str) -> Fraction:
+    """'20e6' / '16000000' / '10762237.76' -> exact Fraction samples/s."""
+    try:
+        return Fraction(s)
+    except ValueError:
+        return Fraction(float(s))
+
+
+def _wire_to_complex(buf: bytes, fmt: str) -> np.ndarray:
+    """Wire bytes -> flat complex64 samples (any whole-sample length),
     cs16/cs8 codes dequantized on the host."""
+    buf = buf[: len(buf) - len(buf) % BYTES_PER_SAMPLE[fmt]]
     if fmt == "cf32":
-        iq = np.frombuffer(buf, dtype=np.float32)
+        arr = np.frombuffer(buf, dtype=np.float32)
     else:
-        iq = dequantize_iq(np.frombuffer(buf, dtype=_CODE_DTYPE[fmt]), fmt)
-    iq = np.ascontiguousarray(iq.reshape(-1, 2)).view(np.complex64)[:, 0]
-    return iq.reshape(channels, P.SYMBOLS_PER_FIELD)
+        arr = dequantize_iq(np.frombuffer(buf, dtype=_CODE_DTYPE[fmt]), fmt)
+    return np.ascontiguousarray(arr.reshape(-1, 2)).view(np.complex64)[:, 0]
+
+
+class _ResampledCapture:
+    """Streaming rate-conversion adapter for decode input: wraps a
+    capture-rate wire stream (any --format) and serves nominal-symbol-rate
+    cf32 wire bytes through a StreamResampler on `device`. read(n) returns
+    exactly n bytes until the source is exhausted (then the resampler
+    tail, then b''), so every conditioning stage downstream
+    (align/CFO/equalizer) runs unchanged at the nominal rate."""
+
+    _CHUNK = 1 << 19  # capture samples ingested per source read
+
+    def __init__(self, fin, fmt: str, rate, device):
+        self._fin = fin
+        self._fmt = fmt
+        self._bps = BYTES_PER_SAMPLE[fmt]
+        self._rs = StreamResampler(rate, batch=1, device=device)
+        self._pend = bytearray()
+        self._eof = False
+
+    def _ingest(self) -> None:
+        want = self._CHUNK * self._bps
+        raw = self._fin.read(want)
+        out = (self._rs.push(_wire_to_complex(raw, self._fmt)[None])
+               if raw else None)
+        if len(raw) < want:
+            self._eof = True
+            tail = self._rs.flush()
+            out = (np.concatenate([out, tail], -1)
+                   if out is not None else tail)
+        if out.shape[-1]:
+            self._pend += np.ascontiguousarray(out[0]).view(np.float32).tobytes()
+
+    def read(self, n: int = -1) -> bytes:
+        while not self._eof and (n < 0 or len(self._pend) < n):
+            self._ingest()
+        if n < 0:
+            n = len(self._pend)
+        out = bytes(self._pend[:n])
+        del self._pend[:n]
+        return out
+
+    def close(self) -> None:
+        if self._fin is not sys.stdin.buffer:
+            self._fin.close()
 
 
 def run_decode(args) -> dict:
     """Decode a capture (args from build_decode_argparser) to TS; returns
-    the summary (printed to stderr with --stats)."""
+    the summary (printed to stderr with --stats). The conditioning flags
+    follow the JAX CLI's run_decode: validation in its order, the same
+    equalizer promotions, the same summary keys."""
+    if _is_live(args.input) and args.sro == "auto":
+        raise ValueError("--sro auto reads the whole capture up front "
+                         "and cannot run on a live stream (capture to "
+                         "a file first and measure, then pass the "
+                         "numeric ppm value — that path streams)")
     unported = _decode_not_ported(args)
     if unported:
         raise NotImplementedError(unported)
     fmt, channels = args.in_format, args.channels
     dev = resolve_device(args.device)
-    # cs16/cs8 codes are buffered and uploaded verbatim (2-4x less H2D
-    # traffic) and dequantized inside the zf equalizer kernel; the adaptive
-    # equalizers take float samples, dequantized on the host
-    codes_path = fmt in ("cs16", "cs8") and args.equalizer == "zf"
-    trellis = _TRELLIS_MODE[args.trellis]
-    rx = IqReceiver(batch=channels, first_field=args.first_field,
-                    backend="device" if args.equalizer == "zf" else args.equalizer,
-                    forgetting=args.forgetting, trellis=trellis,
-                    erasures=None if args.erasures == "off" else args.erasures,
-                    wire_format=fmt if codes_path else "cf32",
-                    eq_profile=args.eq_profile,
-                    ntsc=None if args.ntsc == "off" else args.ntsc,
-                    # the i8 tier's int8 level codes cannot feed the MER
-                    # accumulator; --stats still reports everything else
-                    measure_mer=args.stats and trellis != "soft-i8",
-                    train_every=args.train_every, device=dev)
-    block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
-    fields = 0
+    # streaming rate conversion (--rate capture clock, numeric --sro ppm):
+    # an exact-rational capture-samples-per-output ratio applied by a
+    # StreamResampler wrapped around the input
+    stream_rate = None
+    if args.rate is not None:
+        sps = _parse_sps(args.rate)
+        if sps < 6_000_000:
+            raise ValueError("--rate below the 6 MHz multiplex rate "
+                             "cannot carry the band")
+        stream_rate = capture_rate(sps)
+    if args.sro not in ("0", "auto"):
+        stream_rate = ((stream_rate or Fraction(1))
+                       * (1 + _parse_sps(args.sro) / 1_000_000))
+    if stream_rate is not None and channels != 1:
+        raise ValueError("--rate/--sro are single-channel only")
+    align = args.align == "auto"
+    cfo_auto = args.cfo in ("auto", "track")
+    cfo_track = args.cfo == "track"
+    sro_rate = None
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
     fout = None
     try:
+        if stream_rate is not None and stream_rate != 1:
+            fin = _ResampledCapture(fin, fmt, stream_rate, dev)
+            fmt, align = "cf32", True  # the resampler's bulk delay shifts
+            #                            the field boundaries
+        if args.sro == "auto":
+            # whole-capture conditioning: estimate the rate from sync-peak
+            # drift, resample to the nominal symbol rate, re-wrap as an
+            # in-memory cf32 stream, and align (composes with --rate: the
+            # streaming wrapper above runs first)
+            if channels != 1:
+                raise ValueError("--sro is single-channel only")
+            raw = _wire_to_complex(fin.read(), fmt)
+            if fin is not sys.stdin.buffer:
+                fin.close()
+            sro_rate = estimate_sro(raw)
+            cond = resample_stream(raw, sro_rate)[0]
+            fin = io.BytesIO(
+                np.stack([cond.real, cond.imag], -1).astype(np.float32).tobytes())
+            fmt, align = "cf32", True
+        block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
+        if (align or cfo_auto) and channels != 1:
+            raise ValueError("--align/--cfo auto are single-channel only")
+        first_field, offset, pending = args.first_field, 0, None
+        equalizer = args.equalizer
+        if args.resync == "auto" and equalizer == "zf":
+            equalizer = "adaptive"  # a re-acquired epoch needs training
+        iq0 = None
+        if align or cfo_auto:
+            iq0 = _wire_to_complex(fin.read(2 * block), fmt)
+        cfo_hz = estimate_cfo(iq0) if cfo_auto else float(args.cfo)
+        if (cfo_hz != 0.0 or cfo_track) and equalizer == "zf":
+            equalizer = "adaptive"  # residual rotation needs training
+        correct = CfoCorrector(cfo_hz)
+        if align:
+            if equalizer == "zf":
+                equalizer = "adaptive"  # the epoch phase offset needs training
+            iq0c = correct(iq0)
+            offset, first_field = find_field_sync_iq(iq0c)
+            pending = iq0c[:, offset:]
+        elif iq0 is not None:
+            pending = correct(iq0)
+        # with no host conditioning, cs16/cs8 codes are buffered and
+        # uploaded verbatim (2-4x less H2D traffic) and dequantized inside
+        # the zf equalizer kernel; the adaptive equalizers take float
+        # samples, dequantized on the host
+        codes_path = (fmt in ("cs16", "cs8") and equalizer == "zf"
+                      and not align and cfo_hz == 0.0 and pending is None)
+        trellis = _TRELLIS_MODE[args.trellis]
+        rx = IqReceiver(batch=channels, first_field=first_field,
+                        backend="device" if equalizer == "zf" else equalizer,
+                        forgetting=args.forgetting, trellis=trellis,
+                        erasures=None if args.erasures == "off" else args.erasures,
+                        wire_format=fmt if codes_path else "cf32",
+                        eq_profile=args.eq_profile,
+                        ntsc=None if args.ntsc == "off" else args.ntsc,
+                        # the i8 tier's int8 level codes cannot feed the MER
+                        # accumulator; --stats still reports everything else
+                        measure_mer=args.stats and trellis != "soft-i8",
+                        resync=None if args.resync == "off" else args.resync,
+                        train_every=args.train_every, device=dev)
+        fields = 0
+        track_tail: list[np.ndarray] = []  # last 2 corrected field blocks
+        cfo_retunes = 0
+        last_track = 0
         fout = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
 
         def emit(decoded) -> None:
@@ -313,18 +566,37 @@ def run_decode(args) -> dict:
                 fout.write(ts.tobytes())
                 fields += 1
 
+        if pending is not None:
+            emit(rx.push(pending))
         while True:
             buf = fin.read(block)
             if len(buf) < block:
-                if buf:
+                if buf and align:
+                    emit(rx.push(correct(_wire_to_complex(buf, fmt))))
+                elif buf:
                     print(f"warning: dropping {len(buf)}-byte partial field "
                           "block at EOF", file=sys.stderr)
                 break
             if codes_path:
                 codes = np.frombuffer(buf, dtype=_CODE_DTYPE[fmt])
-                emit(rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2)))
+                decoded = rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2))
             else:
-                emit(rx.push(_block_to_complex(buf, fmt, channels)))
+                blk = correct(_wire_to_complex(buf, fmt).reshape(
+                    channels, P.SYMBOLS_PER_FIELD))
+                decoded = rx.push(blk)
+                if cfo_track:
+                    track_tail.append(blk)
+                    del track_tail[:-2]
+            emit(decoded)
+            if cfo_track and len(track_tail) == 2 and fields - last_track >= 8:
+                # tracking update: the pilot's offset in the *corrected*
+                # stream is the residual CFO; fold it in phase-continuously
+                last_track = fields
+                resid = estimate_cfo(np.concatenate(track_tail, axis=-1))
+                if 0.05 <= abs(resid) <= 1500.0:
+                    cfo_hz = correct.cfo_hz + resid
+                    correct.retune(cfo_hz)
+                    cfo_retunes += 1
             if args.max_fields and fields >= args.max_fields:
                 break
         if not args.max_fields or fields < args.max_fields:
@@ -345,8 +617,22 @@ def run_decode(args) -> dict:
         summary["segments_erasure_assisted"] = rx.decoder.segments_erasure_assisted
     if args.ntsc != "off":
         summary["ntsc_comb"] = rx.ntsc_active
+    if args.resync != "off":
+        summary["resyncs"] = rx.resyncs
     if rx.mer is not None:
         summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
+    if align:
+        summary |= {"align_offset": offset, "align_parity": first_field}
+    if cfo_hz != 0.0:
+        summary["cfo_hz"] = round(cfo_hz, 3)
+    if cfo_track:
+        summary["cfo_retunes"] = cfo_retunes
+    if sro_rate is not None:
+        summary["sro_ppm"] = round((sro_rate - 1.0) * 1e6, 3)
+    elif args.sro != "0":
+        summary["sro_ppm"] = float(_parse_sps(args.sro))
+    if args.rate is not None:
+        summary["resample_rate"] = float(stream_rate)
     if args.stats:
         print(json.dumps(summary), file=sys.stderr)
     return summary
@@ -380,7 +666,8 @@ def main(argv=None) -> int:
         channels = len(args.input)
     run(args.input, output=args.output, channels=channels,
         out_format=args.out_format, max_fields=args.max_fields,
-        stats=args.stats, device=args.device)
+        stats=args.stats, device=args.device,
+        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm)
     return 0
 
 

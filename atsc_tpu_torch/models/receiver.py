@@ -32,8 +32,16 @@ on the known sync symbols of every field (ops/adaptive_eq.py), and
 the slicer-residual burst detector (ops/erasures.py) on the equalized
 levels and hands its flags to the decoder's errors-and-erasures RS tier.
 
-Scope: sample-synchronous loopback/monitoring with a known carrier epoch.
-Resync and the chunk-parallel Viterbi are not ported yet and raise.
+Capture conditioning runs on the host in float64 numpy, as in the JAX
+package, so both give the same offsets, parities, rates and Hz on the same
+bytes: `find_field_sync_iq` locates a field boundary in a raw capture
+(phase- and gain-robust PN511 correlation), `estimate_sro` measures the
+sample-rate offset from sync-peak drift and `resample_stream` undoes it,
+`estimate_cfo` reads the carrier offset off the pilot, and `CfoCorrector`
+derotates a stream phase-continuously (retunable mid-stream).
+`IqReceiver(resync="auto")` re-acquires the field boundary after an
+unknown sample slip. The chunk-parallel Viterbi is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from atsc_tpu_torch.tables.oscillator import (
     phasor_for_field,
 )
 from atsc_tpu_torch.tables.rrc import rrc_taps
+from atsc_tpu_torch.tables.sync import sync_symbol_templates
 
 _N = P.SYMBOLS_PER_FIELD
 _MARGIN = 8192  # numpy backend: context per side of a field window (>> the
@@ -341,6 +350,232 @@ def _mer_components_dev(levels: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     return (ideal ** 2).mean(dim=-1), ((x - ideal) ** 2).mean(dim=-1)
 
 
+# -- capture conditioning: host float64 numpy, the JAX package's arithmetic --
+
+
+def find_field_sync(levels: np.ndarray) -> tuple[int, int]:
+    """Locate a field boundary in an equalized level stream.
+
+    levels: (n,) with n >= 2 fields. Returns (offset, parity): the stream
+    index where a field starts, and that field's sync parity (the middle
+    PN63's sign). Correlates against the zero-mean PN511+PN63 portion of
+    the sync template (symbols 4..704, identical for both parities)."""
+    probe = _sync_probe()
+    x = np.asarray(levels, np.float64)
+    # one field period of probe positions => exactly one sync occurrence
+    corr = np.correlate(x[: _N + probe.size + 3], probe, mode="valid")
+    offset = int(np.argmax(corr)) - 4
+    if offset < 0:
+        offset += _N
+    # parity from the middle PN63 (symbols 578..640): inverted on odd fields
+    template, _ = sync_symbol_templates()
+    mid = x[offset + 578 : offset + 641]
+    ref = template[0, 578:641].astype(np.float64) * 2.0 - 7.0
+    parity = 0 if np.dot(mid - mid.mean(), ref - ref.mean()) > 0 else 1
+    return offset, parity
+
+
+def _ssb_levels(iq: np.ndarray, start: int, n_out: int,
+                margin: int = 2048) -> np.ndarray:
+    """Complex levels of the single-sideband equalizer branch alone,
+    ifft(w_a * U), over capture samples [start, start + n_out): its PN
+    correlation magnitude is invariant to any complex channel gain.
+    Missing edge context is zero-filled; derotation treats capture sample
+    0 as field 0's start (an epoch mismatch is a constant phase,
+    irrelevant to |corr|)."""
+    iq = np.atleast_2d(np.asarray(iq))[:1]
+    lo, hi = start - margin, start + n_out + margin
+    win = np.zeros((hi - lo,), np.complex128)
+    a0, a1 = max(lo, 0), min(hi, iq.shape[1])
+    if a1 > a0:
+        win[a0 - lo : a1 - lo] = iq[0, a0:a1]
+    u = win * np.conj(_oscillator_for_span(lo, hi, 0)) / (P.OSC_AMPLITUDE ** 2)
+    w_a, _ = _equalizer_dft(u.shape[0])
+    return np.fft.ifft(w_a * np.fft.fft(u))[margin : margin + n_out]
+
+
+def _sync_probe() -> np.ndarray:
+    """(700,) zero-mean known levels of field-sync symbols 4..704."""
+    template, _ = sync_symbol_templates()
+    probe = template[0, 4:704].astype(np.float64) * 2.0 - 7.0
+    return probe - probe.mean()
+
+
+def _corr_peak_refined(corr: np.ndarray, k: int) -> float:
+    """Parabolic sub-sample refinement of |corr| around integer peak k."""
+    if k <= 0 or k >= corr.size - 1:
+        return float(k)
+    a, b, c = np.abs(corr[k - 1 : k + 2])
+    den = a - 2 * b + c
+    return float(k + (0.5 * (a - c) / den if abs(den) > 1e-12 else 0.0))
+
+
+def find_field_sync_iq(iq: np.ndarray) -> tuple[int, int]:
+    """Locate a field boundary directly in a raw complex capture, robust
+    to an unknown channel (gain, phase rotation, moderate multipath).
+
+    Correlates the *complex* levels of the single-sideband branch
+    (_ssb_levels) and resolves the parity by phase-referencing the
+    middle-PN63 correlation to the PN511 peak (both see the same channel
+    phase); a real-projection correlator nulls under a ~90 deg rotation.
+
+    iq: (n,) or (B, n) complex samples, n >= one field + sync length;
+    only the first stream is used. Returns (offset, parity): feed
+    iq[offset:] to IqReceiver(first_field=parity, backend="adaptive").
+    """
+    n_probe = 704
+    n_out = _N + n_probe + 3
+    clev = _ssb_levels(iq, 0, n_out)
+
+    probe = _sync_probe()
+    corr = np.correlate(clev, probe, mode="valid")  # conjugates probe (real)
+    corr = corr[: _N + 4]  # one field period => exactly one sync occurrence
+    peak = int(np.argmax(np.abs(corr)))
+    c0 = corr[peak]
+    offset = peak - 4
+    if offset < 0:
+        offset += _N
+    template, _ = sync_symbol_templates()
+    mid = clev[offset + 578 : offset + 641]
+    ref = template[0, 578:641].astype(np.float64) * 2.0 - 7.0
+    m = np.dot(mid - mid.mean(), ref - ref.mean())
+    parity = 0 if np.real(m * np.conj(c0)) > 0 else 1
+    return offset, parity
+
+
+def estimate_sro(iq: np.ndarray) -> float:
+    """Estimate the capture's sample-rate offset from sync-peak drift.
+
+    Correlates the PN511 sync in the first and in the last complete field
+    of the capture (sub-sample peak positions by parabolic interpolation
+    of |corr| on the single-sideband branch); their spacing over m fields
+    gives the rate. iq: (n,) or (B, n) complex samples, n >= 2 fields.
+    Returns `rate` = capture samples per nominal symbol-rate sample (1.0 =
+    no offset, 1+20e-6 = capture clock 20 ppm fast); feed it to
+    resample_stream.
+    """
+    iq = np.atleast_2d(np.asarray(iq))[:1]
+    n_probe, slack = 704, 1024
+    probe = _sync_probe()
+
+    clev0 = _ssb_levels(iq, 0, _N + n_probe + 3)
+    corr0 = np.correlate(clev0, probe, mode="valid")[: _N + 4]
+    k0 = int(np.argmax(np.abs(corr0)))
+    t0 = _corr_peak_refined(corr0, k0)            # sync at sample t0 - 4
+
+    # farthest field whose sync window fits the capture (the first sync
+    # may itself be up to a field in, e.g. a capture cut mid-field)
+    m = (iq.shape[1] - int(t0) - n_probe - slack) // _N
+    if m < 1:
+        raise ValueError("estimate_sro needs at least 2 complete fields")
+    # the same sync lands near t0 + m*N, drifted by (rate-1)*m*N; search
+    # +-slack around it
+    guess = int(round(t0)) + m * _N
+    clevm = _ssb_levels(iq, guess - slack, n_probe + 2 * slack)
+    corrm = np.correlate(clevm, probe, mode="valid")
+    km = int(np.argmax(np.abs(corrm)))
+    tm = _corr_peak_refined(corrm, km) + (guess - slack)
+    return (tm - t0) / (m * _N)
+
+
+def resample_stream(
+    iq: np.ndarray, rate: float, taps: int = 32, phases: int = 512,
+) -> np.ndarray:
+    """Polyphase Kaiser-sinc resampling of a whole capture to the nominal
+    rate, in float64 on the host.
+
+    out[n] = iq(rate * n) via a `taps`-point windowed-sinc interpolator
+    with `phases` fractional-delay phases (ops/resample.py streams the same
+    interpolator). iq: (n,) or (B, n); returns (B, floor(n/rate) - taps)
+    samples.
+    """
+    iq = np.atleast_2d(np.asarray(iq, np.complex128))
+    half = taps // 2
+    n_out = int((iq.shape[1] - taps - 2) / rate)
+    pos = rate * np.arange(n_out) + half   # output n taps input at pos[n]
+    # (the constant `half`-sample bulk delay is re-absorbed by alignment)
+    base = np.floor(pos).astype(np.int64)
+    frac = pos - base
+    ph = np.minimum((frac * phases + 0.5).astype(np.int64), phases - 1)
+    # kernel h[p, j] = kaiser(beta=10)-windowed sinc(j - (half-1) - p/phases)
+    j = np.arange(taps)[None, :]
+    t = j - (half - 1) - np.arange(phases)[:, None] / phases
+    x = np.clip(t / (half + 1), -1.0, 1.0)
+    h = np.sinc(t) * np.i0(10.0 * np.sqrt(1.0 - x * x)) / np.i0(10.0)
+    h /= h.sum(axis=1, keepdims=True)
+    out = np.zeros((iq.shape[0], n_out), np.complex128)
+    for jj in range(taps):
+        out += iq[:, base - (half - 1) + jj] * h[ph, jj]
+    return out
+
+
+def estimate_cfo(iq: np.ndarray, search_hz: float = 3000.0) -> float:
+    """Estimate the capture's carrier frequency offset from the pilot.
+
+    The 8VSB pilot is a strong coherent tone at a known baseband frequency
+    (P.OSC_FREQUENCY); any tuner/clock offset moves it. Windowed-FFT peak
+    search within +-search_hz of the nominal pilot, refined by quadratic
+    interpolation of the log-magnitude.
+
+    iq: (n,) or (B, n) complex samples (first stream used; >= ~1 field
+    recommended). Returns the offset in Hz: multiply the capture by
+    exp(-2j*pi*cfo*n/P.SAMPLE_RATE) to correct it.
+    """
+    x = np.asarray(np.atleast_2d(iq)[0], np.complex128)
+    n = min(x.size, 4 * _N)
+    x = x[:n] * np.hanning(n)
+    spec = np.abs(np.fft.fft(x))
+    freqs = np.fft.fftfreq(n, 1.0 / P.SAMPLE_RATE)
+    nominal = P.OSC_FREQUENCY
+    band = np.nonzero(np.abs(freqs - nominal) <= search_hz)[0]
+    k = band[np.argmax(spec[band])]
+    # quadratic interpolation on log|X| around the peak bin
+    a, b, c = np.log(spec[[(k - 1) % n, k, (k + 1) % n]] + 1e-30)
+    denom = a - 2 * b + c
+    delta = 0.5 * (a - c) / denom if abs(denom) > 1e-12 else 0.0
+    return float(freqs[k] + delta * P.SAMPLE_RATE / n - nominal)
+
+
+class CfoCorrector:
+    """Streaming e^{-j*2*pi*cfo*n/fs} derotation with an accumulated phase
+    (host-side conditioning before the receiver). The phase is carried
+    explicitly so the frequency can be *retuned* mid-stream
+    phase-continuously: the CFO-tracking loop's update step. `phi` starts
+    the accumulated phase (radians) at sample 0, e.g. one carried from a
+    JAX CfoCorrector's `_phi`."""
+
+    def __init__(self, cfo_hz: float, phi: float = 0.0):
+        self.cfo_hz = float(cfo_hz)
+        self._n = 0        # samples consumed
+        self._phi = float(phi)  # accumulated phase at sample _n (radians)
+
+    def _w(self) -> float:
+        return -2.0 * np.pi * self.cfo_hz / P.SAMPLE_RATE
+
+    def __call__(self, iq: np.ndarray) -> np.ndarray:
+        iq = np.atleast_2d(iq)
+        n = iq.shape[-1]
+        if self.cfo_hz == 0.0 and self._phi == 0.0:
+            self._n += n
+            return iq
+        w = self._w()
+        rot = np.exp(1j * (self._phi + w * np.arange(n)))
+        self._phi = (self._phi + w * n) % (2.0 * np.pi)
+        self._n += n
+        return iq * rot
+
+    def skip(self, n: int) -> None:
+        """Advance past n already-consumed samples (checkpoint resume)."""
+        self._phi = (self._phi + self._w() * n) % (2.0 * np.pi)
+        self._n += n
+
+    def retune(self, cfo_hz: float) -> None:
+        """Change the frequency phase-continuously at the current sample:
+        downstream sees a frequency step but no phase jump (the adaptive
+        equalizer re-trains through the step within one field)."""
+        self.cfo_hz = float(cfo_hz)
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to atsc_tpu_torch")
 
@@ -381,6 +616,18 @@ class IqReceiver:
     integer codes verbatim; the equalizer kernel dequantizes.
     measure_mer=True accumulates the MER of the equalized levels on the
     device.
+
+    Fields are tracked by counting samples from the stream epoch, so a
+    source that silently drops samples desynchronizes the decode.
+    `notify_gap(n)` zero-fills a drop of known length. resync="auto"
+    (adaptive backends only): once `resync_after` emitted fields in a row
+    each have at least `resync_threshold` of their segments uncorrectable,
+    the receiver stops decoding, re-locates the next field boundary in the
+    buffered stream of channel 0 (find_field_sync_iq), re-bases every
+    channel's epoch and parity there, and starts a fresh decoder (RS
+    counters carried) and equalizer. Fields emitted between the slip and
+    its detection are garbage; `resyncs` counts the events and
+    `resync_log` records where they landed.
     """
 
     def __init__(self, batch: int = 1, first_field: int = 0,
@@ -389,9 +636,9 @@ class IqReceiver:
                  trellis: str = "hard", erasures: str | None = None,
                  wire_format: str = "cf32", eq_profile: str = "auto",
                  ntsc: str | None = None, viterbi_chunks: int = 1,
-                 measure_mer: bool = False,
-                 resync: str | None = None, train_every: int = 1, *,
-                 device: str | torch.device):
+                 measure_mer: bool = False, resync: str | None = None,
+                 resync_after: int = 2, resync_threshold: float = 0.5,
+                 train_every: int = 1, *, device: str | torch.device):
         # the JAX package's validation, in its order
         if backend not in ("device", "numpy", "adaptive", "adaptive-dd"):
             raise ValueError(f"unknown equalizer backend {backend!r}")
@@ -430,8 +677,6 @@ class IqReceiver:
             raise ValueError("resync='auto' needs an adaptive backend: a "
                              "re-acquired epoch carries an unknown phase "
                              "offset only a trained equalizer absorbs")
-        if resync is not None:
-            raise _not_ported(f"resync {resync!r}")
         if viterbi_chunks > 1:
             raise _not_ported(f"viterbi_chunks={viterbi_chunks} (the chunk-parallel Viterbi)")
         self.device = resolve_device(device)
@@ -482,9 +727,17 @@ class IqReceiver:
         self._decoder = self._make_decoder()
         self._stream = _PlanarStream(batch, dtype=stream_dtype)
         self._next_field = 0  # next un-equalized field (epoch-relative)
-        self._epoch = 0       # stream sample index of field 0
+        self._epoch = 0       # stream sample index of field 0 of this lock
         self._primed = False
-        self.fields_emitted = 0
+        self.resync = resync
+        self.resync_after = resync_after
+        self.resync_threshold = resync_threshold
+        self._bad_streak = 0
+        self._acquiring = False
+        self._acquire_from = 0
+        self.resyncs = 0
+        self.resync_log: list[dict] = []
+        self.fields_emitted = 0  # total fields ever returned (all locks)
 
     def _make_decoder(self) -> Decoder:
         if self.ntsc_active:
@@ -514,6 +767,38 @@ class IqReceiver:
         return 10 * np.log10(
             self._mer_sig / np.maximum(self._mer_err, 1e-30)
         )
+
+    def _try_reacquire(self, final: bool) -> bool:
+        """Search the buffered stream for the next field boundary (channel
+        0); on success re-base every channel's epoch/parity there and reset
+        the decode state, carrying the RS counters."""
+        s0 = self._acquire_from
+        need = _N + 704 + 3      # minimum span find_field_sync_iq wants
+        want = need + 4096       # slack so the peak is never edge-clipped
+        avail = self._stream.end - s0
+        if avail < (need if final else want):
+            return False
+        w = self._stream.window(s0, min(self._stream.end, s0 + want))
+        cplx = w[0, 0].astype(np.float64) + 1j * w[0, 1].astype(np.float64)
+        offset, parity = find_field_sync_iq(cplx)
+        self._epoch = s0 + offset
+        self.first_field = int(parity)
+        self._next_field = 0
+        self._primed = False
+        self._bad_streak = 0
+        self._acquiring = False
+        old = self._decoder
+        self._decoder = self._make_decoder()  # carried state is garbage
+        self._decoder.segments_corrected = old.segments_corrected
+        self._decoder.segments_uncorrectable = old.segments_uncorrectable
+        self._decoder.segments_erasure_assisted = old.segments_erasure_assisted
+        if self._adaptive is not None:
+            self._adaptive.reset()  # new epoch = new derotation phase
+        self.resyncs += 1
+        self.resync_log.append(
+            {"stream_sample": int(self._epoch), "parity": int(parity)}
+        )
+        return True
 
     def _equalize(self, rel0: int, g0: int, want_levels: bool):
         """Field `rel0 / N` (stream sample g0) through the backend: int8
@@ -546,6 +831,10 @@ class IqReceiver:
     def _decode_available(self, final: bool) -> list[tuple[np.ndarray, np.ndarray]]:
         out = []
         while True:
+            if self._acquiring:
+                if not self._try_reacquire(final):
+                    break
+                continue
             rel0 = self._next_field * _N
             g0 = self._epoch + rel0
             need = g0 + _N if final else g0 + _N + self.margin
@@ -591,6 +880,16 @@ class IqReceiver:
             if self._primed:
                 out.append((ts, nerr))
                 self.fields_emitted += 1
+                if self.resync is not None:
+                    bad = float((nerr < 0).mean()) >= self.resync_threshold
+                    self._bad_streak = self._bad_streak + 1 if bad else 0
+                    if self._bad_streak >= self.resync_after:
+                        # sync lost: stop decoding and re-acquire from the
+                        # oldest still-buffered sample (no trim: the
+                        # search needs those samples)
+                        self._acquiring = True
+                        self._acquire_from = self._stream.base
+                        continue
             else:
                 # the pre-start virtual field is discarded — roll its RS
                 # stats back so summaries reflect *emitted* fields only

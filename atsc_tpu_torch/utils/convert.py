@@ -16,7 +16,10 @@ receiver's two other carries move the same way: a Decoder's erasure flags
 device)`) and an AdaptiveEqualizer's RLS state
 (`eq.state = adaptive_state_from_numpy({"r": ..., "v": ..., "w": ...,
 "fields_seen": ...}, device)`, from the JAX equalizer's `_r`, `_v`,
-`_w_dev` and `_fields_seen`).
+`_w_dev` and `_fields_seen`). A transmit-side resampler continues from
+a JAX StreamResampler's `full_state()` (`stream_resampler_from_numpy`),
+and a CfoCorrector from a JAX one's frequency and phase
+(`CfoCorrector(jax_corrector.cfo_hz, phi=jax_corrector._phi)`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from atsc_tpu_torch.models.decoder import (
 )
 from atsc_tpu_torch.models.encoder import EncoderState, init_state
 from atsc_tpu_torch.ops.adaptive_eq import EQ_DIM, AdaptiveState
+from atsc_tpu_torch.ops.resample import StreamResampler
 
 
 def state_from_numpy(leaves: dict, device: str | torch.device) -> EncoderState:
@@ -174,3 +178,21 @@ def adaptive_state_to_numpy(state: AdaptiveState) -> dict:
     return {"r": state.r.cpu().numpy(), "v": state.v.cpu().numpy(),
             "w": None if state.w is None else state.w.cpu().numpy(),
             "fields_seen": state.fields_seen}
+
+
+def stream_resampler_from_numpy(full_state: dict,
+                                device: str | torch.device) -> StreamResampler:
+    """A StreamResampler.full_state() of either package ({"num", "den",
+    "out_next", "in_base", "batch", "buf" (B, 2, n) float32, "flushed"})
+    -> a StreamResampler on `device` that goes on from the same exact
+    position with the same buffered window. Raises on a missing or extra
+    key, a buffer of another shape or dtype, or a flushed state."""
+    want = {"num", "den", "out_next", "in_base", "batch", "buf", "flushed"}
+    if set(full_state) != want:
+        raise ValueError(f"resampler state keys {sorted(full_state)} != {sorted(want)}")
+    buf = np.asarray(full_state["buf"])
+    batch = int(full_state["batch"])
+    if buf.dtype != np.float32 or buf.ndim != 3 or buf.shape[:2] != (batch, 2):
+        raise ValueError(f"resampler buffer: want ({batch}, 2, n) float32, "
+                         f"got {buf.shape} {buf.dtype}")
+    return StreamResampler.load_full_state(full_state, device=device)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's transmit and receive main paths, and the two
-kernel-design probes, once on one NVIDIA Hopper GPU.
+"""Drive the PyTorch port's transmit and receive main paths, its capture
+conditioning front end, and the two kernel-design probes, once on one
+NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -112,6 +113,30 @@ Phases, one JSON line each; any failed check exits non-zero:
    decode_field -> flag propagation -> RS erasure correction ->
    derandomize) over 3 warm + 10 timed fields, every channel's TS
    byte-exact; ms/field, channels, peak memory, each stage alone.
+
+23. gauntlet: tests/test_gauntlet.py:22's capture (multipath with a complex
+   gain, 400 Hz CFO, 25 ppm SRO, 24 dB AWGN, a 2,600-sample x4 burst, a
+   cut at 77,777) through `cli decode --sro auto --cfo auto --trellis
+   viterbi --erasures burst --stats` on the card: TS byte-exact, sro and cfo
+   estimates, no uncorrectable segment, acs_forward and traceback once per
+   field through the decoder; the same decode with --device cpu gives the
+   same TS and summary (mer_db within 0.5 dB). Then tests/test_resync.py:86's
+   tuner step (180 Hz + 35 Hz at field 6) through `--cfo track`: a retune,
+   the fields the reference test checks exact.
+24. rate: `cli encode --rate 20e6` of 48 seeded fields (one offset_fir_fused
+   launch per field) and `cli decode --rate 20e6 --trellis viterbi` of the
+   23.2 M-sample capture on the card, TS byte-exact from the first aligned
+   field; host s per field and the real-time factor of both. Then
+   StreamResampler on the card against the CPU on the first 2 M capture
+   samples (<= 1e-6) and under two chunkings (bit-identical), and one
+   65,536-output block timed on the card (ms per field of output, Msps).
+25. resync_full: IqReceiver(batch=384, backend="adaptive", resync="auto")
+   over tests/test_resync.py:26's 9 fields with a complex gain per channel
+   and one common 7,019-sample slip, built on the card field by field and
+   pushed from host memory in 100,003-sample chunks: one resync onto a true
+   post-slip boundary with its parity, pre-slip fields and the re-locked
+   tail byte-exact on every channel; host ms per pushed field, the
+   re-acquisition's time, peak device memory.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -535,6 +560,11 @@ def main() -> int:
     receive_adaptive(golden, dev)
     full_adaptive(dev)
     full_erasures(dev)
+
+    # -- 23-25. the capture conditioning front end ----------------------------
+    gauntlet(dev)
+    rate(dev)
+    resync_full(dev)
 
     print(json.dumps({"kernels": [
         {
@@ -2011,6 +2041,341 @@ def full_erasures(dev) -> None:
     check(exact and decodable, f"B={B_FULL} erasures: decoded TS differs from the sent TS")
     check(corrected > 0, f"B={B_FULL} erasures: RS corrected nothing")
     del wins, oscs, ts, lev, flags, sym, cw, syn, cw_flags
+    torch.cuda.empty_cache()
+
+
+# -- 23-25: the capture conditioning front end ---------------------------------
+
+RATE_FIELDS = 48         # phase 24: 1.16 s of air at 20 MS/s, 23.2 M samples
+RATE_SPS = "20e6"
+RATE_CMP_SAMPLES = 2_000_000
+RESYNC_FIELDS = 9        # phase 25: tests/test_resync.py:26's capture
+RESYNC_CUT, RESYNC_DROP, RESYNC_CHUNK = 3 * 260_416 + 123_456, 7_019, 100_003
+MER_TOL_DB = 0.5         # card against CPU --stats mer_db (adaptive levels ~1e-3 apart)
+
+
+def _host_ts(rng, n_fields: int):
+    """(n_fields, 58656) random TS with packet syncs (tests/test_decoder.py's
+    _random_ts at one channel, the same draws)."""
+    from atsc_tpu_torch import params as P
+
+    ts = rng.integers(0, 256, size=(n_fields, 1, P.FIELD_TS_BYTES), dtype="uint8")
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    return ts[:, 0]
+
+
+def _encode_host(dev, ts):
+    """(F, 58656) TS -> (F*N,) complex64 through Encoder(batch=1) on dev."""
+    import numpy as np
+
+    from atsc_tpu_torch.models.encoder import Encoder, iq_to_complex
+
+    enc = Encoder(batch=1, device=dev)
+    return np.concatenate([iq_to_complex(enc.encode(ts[k][None]))[0]
+                           for k in range(ts.shape[0])])
+
+
+def _cli(argv: list) -> tuple[int, dict, float]:
+    """cli.main(argv) with stderr captured: (rc, the --stats line, host s)."""
+    from atsc_tpu_torch import cli
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    return rc, json.loads(err.getvalue().strip().splitlines()[-1]), wall
+
+
+def _same_summary(card: dict, host: dict) -> bool:
+    """Every --stats key equal but `device`, mer_db within MER_TOL_DB."""
+    if set(card) != set(host):
+        return False
+    return all(abs(card[k][0] - host[k][0]) <= MER_TOL_DB if k == "mer_db" else card[k] == host[k]
+               for k in card if k != "device")
+
+
+def gauntlet(dev) -> None:
+    """Phase 23: tests/test_gauntlet.py:22's capture (every impairment at
+    once) through `cli decode --sro auto --cfo auto --trellis viterbi
+    --erasures burst` on the card, and on the CPU for comparison; then
+    tests/test_resync.py:86's tuner step through `--cfo track`."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.receiver import resample_stream
+
+    n = P.SYMBOLS_PER_FIELD
+    rng = np.random.default_rng(131)
+    ts = _host_ts(rng, 5)
+    iq = _encode_host(dev, ts)
+    y = np.convolve(iq, [0.85 * np.exp(0.7j), 0, 0.12 * np.exp(-1.1j), 0, 0.05j])[: iq.size]
+    y = y * np.exp(2j * np.pi * 400.0 / P.SAMPLE_RATE * np.arange(y.size))
+    y = resample_stream(y, 1.0 / (1.0 + 25e-6))[0]
+    sigma = np.sqrt(float(np.mean(np.abs(y) ** 2)) / 10 ** (24.0 / 10.0) / 2.0)
+    y = y + (rng.normal(size=y.size) + 1j * rng.normal(size=y.size)) * sigma
+    s0 = 2 * n + 97_000
+    y[s0 : s0 + 2600] += (rng.normal(size=2600) + 1j * rng.normal(size=2600)) * 4.0
+    y = y[77_777:]
+    flags = ["--sro", "auto", "--cfo", "auto", "--trellis", "viterbi", "--erasures", "burst",
+             "--stats"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        cap = os.path.join(tmp, "gauntlet.iq")
+        np.stack([y.real, y.imag], -1).astype(np.float32).tofile(cap)
+        _zero_all_launches()
+        rc, stats, wall = _cli(["decode", cap, *flags, "-o", os.path.join(tmp, "card.ts")])
+        launches = _launches()
+        rc_cpu, stats_cpu, wall_cpu = _cli(["decode", cap, *flags, "--device", "cpu",
+                                            "-o", os.path.join(tmp, "cpu.ts")])
+        got = np.fromfile(os.path.join(tmp, "card.ts"), np.uint8)
+        got_cpu = np.fromfile(os.path.join(tmp, "cpu.ts"), np.uint8)
+    fd = stats["fields_decoded"]
+    exact = got.tobytes() == ts[1 : 1 + fd].tobytes()
+    # the decoder also runs on the first aligned field, whose output the
+    # one-field interleaver latency discards: fd + 1 fields per kernel
+    want_launches = {"eq_fir_fused": 0, "acs_forward": fd + 1, "traceback": fd + 1,
+                     "pr_acs_forward": 0, "pr_traceback": 0}
+    emit("gauntlet", capture={"fields": 5, "multipath": True, "cfo_hz": 400.0, "sro_ppm": 25.0,
+                              "snr_db": 24.0, "burst": [s0, 2600, 4.0], "cut": 77_777},
+         rc=rc, stats=stats, host_s=wall, host_s_per_field=wall / fd, ts_exact=exact,
+         launches=launches, cpu={"rc": rc_cpu, "stats": stats_cpu, "host_s": wall_cpu,
+                                 "ts_identical": got.tobytes() == got_cpu.tobytes(),
+                                 "summary_identical": _same_summary(stats, stats_cpu)})
+    check(rc == 0 and rc_cpu == 0, f"gauntlet: cli decode returned {rc} / {rc_cpu} (cpu)")
+    check(stats["device"] == str(dev), f"gauntlet: decoded on {stats['device']}")
+    check(fd >= 2 and exact, f"gauntlet: the TS is not the sent TS ({stats})")
+    check(abs(stats["sro_ppm"] - 25.0) < 1.0 and abs(stats["cfo_hz"] - 400.0) < 2.0,
+          f"gauntlet: sro/cfo estimates {stats}")
+    check(stats["segments_uncorrectable"] == 0, f"gauntlet: uncorrectable segments {stats}")
+    check(launches == want_launches, f"gauntlet: launches {launches}, want {want_launches}")
+    check(got.tobytes() == got_cpu.tobytes() and _same_summary(stats, stats_cpu),
+          f"gauntlet: card {stats} and CPU {stats_cpu} disagree")
+
+    # tests/test_resync.py:86: 180 Hz stepping by 35 Hz at field 6
+    n_fields = 14
+    ts = _host_ts(np.random.default_rng(47), n_fields)
+    iq = _encode_host(dev, ts)
+    freq = 180.0 + 35.0 * (np.arange(iq.size) >= 6 * n)
+    y = iq * np.exp(2j * np.pi * np.cumsum(freq) / P.SAMPLE_RATE)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        cap = os.path.join(tmp, "step.iq")
+        np.stack([y.real, y.imag], -1).astype(np.float32).tofile(cap)
+        _zero_all_launches()
+        rc, stats, wall = _cli(["decode", cap, "--cfo", "track", "--forgetting", "0.0",
+                                "--stats", "-o", os.path.join(tmp, "out.ts")])
+        launches = _launches()
+        out = np.fromfile(os.path.join(tmp, "out.ts"), np.uint8).reshape(-1, P.FIELD_TS_BYTES)
+    kept = [*range(4), *range(11, out.shape[0])]
+    exact = all(np.array_equal(out[k], ts[k]) for k in kept)
+    emit("gauntlet_cfo_track", capture={"fields": n_fields, "cfo_hz": 180.0, "step_hz": 35.0,
+                                        "step_at_field": 6},
+         rc=rc, stats=stats, host_s=wall, fields_checked=kept, ts_exact_checked=exact,
+         launches=launches)
+    check(rc == 0 and stats["cfo_retunes"] >= 1 and abs(stats["cfo_hz"] - 215.0) < 2.0,
+          f"cfo track: {stats}")
+    check(abs(stats["fields_decoded"] - (n_fields - 1)) <= 1 and exact,
+          f"cfo track: fields {kept} are not the sent TS ({stats})")
+
+
+def rate(dev) -> None:
+    """Phase 24: one 20 MS/s SDR channel: `cli encode --rate 20e6` of
+    RATE_FIELDS seeded fields and `cli decode --rate 20e6 --trellis
+    viterbi` of what it wrote, on the card; StreamResampler on the card
+    against the CPU on the first RATE_CMP_SAMPLES capture samples, and
+    under two chunkings; the resampler's block timed on the card."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.ops import resample as rs
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+
+    n = P.SYMBOLS_PER_FIELD
+    period_s = 1.0 / P.FIELD_RATE
+    ts = _host_ts(np.random.default_rng(24), RATE_FIELDS)
+    ratio = 20e6 / P.SAMPLE_RATE
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        src, cap = os.path.join(tmp, "in.ts"), os.path.join(tmp, "cap20.iq")
+        ts.tofile(src)
+        fir.LAUNCHES = 0
+        rc_enc, enc_stats, enc_wall = _cli([src, "-o", cap, "--rate", RATE_SPS, "--stats"])
+        enc_launches = fir.LAUNCHES
+        n_cap = os.path.getsize(cap) // 8
+        _zero_all_launches()
+        rc, stats, wall = _cli(["decode", cap, "--rate", RATE_SPS, "--trellis", "viterbi",
+                                "--stats", "-o", os.path.join(tmp, "back.ts")])
+        launches = _launches()
+        back = np.fromfile(os.path.join(tmp, "back.ts"), np.uint8)
+        head = np.fromfile(cap, np.complex64, count=RATE_CMP_SAMPLES)[None]
+    fd = stats["fields_decoded"]
+    exact = back.tobytes() == ts[1 : 1 + fd].tobytes()
+    want_n = RATE_FIELDS * n * ratio
+    enc_fields = enc_stats["fields"]
+    emit("rate_cli", sps=float(RATE_SPS), fields=RATE_FIELDS, capture_samples=n_cap,
+         encode={"rc": rc_enc, "stats": enc_stats, "host_s": enc_wall,
+                 "host_s_per_field": enc_wall / RATE_FIELDS,
+                 "realtime_factor": period_s / (enc_wall / RATE_FIELDS),
+                 "offset_fir_launches": enc_launches},
+         decode={"rc": rc, "stats": stats, "host_s": wall, "host_s_per_field": wall / fd,
+                 "realtime_factor": period_s / (wall / fd), "ts_exact": exact,
+                 "launches": launches}, field_period_ms=period_s * 1e3)
+    check(rc_enc == 0 and enc_fields == RATE_FIELDS and enc_stats["output_rate"] == 20e6
+          and enc_stats["device"] == str(dev), f"encode --rate: rc {rc_enc}, {enc_stats}")
+    check(abs(n_cap - want_n) < 64, f"encode --rate wrote {n_cap} samples, want ~{want_n:.0f}")
+    check(enc_launches == RATE_FIELDS, f"encode --rate: {enc_launches} offset_fir launches")
+    check(rc == 0 and stats["device"] == str(dev) and fd >= RATE_FIELDS - 3 and exact
+          and stats["segments_uncorrectable"] == 0,
+          f"decode --rate: the TS is not the sent TS from the first aligned field ({stats})")
+    check(launches["acs_forward"] == fd + 1 and launches["traceback"] == fd + 1,
+          f"decode --rate: launches {launches} for {fd} decoded fields")
+
+    # the resampler itself: card against CPU, and two chunkings on each
+    frac = rs.capture_rate(20_000_000)
+
+    def run(device, chunks):
+        r = rs.StreamResampler(frac, batch=1, device=device)
+        outs, pos = [], 0
+        for c in chunks:
+            outs.append(r.push(head[:, pos : pos + c]))
+            pos += c
+        outs.append(r.push(head[:, pos:]))
+        outs.append(r.flush())
+        return np.concatenate(outs, axis=-1)
+
+    t0 = time.perf_counter()
+    card = run(dev, ())
+    card_wall = time.perf_counter() - t0
+    cut = (1, 999, 65_536, 17, 333_447)
+    card_chunked = run(dev, cut)
+    cpu = run("cpu", ())
+    cpu_chunked = run("cpu", cut)
+    err = float(np.abs(card - cpu).max())
+    # one full block on the card: CUDA events over back-to-back calls
+    r = rs.StreamResampler(frac, batch=1, device=dev)
+    m = rs._OUT_BLOCK
+    incr = np.arange(m, dtype=np.int64) * r.num
+    q, rem = np.divmod(incr, r.den)
+    ph = np.minimum((rem * rs.PHASES + r.den // 2) // r.den, rs.PHASES - 1)
+    n_win = (r.num * (m - 1) + r.den - 1) // r.den + rs.TAPS
+    win = torch.tensor(np.stack([head[0, :n_win].real, head[0, :n_win].imag])[None], device=dev)
+    q_d, ph_d = torch.tensor(q, device=dev), torch.tensor(ph, device=dev)
+    block_ms = timed(lambda: rs._resample_block(win, q_d, ph_d), reps=20)
+    emit("rate_resampler", samples_in=RATE_CMP_SAMPLES, samples_out=int(card.shape[-1]),
+         max_abs_err_card_vs_cpu=err, tolerance=1e-6,
+         card_chunked_bit_identical=bool(np.array_equal(card, card_chunked)),
+         cpu_chunked_bit_identical=bool(np.array_equal(cpu, cpu_chunked)),
+         block_outputs=m, block_ms=block_ms, ms_per_field=block_ms * n / m,
+         msps=m / (block_ms * 1e-3) / 1e6,
+         push_host_s_per_field=card_wall / (card.shape[-1] / n))
+    check(card.shape == cpu.shape and err <= 1e-6,
+          f"StreamResampler card vs CPU {err} > 1e-6 (shapes {card.shape} {cpu.shape})")
+    check(np.array_equal(card, card_chunked) and np.array_equal(cpu, cpu_chunked),
+          "StreamResampler: a chunking changed the output")
+
+
+def resync_full(dev) -> None:
+    """Phase 25: IqReceiver(batch=B_FULL, backend="adaptive", resync="auto")
+    on the card over tests/test_resync.py:26's capture at the headend
+    width: a complex gain per channel, one common slip of RESYNC_DROP
+    samples at RESYNC_CUT, built on the card field by field and pushed from
+    host memory in RESYNC_CHUNK-sample chunks."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.models.receiver import IqReceiver
+
+    n = P.SYMBOLS_PER_FIELD
+    ts = _random_ts_dev(dev, RESYNC_FIELDS, 2525)
+    enc = Encoder(batch=B_FULL, device=dev)
+    gen = torch.Generator(dev).manual_seed(25)
+    mag = 0.7 + 0.4 * torch.rand(B_FULL, 1, generator=gen, device=dev)
+    ang = 2 * np.pi * torch.rand(B_FULL, 1, generator=gen, device=dev)
+    gr, gi = mag * torch.cos(ang), mag * torch.sin(ang)
+    cache: dict = {}
+    encoded = 0
+
+    def field(k):
+        """Original field k through the channel gains, complex on the card
+        (fields are asked for in order; two stay cached)."""
+        nonlocal encoded
+        while encoded <= k:
+            x = enc.encode(ts[encoded])[..., :n]
+            cache[encoded] = torch.complex(gr * x[:, 0] - gi * x[:, 1],
+                                           gr * x[:, 1] + gi * x[:, 0])
+            encoded += 1
+            cache.pop(encoded - 3, None)
+        return cache[k]
+
+    def original(lo, hi):
+        """Original stream samples [lo, hi), (B, hi-lo) complex64 on the card."""
+        parts = []
+        while lo < hi:
+            k, i = divmod(lo, n)
+            take = min(hi - lo, n - i)
+            parts.append(field(k)[:, i : i + take])
+            lo += take
+        return torch.cat(parts, dim=-1)
+
+    total = RESYNC_FIELDS * n - RESYNC_DROP
+    rx = IqReceiver(batch=B_FULL, backend="adaptive", resync="auto", device=dev)
+    acquire_s = []
+    reacquire = rx._try_reacquire
+
+    def timed_reacquire(final):
+        t0 = time.perf_counter()
+        done = reacquire(final)
+        if done:
+            acquire_s.append(time.perf_counter() - t0)
+        return done
+
+    rx._try_reacquire = timed_reacquire
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    got, push_s, host_peak = [], 0.0, 0
+    for pos in range(0, total, RESYNC_CHUNK):
+        hi = min(pos + RESYNC_CHUNK, total)
+        pieces = []
+        if pos < RESYNC_CUT:
+            pieces.append(original(pos, min(hi, RESYNC_CUT)))
+        if hi > RESYNC_CUT:
+            lo = max(pos, RESYNC_CUT)
+            pieces.append(original(lo + RESYNC_DROP, hi + RESYNC_DROP))
+        chunk = torch.cat(pieces, dim=-1).cpu().numpy()
+        host_peak = max(host_peak, rx._stream.end - rx._stream.base)
+        t0 = time.perf_counter()
+        got += rx.push(chunk)
+        push_s += time.perf_counter() - t0
+        del chunk
+    t0 = time.perf_counter()
+    got += rx.flush()
+    push_s += time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache.clear()
+    ts_np = ts.cpu().numpy()
+    del ts
+    log = rx.resync_log
+    epoch = log[0]["stream_sample"] if log else -1
+    m, rem = divmod(epoch + RESYNC_DROP, n)
+    n_tail = RESYNC_FIELDS - m - 1
+    pre = len(got) >= 2 and all(np.array_equal(got[k][0], ts_np[k]) for k in range(2))
+    tail = len(got) >= n_tail >= 2 and all(
+        np.array_equal(got[len(got) - n_tail + j][0], ts_np[m + j])
+        and bool((got[len(got) - n_tail + j][1] >= 0).all()) for j in range(n_tail))
+    emit("resync_full", batch=B_FULL, fields=RESYNC_FIELDS,
+         slip={"at": RESYNC_CUT, "samples": RESYNC_DROP}, chunk=RESYNC_CHUNK,
+         resyncs=rx.resyncs, resync_log=log, fields_emitted=len(got),
+         pre_slip_exact_all_channels=pre, relocked_tail_fields=n_tail,
+         relocked_tail_exact_all_channels=tail,
+         host_ms_per_pushed_field=push_s * 1e3 / (total / n), push_host_s=push_s,
+         reacquire_ms=[t * 1e3 for t in acquire_s], max_memory_allocated=peak,
+         max_buffered_samples=host_peak)
+    check(rx.resyncs == 1, f"B={B_FULL} resync: {rx.resyncs} resyncs, log {log}")
+    check(rem == 0 and log[0]["parity"] == m % 2,
+          f"B={B_FULL} resync: epoch {epoch} is not a post-slip boundary ({log})")
+    check(pre and tail, f"B={B_FULL} resync: pre-slip {pre}, re-locked tail {tail}")
+    del rx, enc, got, ts_np
     torch.cuda.empty_cache()
 
 

@@ -173,18 +173,20 @@ def test_cli_decode_matches_jax_cli(tmp_path):
     assert stats["mer_db"][0] > 30
 
 
-@pytest.mark.parametrize("kw", [dict(backend="adaptive", resync="auto"),
+@pytest.mark.parametrize("kw", [dict(backend="adaptive", resync="auto", viterbi_chunks=4,
+                                     trellis="soft"),
                                 dict(viterbi_chunks=2, trellis="soft"),
                                 dict(viterbi_chunks=3, ntsc="comb"),
-                                dict(backend="adaptive-dd", resync="auto"),
+                                dict(backend="adaptive-dd", resync="auto", viterbi_chunks=2,
+                                     ntsc="comb"),
                                 dict(viterbi_chunks=2, backend="adaptive", trellis="soft")])
 def test_receiver_refuses_unported_options(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trx.IqReceiver(batch=1, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--viterbi-chunks", "4"], ["--resync", "auto"],
-                                  ["--mesh", "2x1"], ["--cfo", "auto"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--viterbi-chunks", "4"], ["--viterbi-chunks", "2"],
+                                  ["--mesh", "2x1"], ["--demux", "2"], ["--resume"],
                                   ["-o", "slot{ch}.ts"]])
 def test_cli_decode_refuses_unported_flags(flag, tmp_path):
     from atsc_tpu_torch import cli as tcli
@@ -429,3 +431,68 @@ def test_cli_decode_adaptive_erasures_matches_jax_cli(tmp_path, jax_eager_erasur
         if not extra:
             assert jcli.main(["decode", *args, "-o", str(tmp_path / "jax.ts")]) == 0
             assert got == (tmp_path / "jax.ts").read_bytes()
+
+
+# -- resync and known gaps (tests/test_resync.py) -----------------------------
+
+
+def test_iq_receiver_resync_matches_jax():
+    """tests/test_resync.py:26: 9 fields through a complex gain, 7,019
+    samples dropped at 3N + 123,456, pushed in 100,003-sample chunks with
+    resync="auto": the same resync_log (a true post-slip boundary with its
+    parity) and resyncs as JAX's IqReceiver, and the same, sent TS on the
+    fields before the slip and after the re-lock. The three fields emitted
+    between the slip and its detection are garbage in both (their bytes
+    and byte-error counts follow adaptive levels that agree with JAX's to
+    ~1e-3); both flag each of them uncorrectable."""
+    from tests.test_torch_acquisition import slipped_capture
+
+    ts, cap, drop = slipped_capture()
+    rx = trx.IqReceiver(batch=1, backend="adaptive", resync="auto", device="cpu")
+    jr = jrx.IqReceiver(batch=1, backend="adaptive", resync="auto")
+    got, want = [], []
+    for pos in range(0, cap.shape[1], 100_003):
+        got += rx.push(cap[:, pos : pos + 100_003])
+        want += jr.push(cap[:, pos : pos + 100_003])
+    got += rx.flush()
+    want += jr.flush()
+    assert rx.resyncs == jr.resyncs == 1
+    assert rx.resync_log == jr.resync_log
+    m, rem = divmod(rx.resync_log[0]["stream_sample"] + drop, N)
+    assert rem == 0 and rx.resync_log[0]["parity"] == m % 2
+    assert len(got) == len(want) == rx.fields_emitted == 7
+    n_tail = 9 - m - 1
+    assert n_tail == 2
+    for k in (0, 1, 5, 6):
+        (t, n), (jt, jn) = got[k], want[k]
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(n, jn)
+        np.testing.assert_array_equal(t, ts[k if k < 2 else m + k - 5])
+    for k in (2, 3, 4):
+        assert (got[k][1] < 0).any() and (want[k][1] < 0).any()
+
+
+def test_iq_receiver_notify_gap_keeps_lock_with_resync():
+    """tests/test_resync.py:66: a known 600-sample drop zero-filled by
+    notify_gap under resync="auto": no resync, every field exact, the same
+    TS, byte-error counts and RS counters as JAX's IqReceiver."""
+    from tests.test_torch_acquisition import _encode
+
+    ts = _random_ts(np.random.default_rng(43), 5, 1)
+    iq = _encode(ts) * np.exp(0.3j)
+    cut, drop = 2 * N + 50_000, 600
+    outs = []
+    for rx in (trx.IqReceiver(batch=1, backend="adaptive", resync="auto", device="cpu"),
+               jrx.IqReceiver(batch=1, backend="adaptive", resync="auto")):
+        got = rx.push(iq[:, :cut]) + rx.notify_gap(drop)
+        got += rx.push(iq[:, cut + drop:]) + rx.flush()
+        assert rx.resyncs == 0 and len(got) == 4
+        assert rx.decoder.segments_corrected > 0   # the gap really hit data
+        outs.append((got, rx.decoder.segments_corrected))
+    (got, corrected), (want, jcorrected) = outs
+    assert corrected == jcorrected
+    for k, ((t, n), (jt, jn)) in enumerate(zip(got, want)):
+        assert (n >= 0).all()
+        np.testing.assert_array_equal(t, ts[k])
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(n, jn)
