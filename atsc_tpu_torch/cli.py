@@ -16,17 +16,24 @@ Usage:
   python -m atsc_tpu_torch.cli a.ts b.ts -o out.iq        # one stream per channel
   python -m atsc_tpu_torch.cli decode out.iq -o back.ts --stats
   python -m atsc_tpu_torch.cli decode out.cs8 -c 8 --format cs8 -o back.ts
+  python -m atsc_tpu_torch.cli in.ts -c 8 --mux -o band.iq    # one 48 MHz multiplex
+  python -m atsc_tpu_torch.cli decode band.iq --demux 8 -o 'slot{ch}.ts'
 
 Flags of the JAX CLI that this package does not have yet (encode: --mesh,
---mux, --checkpoint, --resume, --profile, --realtime, the soapy sink;
-decode: --mesh, --demux, --viterbi-chunks other than 1, --checkpoint,
---resume, --profile, the soapy source; the analyze subcommand) stop with an
-error naming them; none is silently ignored. Decode runs the equalizers
-`--equalizer zf|adaptive|adaptive-dd` (with `--forgetting` and
-`--train-every` for the adaptive ones), the trellis tiers `--trellis
-hard|viterbi|viterbi-i8`, the NTSC comb `--ntsc off|comb|auto` and the RS
+--checkpoint, --resume, --profile, --realtime, the soapy sink; decode:
+--mesh, --checkpoint, --resume, --profile, the soapy source; the analyze
+subcommand) stop with an error naming them; none is silently ignored.
+Decode runs the equalizers `--equalizer zf|adaptive|adaptive-dd` (with
+`--forgetting` and `--train-every` for the adaptive ones), the trellis
+tiers `--trellis hard|viterbi|viterbi-i8` (chunk-parallel with
+`--viterbi-chunks N`), the NTSC comb `--ntsc off|comb|auto` and the RS
 erasure tier `--erasures off|burst`. A cs16/cs8 capture under an adaptive
 equalizer is dequantized on the host (the codes path is the zf kernel's).
+
+The wideband headend: `encode --mux` FDM-combines the channels into one cf32
+multiplex at channels x 6 MHz (ops/mux.py, composing with --rate), and
+`decode --demux B` demultiplexes such a capture on the device into one
+batched adaptive receiver; `-o` with '{ch}' writes one TS file per channel.
 
 Capture conditioning (single channel): `decode --rate SPS` resamples a
 capture clocked at any rate to the symbol rate as it streams, numeric
@@ -60,6 +67,7 @@ from atsc_tpu_torch.models.receiver import (
     find_field_sync_iq,
     resample_stream,
 )
+from atsc_tpu_torch.ops.mux import FdmDemuxer, FdmMuxer
 from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE, dequantize_iq
 from atsc_tpu_torch.ops.resample import (
     SYMBOL_RATE_FRACTION,
@@ -70,7 +78,7 @@ from atsc_tpu_torch.runtime.io import IqSink, TsReader
 from atsc_tpu_torch.utils.profiling import ThroughputMeter
 
 # flags of atsc_tpu.cli's encode path that are not ported yet
-_NOT_PORTED = ("mesh", "mux", "checkpoint", "resume", "profile", "realtime")
+_NOT_PORTED = ("mesh", "checkpoint", "resume", "profile", "realtime")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -87,6 +95,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="IQ sink: 'null', '-' (stdout) or a file path")
     ap.add_argument("-c", "--channels", type=int, default=1,
                     help="encode the stream as N parallel channels")
+    ap.add_argument("--mux", action="store_true",
+                    help="FDM-combine the channels into ONE wideband "
+                         "multiplex at channels*6 MHz (6-MHz slot raster "
+                         "centered on DC): drive a whole band from one "
+                         "wideband SDR. cf32 output only")
     ap.add_argument("--format", dest="out_format", default="cf32",
                     choices=("cf32", "cs16", "cs8"),
                     help="IQ wire format: complex float32, or int16/int8 "
@@ -102,7 +115,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="output sample rate in samples/s (e.g. 20e6 for a "
                          "20 MS/s SDR master clock): polyphase-resample the "
                          "baseband from the nominal 10.762238 MHz symbol "
-                         "rate before the sink, tracking the conversion "
+                         "rate (or the channels*6 MHz multiplex rate with "
+                         "--mux) before the sink, tracking the conversion "
                          "position as an exact rational so an unbounded "
                          "run never drifts; `decode --rate` inverts it. cf32 "
                          "output only (quantized wire formats are produced "
@@ -115,7 +129,7 @@ def build_argparser() -> argparse.ArgumentParser:
                          "receiver testing; composes with --rate)")
     for name in ("mesh", "checkpoint", "profile"):
         ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
-    for name in ("mux", "resume", "realtime"):
+    for name in ("resume", "realtime"):
         ap.add_argument(f"--{name}", action="store_true", help=argparse.SUPPRESS)
     return ap
 
@@ -154,10 +168,11 @@ def _write_planar(sink, arr: np.ndarray) -> None:
 
 def run(input_paths, output: str = "null", channels: int = 1,
         out_format: str = "cf32", max_fields: int = 0, stats: bool = False,
-        device: str = "cuda", rate=None, ppm: float = 0.0) -> dict:
+        device: str = "cuda", rate=None, ppm: float = 0.0, mux: bool = False) -> dict:
     """Encode TS input(s) to an IQ sink; returns the throughput summary.
     rate (samples/s, exact as a Fraction) and ppm resample the output
-    (cf32, one channel)."""
+    (cf32; one channel, or the multiplex). mux: FDM-combine the channels
+    into one multiplex at channels*6 MHz (ops/mux.py FdmMuxer)."""
     dev = resolve_device(device)
     if isinstance(input_paths, str):
         input_paths = [input_paths]
@@ -165,6 +180,8 @@ def run(input_paths, output: str = "null", channels: int = 1,
         raise ValueError(f"{len(input_paths)} inputs for {channels} channels")
     if out_format not in ("cf32", "cs16", "cs8"):
         raise ValueError(f"unknown format {out_format!r}")
+    if mux and out_format != "cf32":
+        raise ValueError("--mux emits cf32 only")
     resampler = None
     out_sps = None  # output sample rate per emitted stream (Hz)
     if rate is not None or ppm:
@@ -172,7 +189,7 @@ def run(input_paths, output: str = "null", channels: int = 1,
             raise ValueError("--rate/--ppm emit cf32 only (quantized wire "
                              "formats are produced in-kernel at the "
                              "nominal rate)")
-        if channels > 1:
+        if channels > 1 and not mux:
             # per-channel resampled streams emit a variable number of
             # samples per field: a channel-interleaved output would be
             # unparseable
@@ -180,20 +197,21 @@ def run(input_paths, output: str = "null", channels: int = 1,
                              "--mux (one wideband stream); separate "
                              "resampled outputs need one encode run per "
                              "channel")
-        native = SYMBOL_RATE_FRACTION
+        native = Fraction(6_000_000 * channels) if mux else SYMBOL_RATE_FRACTION
         target = Fraction(rate) if rate is not None else native
         if ppm:
             # a DAC clocked ppm fast stretches the sample grid: emit
             # 1 + ppm/1e6 samples per nominal sample (decode --sro ppm is
             # the exact inverse)
             target = target * (1 + Fraction(ppm) / 1_000_000)
-        band = 6_000_000
+        band = 6_000_000 * (channels if mux else 1)
         if target < band:
             raise ValueError(
                 f"--rate {float(target):.0f} cannot carry the occupied "
                 f"+-{band / 2e6:g} MHz band (needs >= {band / 1e6:g} MS/s)")
         if target != native:
-            resampler = StreamResampler(native / target, batch=channels, device=dev)
+            resampler = StreamResampler(native / target, batch=1 if mux else channels,
+                                        device=dev)
         out_sps = float(target)
     if _is_live(output):
         raise NotImplementedError(
@@ -202,7 +220,15 @@ def run(input_paths, output: str = "null", channels: int = 1,
     # are the interleaved stream: the sink writes them verbatim
     wire = out_format in ("cs16", "cs8")
     enc = Encoder(batch=channels, out_format=out_format, wire=wire, device=dev)
+    muxer = FdmMuxer(channels, device=dev) if mux else None
     meter = ThroughputMeter(channels=channels)
+
+    def emit_mux_chunk(chunk: np.ndarray) -> None:
+        """(2, m) wideband multiplex chunk -> (resample ->) sink."""
+        if resampler is not None and chunk.shape[-1]:
+            chunk = resampler.push_planar(chunk[None])[0]
+        _write_planar(sink, chunk[None])
+
     field_bytes = P.FIELD_TS_BYTES
     fields_done = sync_checked = sync_bad = 0
     readers = [TsReader(p) for p in input_paths]
@@ -218,7 +244,9 @@ def run(input_paths, output: str = "null", channels: int = 1,
             if ts.shape[0] == 1 and channels > 1:
                 ts = np.broadcast_to(ts, (channels, field_bytes))
             iq = enc.encode(ts)
-            if resampler is not None:
+            if muxer is not None:
+                emit_mux_chunk(muxer.push(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+            elif resampler is not None:
                 _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
             elif wire:
                 sink.write_wire(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
@@ -228,6 +256,8 @@ def run(input_paths, output: str = "null", channels: int = 1,
             fields_done += 1
             if max_fields and fields_done >= max_fields:
                 break
+        if muxer is not None:
+            emit_mux_chunk(muxer.flush())
         if resampler is not None:
             _write_planar(sink, resampler.flush_planar())
     finally:
@@ -251,12 +281,8 @@ def run(input_paths, output: str = "null", channels: int = 1,
 
 
 # decode flags of atsc_tpu.cli that are not ported yet, with the default
-# that means "not given" (--viterbi-chunks 1 is the exact Viterbi this
-# package runs)
-_DECODE_NOT_PORTED = {
-    "mesh": None, "demux": 0, "viterbi_chunks": 1,
-    "checkpoint": None, "resume": False, "profile": None,
-}
+# that means "not given"
+_DECODE_NOT_PORTED = {"mesh": None, "checkpoint": None, "resume": False, "profile": None}
 
 #: CLI --trellis value -> IqReceiver trellis mode
 _TRELLIS_MODE = {"hard": "hard", "viterbi": "soft", "viterbi-i8": "soft-i8"}
@@ -272,10 +298,15 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                                   "(anywhere, with --align auto)")
     ap.add_argument("-o", "--output", default="-",
                     help="TS output path or '-' (stdout); channels are "
-                         "interleaved per field (a '{ch}' template is not "
-                         "yet ported)")
+                         "interleaved per field, or one file per channel "
+                         "when the path contains '{ch}' (e.g. 'slot{ch}.ts')")
     ap.add_argument("-c", "--channels", type=int, default=1,
                     help="channel count the capture was encoded with")
+    ap.add_argument("--demux", type=int, default=0, metavar="B",
+                    help="the capture is a B-slot FDM multiplex at B*6 MHz "
+                         "(encode --mux layout): demultiplex on the device "
+                         "and decode all B channels (adaptive equalizer; "
+                         "output is channel-interleaved per field like -c B)")
     ap.add_argument("--format", dest="in_format", default="cf32",
                     choices=("cf32", "cs16", "cs8"),
                     help="IQ wire format of the capture")
@@ -296,7 +327,10 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                          "resample to the nominal symbol rate, tracking "
                          "the conversion position as an exact rational so "
                          "an unbounded live run never drifts. Implies "
-                         "--align auto; single-channel only")
+                         "--align auto; single-channel only, except with "
+                         "--demux, where the capture is resampled to the "
+                         "B*6 MHz multiplex rate and the band is aligned "
+                         "via slot 0's PN511")
     ap.add_argument("--cfo", default="0", metavar="HZ|auto|track",
                     help="carrier frequency offset of the capture: a fixed "
                          "Hz value, or 'auto' to estimate it from the pilot "
@@ -336,6 +370,21 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                          "noisy captures); 'viterbi-i8': the same on int8 "
                          "soft-level codes from the equalizer kernel (no MER "
                          "in --stats)")
+
+    def _chunks(value: str) -> int:
+        n = int(value)
+        if n < 1 or 21528 % n:
+            raise argparse.ArgumentTypeError(
+                f"{n} must be a divisor of 21528 (e.g. 8, 12, 24, 46, 92)"
+            )
+        return n
+
+    ap.add_argument("--viterbi-chunks", type=_chunks, default=1, metavar="N",
+                    help="chunk-parallel Viterbi: decode each encoder stream "
+                         "as N independent chunks with 128-symbol warmup "
+                         "halos (N times less sequential depth on the device; "
+                         "byte-identical at operating SNRs; must divide "
+                         "21528, e.g. 24). 1 = exact MLSE")
     ap.add_argument("--ntsc", default="off", choices=("off", "comb", "auto"),
                     help="analog NTSC co-channel rejection: 12-symbol comb + "
                          "16-state partial-response ML trellis decoding; "
@@ -383,14 +432,40 @@ def _decode_not_ported(args) -> str:
              if getattr(args, n) != d]
     if _is_live(args.input):
         given.append("the soapy source")
-    if "{ch}" in args.output:
-        given.append("-o with '{ch}' (one TS file per channel)")
     if given:
         return f"decode {', '.join(given)}: not yet ported to atsc_tpu_torch"
     return ""
 
 
 _CODE_DTYPE = {"cs16": np.int16, "cs8": np.int8}
+
+
+class _TsOut:
+    """Decode TS output: one interleaved stream ('-' or a path, channels
+    interleaved per field; the default), or one file per channel when the
+    path contains '{ch}' (e.g. `-o 'slot{ch}.ts'` with --demux 8, the
+    headend form)."""
+
+    def __init__(self, path: str, channels: int):
+        self.per_channel = "{ch}" in path
+        if self.per_channel:
+            self._fps = [open(path.replace("{ch}", str(i)), "wb")
+                         for i in range(channels)]
+        else:
+            self._fps = [sys.stdout.buffer if path == "-" else open(path, "wb")]
+
+    def write_fields(self, ts: np.ndarray) -> None:
+        """ts: (B, FIELD_TS_BYTES): one decoded field for B channels."""
+        if self.per_channel:
+            for fp, row in zip(self._fps, ts):
+                fp.write(row.tobytes())
+        else:
+            self._fps[0].write(ts.tobytes())
+
+    def close(self) -> None:
+        for fp in self._fps:
+            if fp is not sys.stdout.buffer:
+                fp.close()
 
 
 def _parse_sps(s: str) -> Fraction:
@@ -470,6 +545,8 @@ def run_decode(args) -> dict:
     unported = _decode_not_ported(args)
     if unported:
         raise NotImplementedError(unported)
+    if args.demux:
+        return run_decode_demux(args)
     fmt, channels = args.in_format, args.channels
     dev = resolve_device(args.device)
     # streaming rate conversion (--rate capture clock, numeric --sro ppm):
@@ -516,6 +593,7 @@ def run_decode(args) -> dict:
         block = P.SYMBOLS_PER_FIELD * BYTES_PER_SAMPLE[fmt] * channels
         if (align or cfo_auto) and channels != 1:
             raise ValueError("--align/--cfo auto are single-channel only")
+        _check_chunks(args)
         first_field, offset, pending = args.first_field, 0, None
         equalizer = args.equalizer
         if args.resync == "auto" and equalizer == "zf":
@@ -553,17 +631,18 @@ def run_decode(args) -> dict:
                         # accumulator; --stats still reports everything else
                         measure_mer=args.stats and trellis != "soft-i8",
                         resync=None if args.resync == "off" else args.resync,
+                        viterbi_chunks=args.viterbi_chunks,
                         train_every=args.train_every, device=dev)
         fields = 0
         track_tail: list[np.ndarray] = []  # last 2 corrected field blocks
         cfo_retunes = 0
         last_track = 0
-        fout = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
+        fout = _TsOut(args.output, channels)
 
         def emit(decoded) -> None:
             nonlocal fields
             for ts, _ in decoded:   # (B, 58656): one field, every channel
-                fout.write(ts.tobytes())
+                fout.write_fields(ts)
                 fields += 1
 
         if pending is not None:
@@ -604,7 +683,7 @@ def run_decode(args) -> dict:
     finally:
         if fin is not sys.stdin.buffer:
             fin.close()
-        if fout is not None and fout is not sys.stdout.buffer:
+        if fout is not None:
             fout.close()
 
     summary = {
@@ -633,6 +712,153 @@ def run_decode(args) -> dict:
         summary["sro_ppm"] = float(_parse_sps(args.sro))
     if args.rate is not None:
         summary["resample_rate"] = float(stream_rate)
+    if args.stats:
+        print(json.dumps(summary), file=sys.stderr)
+    return summary
+
+
+def _check_chunks(args) -> None:
+    if (args.viterbi_chunks > 1
+            and not args.trellis.startswith("viterbi")
+            and args.ntsc == "off"):
+        raise ValueError("--viterbi-chunks needs a soft trellis path: "
+                         "add --trellis viterbi or --ntsc comb/auto")
+
+
+def run_decode_demux(args) -> dict:
+    """Wideband headend receive (the JAX CLI's run_decode_demux, without its
+    checkpoint and resume branches): the device FDM demultiplexer
+    (ops/mux.py) feeding one batched adaptive receiver, B transport
+    streams out of one B*6 MHz capture. `--rate` takes a capture clocked
+    at any SDR rate (streaming-resampled to the multiplex rate; implies
+    `--align auto`, since the conversion shifts the epoch); `--align auto`
+    locates the field boundary in slot 0's demuxed baseband (every slot is
+    sample-synchronous)."""
+    for flag, default in (("cfo", "0"), ("sro", "0"), ("mesh", None)):
+        if getattr(args, flag) != default:
+            raise ValueError(f"--demux does not support --{flag}")
+    rate_frac = None
+    if args.rate is not None:
+        rate_frac = _parse_sps(args.rate) / Fraction(6_000_000 * args.demux)
+        if rate_frac < 1:
+            raise ValueError(
+                f"--rate below the {args.demux * 6} MHz multiplex rate "
+                "cannot carry the band")
+    align = args.align == "auto" or (rate_frac is not None and rate_frac != 1)
+    if args.channels != 1:
+        raise ValueError("--demux sets the channel count itself")
+    _check_chunks(args)
+    if args.trellis == "viterbi-i8":
+        raise ValueError("--demux decodes with the adaptive equalizer; "
+                         "the quantized tier needs the device equalizer "
+                         "— use --trellis viterbi")
+    b = args.demux
+    if b < 1:
+        raise ValueError(f"--demux wants a slot count >= 1, got {b}")
+    dev = resolve_device(args.device)
+    dmx = FdmDemuxer(b, device=dev)
+
+    def make_rx(first_field: int) -> IqReceiver:
+        return IqReceiver(
+            batch=b,
+            backend="adaptive-dd" if args.equalizer == "adaptive-dd" else "adaptive",
+            forgetting=args.forgetting,
+            first_field=first_field,
+            trellis=_TRELLIS_MODE[args.trellis],
+            erasures=None if args.erasures == "off" else args.erasures,
+            ntsc=None if args.ntsc == "off" else args.ntsc,
+            viterbi_chunks=args.viterbi_chunks, eq_profile=args.eq_profile,
+            measure_mer=args.stats and args.trellis != "viterbi-i8",
+            resync=None if args.resync == "off" else args.resync,
+            train_every=args.train_every, device=dev,
+        )
+
+    # construct (and so flag-validate) the receiver before opening the
+    # output: a usage error must not truncate a file. An --align run
+    # rebuilds it with the detected parity later.
+    rx = make_rx(args.first_field)
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    in_fmt = args.in_format
+    if rate_frac is not None and rate_frac != 1:
+        fin = _ResampledCapture(fin, in_fmt, rate_frac, dev)
+        in_fmt = "cf32"
+    fout = None
+    fields = 0
+
+    def emit(decoded) -> None:
+        nonlocal fields
+        for ts, _ in decoded:
+            fout.write_fields(ts)
+            fields += 1
+
+    # --align/--rate: hold the demuxed baseband until slot 0's PN511
+    # locates the field boundary (all slots are sample-synchronous, so one
+    # search aligns the whole band); the residual fractional delay of the
+    # rate conversion is a linear channel the adaptive training absorbs
+    pend_bb: list[np.ndarray] = []
+    aligned = not align
+    align_info: dict = {}
+
+    def start_aligned() -> None:
+        nonlocal aligned, rx
+        buf = np.concatenate(pend_bb, axis=-1)
+        off, parity = find_field_sync_iq(buf[0])
+        align_info.update(align_offset=int(off), align_parity=int(parity))
+        rx = make_rx(parity)
+        aligned = True
+        pend_bb.clear()
+        emit(rx.push(buf[:, off:]))
+
+    def feed(bb: np.ndarray) -> None:
+        if aligned:
+            if bb.shape[-1]:
+                emit(rx.push(bb))
+            return
+        if bb.shape[-1]:
+            pend_bb.append(bb)
+        if sum(x.shape[-1] for x in pend_bb) >= 2 * P.SYMBOLS_PER_FIELD:
+            start_aligned()
+
+    try:
+        fout = _TsOut(args.output, b)
+        while True:
+            buf = fin.read(1 << 22)
+            if not buf:
+                break
+            feed(dmx.push(_wire_to_complex(buf, in_fmt)))
+            if args.max_fields and fields >= args.max_fields:
+                break
+        if not args.max_fields or fields < args.max_fields:
+            feed(dmx.flush())
+            if not aligned:
+                # short capture: align with whatever is buffered, if a
+                # whole field (+ the sync probe span) made it through
+                if sum(x.shape[-1] for x in pend_bb) >= P.SYMBOLS_PER_FIELD + 707:
+                    start_aligned()
+                else:
+                    print("warning: capture too short to locate a field "
+                          "boundary; nothing decoded", file=sys.stderr)
+            if aligned:
+                emit(rx.flush())
+    finally:
+        if fin is not sys.stdin.buffer:
+            fin.close()
+        if fout is not None:
+            fout.close()
+    summary = {
+        "fields_decoded": fields,
+        "segments_corrected": rx.decoder.segments_corrected,
+        "segments_uncorrectable": rx.decoder.segments_uncorrectable,
+        "demux_slots": b,
+        "device": str(dev),
+    }
+    summary.update(align_info)
+    if rate_frac is not None:
+        summary["resample_rate"] = float(rate_frac)
+    if args.resync != "off":
+        summary["resyncs"] = rx.resyncs
+    if rx.mer is not None:
+        summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
     if args.stats:
         print(json.dumps(summary), file=sys.stderr)
     return summary
@@ -667,7 +893,8 @@ def main(argv=None) -> int:
     run(args.input, output=args.output, channels=channels,
         out_format=args.out_format, max_fields=args.max_fields,
         stats=args.stats, device=args.device,
-        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm)
+        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm,
+        mux=args.mux)
     return 0
 
 

@@ -9,7 +9,11 @@
 // - pr_acs_forward_kernel <- pr_acs_forward (bodies _pr_acs_kernel,
 //   _pr_update): the 16-state partial-response ACS of the NTSC comb tier;
 // - pr_traceback_kernel   <- pr_traceback (body _pr_tb_kernel).
-// The wrappers and plain PyTorch twins are ops/cuda/viterbi_acs.py.
+// Each of the four also has a chunked instantiation (acs_forward_chunked_
+// kernel, pr_acs_forward_chunked_kernel, traceback_chunked_kernel<kPr>) for
+// the chunk-parallel near-MLSE of `--viterbi-chunks` (the JAX package runs
+// that as a lax.scan, atsc_tpu/ops/viterbi.py _chunked_mlse; ChunkPlan
+// below). The wrappers and plain PyTorch twins are ops/cuda/viterbi_acs.py.
 //
 // Layouts: a lane l = b*12 + e is one (channel, encoder) trellis; obs is
 // T-major (T, L), so the 32 loads of one step by a warp are contiguous;
@@ -646,6 +650,227 @@ inline bool bad_shape(int steps, int lanes) {
   return steps < kGroup || steps % kGroup != 0 || lanes < 1;
 }
 
+// The chunk-parallel near-MLSE (the JAX package's _chunked_mlse): each
+// lane's T steps are cut into `chunks` kept regions of T / chunks steps,
+// each decoded in a window of that plus kWarmup steps on either side,
+// clamped inside [0, T) (so the first window has no left warm-up and the
+// last a doubled one). A chunk-lane lc = c * L + l (chunk-major, so a
+// warp's loads of one step are 32 consecutive lanes of one row) reads its
+// window straight from the unchunked T-major obs at rows start(c) + p, and
+// its traceback writes only its kept region, byte by byte, into the
+// unchunked (T/4, L) output: no window is ever gathered into memory. Three
+// things differ from the exact kernels above:
+// - the metrics are renormalized after every step (the reference's
+//   per-step cadence; in float32 (a + b) - c is not (a - c) + b, so the
+//   cadence is part of the numerics);
+// - a window of W steps is rarely a multiple of 4: the 4-state decisions
+//   are packed in words of 4 steps with pad = -W mod 4 steps in front,
+//   which change no metric and carry zero bits. The tracebacks start at
+//   the window's true last step; the front padding lies below every kept
+//   region (chunk 0's starts at window step 0, padded step `pad`);
+// - the PR pass reads rc at stream step start(c) + p.
+// One thread per chunk-lane walks its window serially, all S states in
+// registers: the simplest form, with chunks * L threads (a latency lever
+// at small batches, where the exact kernels walk 21,528 steps on few
+// lanes).
+constexpr int kWarmup = 128;   // context steps on either side (viterbi_bits' default)
+
+struct ChunkPlan {
+  int steps;    // T
+  int lanes;    // L, the unchunked lanes
+  int chunks;   // C
+  int length;   // T / C, the kept steps of a chunk
+  int window;   // W = length + 2 kWarmup
+  __host__ __device__ int start(int c) const {
+    const int s = c * length - kWarmup;
+    return s < 0 ? 0 : (s > steps - window ? steps - window : s);
+  }
+  __host__ __device__ int offset(int c) const { return c * length - start(c); }
+  __host__ __device__ int pad() const { return (4 - window % 4) % 4; }
+  __host__ __device__ int64_t chunk_lanes() const {
+    return static_cast<int64_t>(chunks) * lanes;
+  }
+};
+
+constexpr int kChunkThreads = 64;   // threads per block of the chunked kernels
+
+inline bool bad_plan(const ChunkPlan& p) {
+  return p.lanes < 1 || p.chunks < 1 || p.steps < 1 || p.steps % p.chunks != 0 ||
+         p.window > p.steps;
+}
+
+inline ChunkPlan make_plan(int steps, int lanes, int chunks) {
+  const int length = chunks > 0 ? steps / chunks : 0;
+  return {steps, lanes, chunks, length, length + 2 * kWarmup};
+}
+
+inline int chunk_grid(const ChunkPlan& p) {
+  return static_cast<int>((p.chunk_lanes() + kChunkThreads - 1) / kChunkThreads);
+}
+
+// decisions (ceil(W / 4), C L) int32 in the exact pass's word layout
+template <typename T>
+__global__ void __launch_bounds__(kChunkThreads)
+acs_forward_chunked_kernel(const T* __restrict__ obs, const float* __restrict__ m_in,
+                           int32_t* __restrict__ dec, float* __restrict__ m_out,
+                           ChunkPlan plan, float inv) {
+  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t n = plan.chunk_lanes();
+  if (lc >= n) return;
+  const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
+  const size_t stride = static_cast<size_t>(plan.lanes);
+  const T* src = obs + static_cast<size_t>(plan.start(c)) * stride + l;
+  float lv[2][4];  // branches(): the levels b, b + 4, 2 + b, 6 + b of bit b
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      lv[b][i] = static_cast<float>(2 * (b + (i & 1) * 4 + (i >> 1) * 2) - 7) + kPilot;
+  float m[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) m[s] = m_in[s * n + lc];
+  const int pad = plan.pad(), words = (plan.window + pad) / 4;
+  T nxt[4];  // the next word's observations, loaded a word ahead
+  auto fetch = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = 4 * i + k - pad;
+      nxt[k] = p >= 0 && p < plan.window ? src[static_cast<size_t>(p) * stride] : T(0);
+    }
+  };
+  fetch(0);
+#pragma unroll 1
+  for (int i = 0; i < words; ++i) {
+    T cur[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cur[k] = nxt[k];
+    if (i + 1 < words) fetch(i + 1);
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * i + k < pad) continue;  // front padding: no update, zero bits
+      const float o = load_obs(cur[k], inv);
+      const Branches br[2] = {branches(o, lv[0]), branches(o, lv[1])};
+      float nm[4];
+      uint32_t byte = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {  // s = 2a + b: predecessors 2b + a, 2b + 1 - a
+        const int a = s >> 1, b = s & 1;
+        const uint32_t d = survivor(__fadd_rn(m[2 * b + a], br[b].p0),
+                                    __fadd_rn(m[2 * b + 1 - a], br[b].p1), br[b], nm[s]);
+        byte |= d << (2 * s);
+      }
+      const float mn = fminf(fminf(nm[0], nm[1]), fminf(nm[2], nm[3]));
+#pragma unroll
+      for (int s = 0; s < 4; ++s) m[s] = __fsub_rn(nm[s], mn);
+      word |= byte << (8 * k);
+    }
+    dec[static_cast<size_t>(i) * n + lc] = static_cast<int32_t>(word);
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) m_out[s * n + lc] = m[s];
+}
+
+// decisions (W, C L) int32 in the exact pass's layout
+__global__ void __launch_bounds__(kChunkThreads)
+pr_acs_forward_chunked_kernel(const float* __restrict__ obs, const int32_t* __restrict__ rc,
+                              const float* __restrict__ m_in, int32_t* __restrict__ dec,
+                              float* __restrict__ m_out, ChunkPlan plan) {
+  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t n = plan.chunk_lanes();
+  if (lc >= n) return;
+  const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
+  const size_t stride = static_cast<size_t>(plan.lanes);
+  const int row0 = plan.start(c);
+  const float* src = obs + static_cast<size_t>(row0) * stride + l;
+  const int32_t* rsrc = rc + static_cast<size_t>(row0) * 12 + l % 12;
+  float m[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) m[u] = m_in[u * n + lc];
+  float o_next = src[0];
+  int32_t r_next = rsrc[0];
+#pragma unroll 1
+  for (int p = 0; p < plan.window; ++p) {
+    const float o = o_next;
+    const int32_t r = r_next;
+    if (p + 1 < plan.window) {
+      o_next = src[static_cast<size_t>(p + 1) * stride];
+      r_next = rsrc[static_cast<size_t>(p + 1) * 12];
+    }
+    const bool reset = r & 1;
+    const float sync = (r >> 1) == 1 ? 5.0f : -5.0f;
+    float nm[16];
+    uint32_t word = 0;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {  // u = s2*4 + h'
+      const int s2 = u >> 2, h1 = u & 3;
+      const int sp = pred0(s2) ^ (h1 & 1);
+      const float a = __fsub_rn(o, static_cast<float>(2 * (2 * h1 + (s2 & 1)) - 7));
+      float cand[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float pe = reset ? sync : static_cast<float>(2 * (2 * h + (sp & 1)) - 7);
+        const float tt = __fadd_rn(a, pe);
+        cand[h] = __fadd_rn(m[sp * 4 + h], __fmul_rn(tt, tt));
+      }
+      const float m01 = fminf(cand[0], cand[1]);
+      const uint32_t i01 = cand[1] < cand[0];
+      const float m23 = fminf(cand[2], cand[3]);
+      const uint32_t i23 = cand[3] < cand[2];
+      const bool pick = m23 < m01;
+      nm[u] = fminf(m01, m23);
+      word |= (pick ? 2u + i23 : i01) << (2 * u);
+    }
+    float mn = nm[0];
+#pragma unroll
+    for (int u = 1; u < 16; ++u) mn = fminf(mn, nm[u]);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) m[u] = __fsub_rn(nm[u], mn);
+    dec[static_cast<size_t>(p) * n + lc] = static_cast<int32_t>(word);
+  }
+#pragma unroll
+  for (int u = 0; u < 16; ++u) m_out[u * n + lc] = m[u];
+}
+
+// The chunked tracebacks: chunk-lane lc walks its window from `start` at
+// its last step down to its kept region's first, writing the kept steps'
+// x1 | z2<<1 bytes at stream steps start(c) + p of lane l's (T/4, L)
+// column (byte k of word i = step 4i + k).
+template <bool kPr>
+__global__ void __launch_bounds__(kChunkThreads)
+traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
+                         int32_t* __restrict__ bits, ChunkPlan plan) {
+  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t n = plan.chunk_lanes();
+  if (lc >= n) return;
+  const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
+  const int row0 = plan.start(c), keep0 = plan.offset(c), keep1 = keep0 + plan.length;
+  const int pad = kPr ? 0 : plan.pad();
+  uint8_t* out = reinterpret_cast<uint8_t*>(bits);
+  uint32_t s = static_cast<uint32_t>(start[lc]);
+  uint32_t w = 0;
+#pragma unroll 1
+  for (int p = plan.window - 1; p >= keep0; --p) {
+    uint32_t sel;
+    if (kPr) {
+      w = static_cast<uint32_t>(dec[static_cast<size_t>(p) * n + lc]);
+      sel = s & 3u;  // x1 | z2<<1 of combined state s
+      const uint32_t h_prev = (w >> (2 * s)) & 3u, s2 = s >> 2;
+      s = ((((s2 & 1u) << 1) | (s2 >> 1)) ^ (s & 1u)) << 2 | h_prev;
+    } else {
+      const int q = p + pad;
+      if (q % 4 == 3)  // the top step is always one: W + pad is a multiple of 4
+        w = static_cast<uint32_t>(dec[static_cast<size_t>(q / 4) * n + lc]);
+      sel = (w >> (8 * (q % 4) + 2 * s)) & 3u;  // x1 | z2<<1 into s
+      s = ((s & 1u) << 1) | ((s >> 1) ^ (sel & 1u));
+    }
+    if (p < keep1) {
+      const size_t t = static_cast<size_t>(row0) + p;
+      out[((t / 4) * plan.lanes + l) * 4 + t % 4] = static_cast<uint8_t>(sel);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -706,6 +931,66 @@ int atsc_pr_traceback(int device, const int32_t* dec, const int32_t* start, int3
   const int groups = steps / kGroup;
   pr_traceback_kernel<<<tb_grid(lanes), tb_threads(groups, kPrTbChunks), 0,
                         static_cast<cudaStream_t>(stream)>>>(dec, start, bits, groups, lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked instantiations (ChunkPlan above): obs (T, L) float32 or int8
+// codes; m_in, m_out: (4, C L) float32, chunk-lane c L + l; dec:
+// (ceil(W / 4), C L) int32.
+int atsc_acs_forward_chunked(int device, const void* obs, int obs_i8, const float* m_in,
+                             int32_t* dec, float* m_out, int steps, int lanes, int chunks,
+                             float inv, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const ChunkPlan plan = make_plan(steps, lanes, chunks);
+  if (bad_plan(plan)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (obs_i8)
+    acs_forward_chunked_kernel<int8_t><<<chunk_grid(plan), kChunkThreads, 0, st>>>(
+        static_cast<const int8_t*>(obs), m_in, dec, m_out, plan, inv);
+  else
+    acs_forward_chunked_kernel<float><<<chunk_grid(plan), kChunkThreads, 0, st>>>(
+        static_cast<const float*>(obs), m_in, dec, m_out, plan, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dec: (ceil(W / 4), C L) int32; start: (C L,) int32; bits: (T/4, L) int32,
+// every byte written once (the kept regions tile [0, T)).
+int atsc_traceback_chunked(int device, const int32_t* dec, const int32_t* start, int32_t* bits,
+                           int steps, int lanes, int chunks, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const ChunkPlan plan = make_plan(steps, lanes, chunks);
+  if (bad_plan(plan) || steps % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  traceback_chunked_kernel<false><<<chunk_grid(plan), kChunkThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// obs: (T, L) float32; rc: (T, 12) int32; m_in, m_out: (16, C L) float32;
+// dec: (W, C L) int32.
+int atsc_pr_acs_forward_chunked(int device, const float* obs, const int32_t* rc,
+                                const float* m_in, int32_t* dec, float* m_out, int steps,
+                                int lanes, int chunks, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const ChunkPlan plan = make_plan(steps, lanes, chunks);
+  if (bad_plan(plan)) return static_cast<int>(cudaErrorInvalidValue);
+  pr_acs_forward_chunked_kernel<<<chunk_grid(plan), kChunkThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(obs, rc, m_in, dec,
+                                                                       m_out, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dec: (W, C L) int32; start: (C L,) int32; bits: (T/4, L) int32.
+int atsc_pr_traceback_chunked(int device, const int32_t* dec, const int32_t* start,
+                              int32_t* bits, int steps, int lanes, int chunks, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const ChunkPlan plan = make_plan(steps, lanes, chunks);
+  if (bad_plan(plan) || steps % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  traceback_chunked_kernel<true><<<chunk_grid(plan), kChunkThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,8 @@ float32 levels or int8 soft-level codes) and NtscDecoder (12-symbol comb +
 16-state partial-response Viterbi, ops/ntsc.py). Every tier takes optional
 per-symbol erasure flags (Decoder.decode's erasure_flags): they ride the
 same gathers to the codewords, whose flagged bytes the errors-and-erasures
-corrector treats as erasures. The chunk-parallel Viterbi is not ported
-yet.
+corrector treats as erasures. SoftDecoder and NtscDecoder take
+viterbi_chunks > 1 for the chunk-parallel Viterbi (ops/viterbi.py).
 """
 
 from __future__ import annotations
@@ -47,11 +47,7 @@ from atsc_tpu_torch.ops.rs_decode import (
     rs_correct_field_erasures,
     syndrome_field,
 )
-from atsc_tpu_torch.ops.viterbi import (
-    _not_ported_chunks,
-    init_metrics,
-    viterbi_decode_field,
-)
+from atsc_tpu_torch.ops.viterbi import init_metrics, viterbi_decode_field
 
 
 class DecoderState(NamedTuple):
@@ -244,7 +240,6 @@ class SoftDecoder(Decoder):
 
     def __init__(self, batch: int = 1, viterbi_chunks: int = 1, *,
                  device: str | torch.device):
-        _not_ported_chunks(viterbi_chunks)
         super().__init__(batch, device=device)
         self._state = init_soft_decoder_state(batch, device=self.device)
         self._step = functools.partial(soft_decode_field, n_chunks=viterbi_chunks)
@@ -256,7 +251,6 @@ class NtscDecoder(Decoder):
 
     def __init__(self, batch: int = 1, viterbi_chunks: int = 1, *,
                  device: str | torch.device):
-        _not_ported_chunks(viterbi_chunks)
         super().__init__(batch, device=device)
         self._state = init_ntsc_decoder_state(batch, device=self.device)
         self._step = functools.partial(ntsc_decode_field, n_chunks=viterbi_chunks)

@@ -40,8 +40,8 @@ sample-rate offset from sync-peak drift and `resample_stream` undoes it,
 `estimate_cfo` reads the carrier offset off the pilot, and `CfoCorrector`
 derotates a stream phase-continuously (retunable mid-stream).
 `IqReceiver(resync="auto")` re-acquires the field boundary after an
-unknown sample slip. The chunk-parallel Viterbi is not ported yet and
-raises.
+unknown sample slip. `viterbi_chunks > 1` decodes the soft and NTSC
+trellis tiers chunk-parallel (ops/viterbi.py).
 """
 
 from __future__ import annotations
@@ -576,10 +576,6 @@ class CfoCorrector:
         self.cfo_hz = float(cfo_hz)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to atsc_tpu_torch")
-
-
 #: equalizer profile -> apply precision of the adaptive equalizer's FIRs
 _ADAPTIVE_PRECISION = {"exact": "highest", "fast": "default"}
 
@@ -677,8 +673,6 @@ class IqReceiver:
             raise ValueError("resync='auto' needs an adaptive backend: a "
                              "re-acquired epoch carries an unknown phase "
                              "offset only a trained equalizer absorbs")
-        if viterbi_chunks > 1:
-            raise _not_ported(f"viterbi_chunks={viterbi_chunks} (the chunk-parallel Viterbi)")
         self.device = resolve_device(device)
         self.batch = batch
         self.first_field = first_field

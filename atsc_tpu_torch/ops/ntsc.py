@@ -18,8 +18,8 @@ lands on a segment-sync symbol: per-step "reset" branches against the known
 +-5 sync levels (_pr_reset_tables). So the PR Viterbi is a per-encoder ACS
 over the combined state (trellis state x previous symbol), 16 reachable
 states, run by ops/cuda/viterbi_acs.py (the kernels for a CUDA tensor,
-their plain twins for a CPU tensor). The chunk-parallel near-MLSE
-(n_chunks > 1) is not ported yet.
+their plain twins for a CPU tensor), and n_chunks > 1 through their chunked
+instantiations (the chunk-parallel near-MLSE of ops/viterbi.py).
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ import torch
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
-from atsc_tpu_torch.ops.cuda.viterbi_acs import viterbi_pr_field
-from atsc_tpu_torch.ops.viterbi import _PRED0, _PRED1, _not_ported_chunks
+from atsc_tpu_torch.ops.cuda.viterbi_acs import viterbi_pr_field, viterbi_pr_field_chunked
+from atsc_tpu_torch.ops.viterbi import _PRED0, _PRED1
 
 _NSYM = P.TRELLIS_SYMBOLS_PER_ENCODER   # 21,528
 _N = P.SYMBOLS_PER_FIELD
@@ -116,10 +116,12 @@ def viterbi_pr_decode_field(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """PR twin of ops.viterbi.viterbi_decode_field: combed observations
     y (B, 12, T) float32 in, trellis bytes out. Returns (bytes (B, 12, T/4)
-    uint8, new z2_prev (B, 12) int32, new metrics (B, 12, 16)). Exact
-    MLSE; n_chunks > 1 raises (not yet ported)."""
-    _not_ported_chunks(n_chunks)
-    return viterbi_pr_field(y, z2_prev, metrics)
+    uint8, new z2_prev (B, 12) int32, new metrics (B, 12, 16)). n_chunks
+    > 1: chunk-parallel near-MLSE (ops.viterbi.viterbi_decode_field), each
+    chunk's step reading its own rows of the reset/const tables."""
+    if n_chunks <= 1:
+        return viterbi_pr_field(y, z2_prev, metrics)
+    return viterbi_pr_field_chunked(y, z2_prev, metrics, n_chunks)
 
 
 def detect_ntsc(levels, per_channel: bool = False):

@@ -12,7 +12,10 @@ resolved by a min over the two candidate levels) and the traceback run in
 ops/cuda/viterbi_acs.py: the CUDA kernels for a CUDA tensor, their plain
 twins for a CPU tensor. The 4 path metrics carry across fields (the encoder
 never resets), and each field commits its own traceback from the best final
-state. The chunk-parallel near-MLSE (n_chunks > 1) is not ported yet.
+state. n_chunks > 1 is the chunk-parallel near-MLSE, through the chunked
+instantiations of the same kernels: each encoder stream is decoded as
+n_chunks windows with 128 steps of context on either side (_chunk_plan),
+n_chunks times less sequential depth.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
-from atsc_tpu_torch.ops.cuda.viterbi_acs import viterbi_field
+from atsc_tpu_torch.ops.cuda.viterbi_acs import viterbi_field, viterbi_field_chunked
 from atsc_tpu_torch.ops.decode import pack_trellis_bytes  # noqa: F401  (public here too)
 
 _NSYM = P.TRELLIS_SYMBOLS_PER_ENCODER   # 21,528
@@ -54,11 +57,20 @@ def init_metrics(batch: int, *, device: str | torch.device) -> torch.Tensor:
     return m
 
 
-def _not_ported_chunks(n_chunks: int) -> None:
-    if n_chunks > 1:
-        raise NotImplementedError(
-            "the chunk-parallel Viterbi (n_chunks > 1) is not yet ported to "
-            "atsc_tpu_torch")
+def _chunk_plan(t: int, n_chunks: int, warmup: int):
+    """Static chunking layout: n_chunks equal windows of length
+    L + 2*warmup, clamped inside [0, t) (so the first window has no left
+    warmup and the last has a doubled one), plus the per-chunk offset of
+    the kept L-symbol region inside its window."""
+    if t % n_chunks:
+        raise ValueError(f"{n_chunks} chunks must divide {t}")
+    length = t // n_chunks
+    w = length + 2 * warmup
+    if w > t:
+        raise ValueError("warmup too large for this chunk count")
+    starts = np.clip(np.arange(n_chunks) * length - warmup, 0, t - w)
+    offs = np.arange(n_chunks) * length - starts
+    return length, w, starts, offs
 
 
 def viterbi_decode_field(
@@ -72,7 +84,11 @@ def viterbi_decode_field(
     by SOFT_LEVEL_INV), T a multiple of 24 (a field is 21,528 = 24 * 897);
     z2_prev: (B, 12) int32 differential-precoder state; metrics: (B, 12, 4)
     carried path metrics. Returns (bytes (B, 12, T/4) uint8, new z2_prev,
-    new metrics). Exact MLSE; n_chunks > 1 raises (not yet ported).
+    new metrics). n_chunks > 1: chunk-parallel near-MLSE (chunk 0 starts
+    from the carried metrics, the others flat at 0; the new metrics are the
+    last chunk's; exact at the field head and across fields, each interior
+    seam converging to the MLSE path within the warmup whp).
     """
-    _not_ported_chunks(n_chunks)
-    return viterbi_field(levels, z2_prev, metrics)
+    if n_chunks <= 1:
+        return viterbi_field(levels, z2_prev, metrics)
+    return viterbi_field_chunked(levels, z2_prev, metrics, n_chunks)

@@ -19,7 +19,11 @@ device)`) and an AdaptiveEqualizer's RLS state
 `_w_dev` and `_fields_seen`). A transmit-side resampler continues from
 a JAX StreamResampler's `full_state()` (`stream_resampler_from_numpy`),
 and a CfoCorrector from a JAX one's frequency and phase
-(`CfoCorrector(jax_corrector.cfo_hz, phi=jax_corrector._phi)`).
+(`CfoCorrector(jax_corrector.cfo_hz, phi=jax_corrector._phi)`). A headend's
+FDM muxer and demuxer continue from a JAX FdmMuxer's / FdmDemuxer's
+`get_state()` carry (`fdm_muxer_from_numpy`, `fdm_demuxer_from_numpy`). The
+chunk-parallel decoders carry nothing new: their metrics and z2_prev move
+with the soft and NTSC decoder states.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from atsc_tpu_torch.models.decoder import (
 )
 from atsc_tpu_torch.models.encoder import EncoderState, init_state
 from atsc_tpu_torch.ops.adaptive_eq import EQ_DIM, AdaptiveState
+from atsc_tpu_torch.ops.mux import FdmDemuxer, FdmMuxer
 from atsc_tpu_torch.ops.resample import StreamResampler
 
 
@@ -196,3 +201,33 @@ def stream_resampler_from_numpy(full_state: dict,
         raise ValueError(f"resampler buffer: want ({batch}, 2, n) float32, "
                          f"got {buf.shape} {buf.dtype}")
     return StreamResampler.load_full_state(full_state, device=device)
+
+
+def fdm_muxer_from_numpy(carry: np.ndarray, n_slots: int,
+                         device: str | torch.device) -> FdmMuxer:
+    """An FdmMuxer.get_state() carry of either package ((B, 2, n) float32:
+    the resampler halo plus the unconsumed block remainder) -> an FdmMuxer
+    of n_slots on `device` that goes on from it. Raises on another shape or
+    dtype."""
+    carry = np.asarray(carry)
+    if carry.dtype != np.float32 or carry.ndim != 3 or carry.shape[:2] != (n_slots, 2):
+        raise ValueError(f"muxer carry: want ({n_slots}, 2, n) float32, "
+                         f"got {carry.shape} {carry.dtype}")
+    mux = FdmMuxer(n_slots, device=device)
+    mux.set_state(carry)
+    return mux
+
+
+def fdm_demuxer_from_numpy(carry: np.ndarray, n_slots: int,
+                           device: str | torch.device) -> FdmDemuxer:
+    """An FdmDemuxer.get_state() carry of either package ((2, n) float32:
+    the filter halo plus the unconsumed block remainder) -> an FdmDemuxer of
+    n_slots on `device` that goes on from it. Raises on another shape or
+    dtype."""
+    carry = np.asarray(carry)
+    if carry.dtype != np.float32 or carry.ndim != 2 or carry.shape[0] != 2:
+        raise ValueError(f"demuxer carry: want (2, n) float32, got {carry.shape} "
+                         f"{carry.dtype}")
+    dmx = FdmDemuxer(n_slots, device=device)
+    dmx.set_state(carry)
+    return dmx

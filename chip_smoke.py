@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's transmit and receive main paths, its capture
-conditioning front end, and the two kernel-design probes, once on one
-NVIDIA Hopper GPU.
+conditioning front end, the chunk-parallel Viterbi, the wideband headend
+(FDM mux and demux), and the two kernel-design probes, once on one NVIDIA
+Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -126,10 +127,13 @@ Phases, one JSON line each; any failed check exits non-zero:
 24. rate: `cli encode --rate 20e6` of 48 seeded fields (one offset_fir_fused
    launch per field) and `cli decode --rate 20e6 --trellis viterbi` of the
    23.2 M-sample capture on the card, TS byte-exact from the first aligned
-   field; host s per field and the real-time factor of both. Then
-   StreamResampler on the card against the CPU on the first 2 M capture
-   samples (<= 1e-6) and under two chunkings (bit-identical), and one
-   65,536-output block timed on the card (ms per field of output, Msps).
+   field; host s per field and the real-time factor of both; the same
+   decode with `--viterbi-chunks 24` gives the exact decode's TS
+   (launching only the chunked kernels), its real-time factor beside the
+   exact one. Then StreamResampler on the card against the CPU on the
+   first 2 M capture samples (<= 1e-6) and under two chunkings
+   (bit-identical), and one 65,536-output block timed on the card (ms per
+   field of output, Msps).
 25. resync_full: IqReceiver(batch=384, backend="adaptive", resync="auto")
    over tests/test_resync.py:26's 9 fields with a complex gain per channel
    and one common 7,019-sample slip, built on the card field by field and
@@ -137,11 +141,40 @@ Phases, one JSON line each; any failed check exits non-zero:
    post-slip boundary with its parity, pre-slip fields and the re-locked
    tail byte-exact on every channel; host ms per pushed field, the
    re-acquisition's time, peak device memory.
+26. viterbi_chunked: the chunked instantiations of the four Viterbi
+   kernels (`--viterbi-chunks`) against their plain twins on the card, bit
+   for bit, at B=384 and B=1 for C = 2, 8, 24 and 92 chunks (every window
+   length mod 4): float32 and int8 4-state passes, the PR pass with its
+   reset steps, both tracebacks; each timed beside its bound (the
+   function's own bytes: the unchunked obs read once) and one run of its
+   twin. The soft, soft-i8 and NTSC decode steps at B=384 and B=1, exact
+   against every C, ms per field: each configuration timed in rounds, in
+   turns with the others, the median of the round means and their spread
+   (one C=24 step launches each kernel of its path once, no other); B=8 at
+   14 dB through IqReceiver: chunked TS equal to the exact TS, the soft
+   tier's the sent TS.
+27. headend: `cli encode --channels 23 --mux` of 8 seeded fields (one TS
+   file per channel: UHF channels 14-36, 138 MHz at 138 MS/s) and `cli
+   decode --demux 23 --trellis viterbi --viterbi-chunks 24 -o
+   'slot{ch}.ts'`: every slot's TS byte-exact, no uncorrectable segment,
+   the decode launching only the chunked 4-state kernels (once a field);
+   host real-time factors (on the wall clock of the whole run, start-up
+   included, and in the steady state: the encode's mean step, the decode's
+   host time per field beyond a `--max-fields 3` run), peak device
+   memory, and mux_blocks /
+   demux_blocks of one field at B=23 timed by CUDA events. Then B=4
+   `--mux --rate 30.72e6` -> `--demux 4 --rate 30.72e6`: the TS from
+   field 1.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
 sources' constants; eq_fir_fused its fast tier's soft-level error at B=4
-and B=384), and last {"ok": true, "device": {...}}. Without a
+and B=384; the four Viterbi kernels a `chunked` entry: the chunked
+instantiation's launches on the main paths that run it (phase 24's
+`--viterbi-chunks` decode, phase 26's IqReceiver decodes, phase 27's
+`--demux` decode: the counts zeroed before each and read after) and, per chunk count,
+its ms, bound and error at B=384 and B=1), and last {"ok": true,
+"device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
 printing any result.
 """
@@ -150,6 +183,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import os
@@ -183,6 +217,9 @@ TB_DESIGN = ("chunk-parallel: 16 chunks of whole groups per lane, a thread per (
 PR_TB_DESIGN = ("chunk-parallel: 8 chunks of whole groups per lane, a thread per (lane, chunk), "
                 "16 entry chains (prmt gathers) to the merge, entry states resolved in shared "
                 "memory, heads retraced")  # csrc/viterbi_acs.cu
+CHUNKED_DESIGN = ("one thread per (lane, chunk), all states in registers, per-step "
+                  "renormalization, windows read from the unchunked obs, kept regions "
+                  "written byte by byte")  # csrc/viterbi_acs.cu, the *_chunked kernels
 EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
              "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
              "float32 chunks of 2 bands; exact: CUDA cores, Kahan chunks")  # csrc/eq_fir.cu
@@ -563,8 +600,16 @@ def main() -> int:
 
     # -- 23-25. the capture conditioning front end ----------------------------
     gauntlet(dev)
-    rate(dev)
+    rate_launches = rate(dev)
     resync_full(dev)
+
+    # -- 26-27. the chunk-parallel Viterbi and the wideband headend -----------
+    chunked = viterbi_chunked(dev)
+    device_kept(dev, "the chunked Viterbi kernels")
+    head_launches = headend(dev)
+    for runs in (rate_launches, head_launches):   # the main paths' chunked launches
+        for k, v in runs.items():
+            chunked["launches"][k] += v
 
     print(json.dumps({"kernels": [
         {
@@ -599,7 +644,9 @@ def main() -> int:
         },
         *({"name": k, "route": "cuda", "source": "atsc_tpu_torch/csrc/viterbi_acs.cu",
            "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
-           "launches": vit_launches[k], **vit[k], "library_ms": None}
+           "launches": vit_launches[k], **vit[k], "library_ms": None,
+           "chunked": {"launches": chunked["launches"][k + "_chunked"],
+                       "design": CHUNKED_DESIGN, "per_chunks": chunked["per"][k]}}
           for k, line in (("acs_forward", 157), ("traceback", 189),
                           ("pr_acs_forward", 344), ("pr_traceback", 375))),
         {"name": "trellis_fused", "route": "cuda",
@@ -1062,6 +1109,20 @@ def _cuda_ms(fn) -> tuple[object, float]:
     return out, a.elapsed_time(b)
 
 
+def _held(kernel, plain, reps: int = 10):
+    """The kernel's output, whether it equals the plain twin's bit for bit,
+    the largest difference, the kernel's ms (reps launches) and the plain
+    twin's ms (one run)."""
+    import torch
+
+    want, plain_ms = _cuda_ms(plain)
+    got = kernel()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    return got, same, err, timed(kernel, reps), plain_ms
+
+
 def viterbi_kernels(dev) -> dict:
     """Phase 12: the four Viterbi kernels against their plain twins on the
     card, bit for bit, at B=384 and T=21,528 on real decommutated levels.
@@ -1092,17 +1153,7 @@ def viterbi_kernels(dev) -> dict:
     m16 = torch.full((16, l), 1e9, device=dev)
     m16[0] = 0.0
 
-    def held(kernel, plain):
-        """The kernel's output, whether it equals the plain twin's bit for
-        bit, the largest difference, the kernel's ms (10 launches) and the
-        plain twin's ms (one run)."""
-        want, plain_ms = _cuda_ms(plain)
-        got = kernel()
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        return got, same, err, timed(kernel), plain_ms
-
+    held = _held
     ab = _tool("torch_kernel_ab")   # tb_heads, head_stats, unmerged_words
 
     def unmerged(kernel, plain, pr, rows, start):
@@ -1229,8 +1280,9 @@ def receive_golden_soft(golden, dev) -> None:
     from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
 
     iq = golden["iq"][:4].reshape(1, -1)
-    path = {"acs_forward": 4, "traceback": 4, "pr_acs_forward": 0, "pr_traceback": 0}
-    comb = {"acs_forward": 0, "traceback": 0, "pr_acs_forward": 4, "pr_traceback": 4}
+    none = dict.fromkeys(vk.CHUNKED, 0)   # the exact tiers launch no chunked kernel
+    path = {"acs_forward": 4, "traceback": 4, "pr_acs_forward": 0, "pr_traceback": 0, **none}
+    comb = {"acs_forward": 0, "traceback": 0, "pr_acs_forward": 4, "pr_traceback": 4, **none}
     for name, kw, want in (("soft", dict(trellis="soft"), path),
                            ("soft-i8", dict(trellis="soft-i8"), path),
                            ("comb", dict(ntsc="comb"), comb)):
@@ -2054,6 +2106,327 @@ RESYNC_CUT, RESYNC_DROP, RESYNC_CHUNK = 3 * 260_416 + 123_456, 7_019, 100_003
 MER_TOL_DB = 0.5         # card against CPU --stats mer_db (adaptive levels ~1e-3 apart)
 
 
+CHUNKS = (2, 8, 24, 92)   # phase 26: W mod 4 = 0, 3, 1, 2
+CHUNK_MAIN = 24           # the chunk count of the decode drives (phases 24, 26, 27)
+CHUNK_SNR_DB = 14.0       # phase 26's IQ-domain AWGN for the chunked-equals-exact TS
+# phase 26's decode steps: (rounds, calls a round); a B=1 step is ~1-6 ms
+STEP_ROUNDS = {384: (5, 4), 1: (15, 20)}
+HEADEND_SLOTS = 23        # phase 27: UHF channels 14-36, the post-repack band, 138 MHz
+HEADEND_FIELDS = 8
+MUX_RATE_SLOTS, MUX_RATE_FIELDS, MUX_RATE_SPS = 4, 4, "30.72e6"
+
+
+def _chunk_bounds(t: int, l: int, c: int, w: int, offs) -> dict:
+    """The chunked kernels' bounds at C chunks of W steps over L lanes. The
+    forward passes read their inputs once: the unchunked (T, L) obs and (T,
+    12) rc, whose rows in two overlapping windows are one read, not two;
+    they write their window decisions and final metrics once. The
+    tracebacks read their windows from the top down to their kept regions
+    and write the (T/4, L) words. The operations are every window step's
+    ACS. `window_obs_bytes` is what the forward passes read when each
+    window's rows are fetched anew (the overlaps counted again)."""
+    walked = int(sum(w - int(o) for o in offs))          # traceback steps per lane
+    words = -(-w // 4)
+    return {
+        "acs_forward": dict(_bound(t * l * 4 + words * c * l * 4 + 2 * 4 * c * l * 4,
+                                   w * c * l * (ACS_FLOPS + 7)),
+                            window_obs_bytes=w * c * l * 4),
+        "acs_forward_int8": _bound(t * l + words * c * l * 4 + 2 * 4 * c * l * 4,
+                                   w * c * l * (ACS_FLOPS + 8)),
+        "traceback": _bound(l * walked + t * l + c * l * 4, 0),
+        "pr_acs_forward": dict(_bound(t * l * 4 + t * 12 * 4 + w * c * l * 4
+                                      + 2 * 16 * c * l * 4, w * c * l * (PR_FLOPS + 31)),
+                               window_obs_bytes=w * c * l * 4 + w * c * 12 * 4),
+        "pr_traceback": _bound(l * walked * 4 + t * l + c * l * 4, 0),
+    }
+
+
+def _timed_rounds(runs: dict, rounds: int, reps: int) -> dict:
+    """Each of runs' callables timed `rounds` times, in turns with the
+    others (timed(fn, reps) each; the order rotated every round, so a drift
+    of the card or the host falls on all of them alike). Per name: the
+    median of the round means, their least and greatest, device ms."""
+    import numpy as np
+
+    names, got = list(runs), {k: [] for k in runs}
+    for r in range(rounds):
+        k0 = r % len(names)
+        for k in names[k0:] + names[:k0]:
+            got[k].append(timed(runs[k], reps=reps))
+    return {k: {"ms": float(np.median(v)), "min_ms": min(v), "max_ms": max(v)}
+            for k, v in got.items()}
+
+
+def viterbi_chunked(dev) -> dict:
+    """Phase 26: the chunked instantiations of the four Viterbi kernels
+    against their plain twins on the card, bit for bit, at B=384 and B=1 for
+    every chunk count of CHUNKS (float32 and int8 4-state passes, the PR
+    pass with its reset steps, both tracebacks), each timed beside its
+    bound; the soft, soft-i8 and NTSC decode steps at B=384 and B=1, exact
+    against chunked, timed in rounds (_timed_rounds); then B=8 at
+    CHUNK_SNR_DB through IqReceiver, chunked TS equal to the exact TS (the
+    counts zeroed before each chunked decode and read after). Returns the
+    kernels-line fields per kernel and the chunked launches of the
+    IqReceiver decodes."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models import decoder as dec_mod
+    from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_INV, quantize_soft_levels
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    t = P.TRELLIS_SYMBOLS_PER_ENCODER
+    gen = torch.Generator(dev).manual_seed(26)
+    rc = torch.tensor(vk._pr_rc_table(), device=dev)
+    per = {k: {} for k in vk.KERNELS}
+    checks = {}
+    for b in (B_FULL, 1):
+        l = 12 * b
+        ideal = (torch.randint(0, 8, (t + 1, l), generator=gen, device=dev).float() * 2 - 7
+                 + P.PILOT_OFFSET)
+        lev = ideal + KERNEL_LEVEL_SIGMA * torch.randn(ideal.shape, generator=gen, device=dev)
+        obs = lev[1:].contiguous()
+        codes = quantize_soft_levels(obs)
+        comb = (lev[1:] - lev[:-1]).contiguous()     # the comb: one encoder step back
+        del ideal, lev
+        for c in CHUNKS:
+            length, w, _, offs = _chunk_plan(t, c, vk.WARMUP)
+            m4 = torch.zeros((4, c * l), device=dev)
+            m4[1:, :l] = 1e9                              # chunk 0 from a cold start
+            m16 = torch.zeros((16, c * l), device=dev)
+            m16[1:, :l] = 1e9
+            bounds = _chunk_bounds(t, l, c, w, offs)
+            row = {}
+            (dec, mo), ok, err, ms, pms = _held(
+                lambda: vk.acs_forward_chunked(obs, m4, c),
+                lambda: vk.acs_forward_chunked_plain(obs, m4, c))
+            checks[f"acs_forward_b{b}_c{c}"] = ok
+            row["acs_forward"] = dict(ms=ms, plain_ms=pms, max_abs_err=err, **bounds["acs_forward"])
+            _, ok, err, ms, pms = _held(
+                lambda: vk.acs_forward_chunked(codes, m4, c, inv_scale=SOFT_LEVEL_INV),
+                lambda: vk.acs_forward_chunked_plain(codes, m4, c, inv_scale=SOFT_LEVEL_INV))
+            checks[f"acs_forward_int8_b{b}_c{c}"] = ok
+            row["acs_forward"].update(ms_int8=ms, plain_ms_int8=pms, bound_int8=bounds[
+                "acs_forward_int8"], max_abs_err=max(err, row["acs_forward"]["max_abs_err"]))
+            start = torch.argmin(mo, dim=0).to(torch.int32)
+            _, ok, err, ms, pms = _held(lambda: vk.traceback_chunked(dec, start, t, c),
+                                        lambda: vk.traceback_chunked_plain(dec, start, t, c))
+            checks[f"traceback_b{b}_c{c}"] = ok
+            row["traceback"] = dict(ms=ms, plain_ms=pms, max_abs_err=err, **bounds["traceback"])
+            del dec
+            (dec, mo), ok, err, ms, pms = _held(
+                lambda: vk.pr_acs_forward_chunked(comb, rc, m16, c),
+                lambda: vk.pr_acs_forward_chunked_plain(comb, rc, m16, c))
+            checks[f"pr_acs_forward_b{b}_c{c}"] = ok
+            row["pr_acs_forward"] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
+                                         **bounds["pr_acs_forward"])
+            start = torch.argmin(mo, dim=0).to(torch.int32)
+            _, ok, err, ms, pms = _held(lambda: vk.pr_traceback_chunked(dec, start, t, c),
+                                        lambda: vk.pr_traceback_chunked_plain(dec, start, t, c))
+            checks[f"pr_traceback_b{b}_c{c}"] = ok
+            row["pr_traceback"] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
+                                       **bounds["pr_traceback"])
+            del dec, mo
+            for k, v in row.items():
+                per[k].setdefault(str(c), {})["b1" if b == 1 else f"b{B_FULL}"] = v
+            emit("viterbi_chunked", batch=b, chunks=c, window=w, kept=length,
+                 identical={k: checks[f"{k}_b{b}_c{c}"] for k in
+                            ("acs_forward", "acs_forward_int8", "traceback", "pr_acs_forward",
+                             "pr_traceback")}, **row)
+        del obs, codes, comb
+        torch.cuda.empty_cache()
+    for k, ok in checks.items():
+        check(ok, f"{k}: the chunked kernel differs from its plain twin")
+
+    # the decode steps a receiver runs, exact (C = 1) against chunked, on
+    # random soft levels, in rounds
+    steps = {}
+    for b in (B_FULL, 1):
+        ideal = (torch.randint(0, 8, (b, P.SYMBOLS_PER_FIELD), generator=gen, device=dev)
+                 .float() * 2 - 7 + P.PILOT_OFFSET)
+        lev = ideal + KERNEL_LEVEL_SIGMA * torch.randn(ideal.shape, generator=gen, device=dev)
+        for tier in ("soft", "soft-i8", "ntsc"):
+            ntsc = tier == "ntsc"
+            decode = dec_mod.ntsc_decode_field if ntsc else dec_mod.soft_decode_field
+            state = (dec_mod.init_ntsc_decoder_state if ntsc else
+                     dec_mod.init_soft_decoder_state)(b, device=dev)
+            x = quantize_soft_levels(lev) if tier == "soft-i8" else lev
+            runs = {str(c): functools.partial(decode, state, x, n_chunks=c)
+                    for c in (1, *CHUNKS)}
+            _zero_launches()
+            runs[str(CHUNK_MAIN)]()
+            torch.cuda.synchronize()
+            got = dict(vk.LAUNCHES)
+            path = (("pr_acs_forward_chunked", "pr_traceback_chunked") if ntsc
+                    else ("acs_forward_chunked", "traceback_chunked"))
+            check(all(got[k] == (1 if k in path else 0) for k in got),
+                  f"{tier} step at C={CHUNK_MAIN}: launches {got} for one step")
+            row = _timed_rounds(runs, *STEP_ROUNDS[1 if b == 1 else 384])
+            for c in CHUNKS:
+                row[str(c)]["vs_exact"] = row[str(c)]["ms"] / row["1"]["ms"]
+            steps[f"{tier}_b{b}"] = row
+        del lev, ideal
+    emit("viterbi_chunked_steps", ms_per_field=steps, chunks_main=CHUNK_MAIN,
+         rounds={str(k): v for k, v in STEP_ROUNDS.items()},
+         note="key '1' is the exact tier; ms is the median of the round means")
+
+    # the same receiver at CHUNK_SNR_DB, exact and chunked: the same TS
+    def awgn(iq, rng):
+        sig = np.sqrt(np.mean(np.abs(iq) ** 2))
+        noise = rng.normal(0, 1, iq.shape) + 1j * rng.normal(0, 1, iq.shape)
+        return iq + noise * sig * 10 ** (-CHUNK_SNR_DB / 20) / np.sqrt(2)
+
+    ts, cap = _noisy_capture(dev, 26, awgn)
+    tiers, main = {}, dict.fromkeys(vk.CHUNKED, 0)
+    for name, kw in (("soft", dict(trellis="soft")), ("ntsc", dict(ntsc="comb"))):
+        ex, ex_out = _receive(dev, cap, **kw)
+        _zero_launches()
+        ch, ch_out = _receive(dev, cap, viterbi_chunks=CHUNK_MAIN, **kw)
+        got = dict(vk.LAUNCHES)
+        path = (("pr_acs_forward_chunked", "pr_traceback_chunked") if name == "ntsc"
+                else ("acs_forward_chunked", "traceback_chunked"))
+        check(all((got[k] == len(ch_out) + 1) if k in path else got[k] == 0 for k in got),
+              f"IqReceiver {name} with viterbi_chunks: launches {got} for "
+              f"{len(ch_out)} decoded fields")
+        for k in path:
+            main[k] += got[k]
+        same = len(ch_out) == len(ex_out) == 3 and all(
+            np.array_equal(a[0], b_[0]) and np.array_equal(a[1], b_[1])
+            for a, b_ in zip(ch_out, ex_out))
+        tiers[name] = {"chunked_equals_exact": same, "ts_exact": _exact(ch_out, ts),
+                       "segments_corrected": ch.decoder.segments_corrected,
+                       "segments_uncorrectable": ch.decoder.segments_uncorrectable,
+                       "exact_segments_uncorrectable": ex.decoder.segments_uncorrectable,
+                       "launches": {k: got[k] for k in path}}
+    emit("viterbi_chunked_snr", batch=B_NOISY, snr_db=CHUNK_SNR_DB, chunks=CHUNK_MAIN,
+         tiers=tiers)
+    check(tiers["soft"]["chunked_equals_exact"] and tiers["soft"]["ts_exact"],
+          f"{CHUNK_SNR_DB} dB: the chunked soft tier is not the exact tier's sent TS {tiers}")
+    check(tiers["ntsc"]["chunked_equals_exact"],
+          f"{CHUNK_SNR_DB} dB: the chunked comb tier differs from the exact one {tiers}")
+    return {"per": per, "launches": main}
+
+
+def headend(dev) -> dict:
+    """Phase 27: the wideband headend round trip at full width, B =
+    HEADEND_SLOTS: `cli encode --channels 23 --mux` of HEADEND_FIELDS
+    seeded fields (one TS file per channel) and `cli decode --demux 23
+    --trellis viterbi --viterbi-chunks 24 -o 'slot{ch}.ts'`, every slot's
+    TS byte-exact with no uncorrectable segment; host real-time factors
+    (wall clock of each whole run, start-up included; and steady: the
+    encode's mean step from its --stats, the decode's host s per field
+    beyond a `--max-fields 3` run of the same capture), peak device
+    memory, the launches of the decode's main path; the mux
+    and demux block products of one field timed by CUDA events. Then a
+    B=4 `--mux --rate 30.72e6` -> `--demux 4 --rate 30.72e6` drive.
+    Returns the decode's chunked launches."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.ops import mux as mx
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+
+    n, b = P.SYMBOLS_PER_FIELD, HEADEND_SLOTS
+    period_s = 1.0 / P.FIELD_RATE
+    rng = np.random.default_rng(27)
+    ts = rng.integers(0, 256, size=(HEADEND_FIELDS, b, P.FIELD_TS_BYTES), dtype=np.uint8)
+    ts[..., :: P.MPEG2_BYTES] = 0x47
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        paths = [os.path.join(tmp, f"ch{k}.ts") for k in range(b)]
+        for k, path in enumerate(paths):
+            ts[:, k].tofile(path)
+        cap = os.path.join(tmp, "band.iq")
+        torch.cuda.reset_peak_memory_stats(dev)
+        fir.LAUNCHES = 0
+        rc_enc, enc_stats, enc_wall = _cli([*paths, "--channels", str(b), "--mux", "-o", cap,
+                                            "--stats"])
+        enc_launches = fir.LAUNCHES
+        enc_peak = torch.cuda.max_memory_allocated(dev)
+        n_cap = os.path.getsize(cap) // 8
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_all_launches()
+        rc, stats, wall = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
+                                "--viterbi-chunks", str(CHUNK_MAIN), "--stats",
+                                "-o", os.path.join(tmp, "slot{ch}.ts")])
+        launches = _launches()
+        dec_peak = torch.cuda.max_memory_allocated(dev)
+        slots = [np.fromfile(os.path.join(tmp, f"slot{k}.ts"), np.uint8) for k in range(b)]
+        rc3, stats3, wall3 = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
+                                   "--viterbi-chunks", str(CHUNK_MAIN), "--max-fields", "3",
+                                   "--stats", "-o", os.path.join(tmp, "first{ch}.ts")])
+    fd, fd3 = stats["fields_decoded"], stats3["fields_decoded"]
+    dec_field_s = (wall - wall3) / max(1, fd - fd3)   # host s per field, start-up excluded
+    exact = [slots[k].tobytes() == ts[:fd, k].tobytes() for k in range(b)]
+    want_n = -(-HEADEND_FIELDS * n // mx.RESAMPLE_DOWN) * mx.RESAMPLE_UP * b
+
+    # the two block products of one field at B = 23, alone (CUDA events)
+    gen = torch.Generator(dev).manual_seed(27)
+    n_blk = -(-n // mx.RESAMPLE_DOWN)
+    x = torch.randn((b, 2, n_blk * mx.RESAMPLE_DOWN + 2 * mx._HALO), generator=gen, device=dev)
+    halo = mx._demux_halo(b)
+    y = torch.randn((2, n_blk * mx.RESAMPLE_UP * b + 2 * halo), generator=gen, device=dev)
+    mux_ms = timed(lambda: mx.mux_blocks(x), reps=5)
+    demux_ms = timed(lambda: mx.demux_blocks(y, b), reps=5)
+    mux_flops = 2 * b * 2 * n_blk * (mx.RESAMPLE_DOWN + 2 * mx._HALO) * mx.RESAMPLE_UP * b
+    demux_flops = 2 * b * 2 * n_blk * (mx.RESAMPLE_UP * b + 2 * halo) * mx.RESAMPLE_DOWN
+    del x, y
+    torch.cuda.empty_cache()
+    emit("headend", slots=b, band_mhz=6 * b, fields=HEADEND_FIELDS, capture_samples=n_cap,
+         encode={"rc": rc_enc, "stats": enc_stats, "host_s": enc_wall,
+                 "realtime_factor_wall_with_startup": HEADEND_FIELDS * period_s / enc_wall,
+                 "realtime_factor_steady": period_s * 1e3 / enc_stats["step_ms_mean"],
+                 "offset_fir_launches": enc_launches, "max_memory_allocated": enc_peak},
+         decode={"rc": rc, "stats": stats, "host_s": wall,
+                 "realtime_factor_wall_with_startup": HEADEND_FIELDS * period_s / wall,
+                 "max_fields_3": {"rc": rc3, "fields_decoded": fd3, "host_s": wall3},
+                 "host_s_per_field_steady": dec_field_s,
+                 "realtime_factor_steady": period_s / dec_field_s,
+                 "ts_exact_slots": sum(exact), "launches": launches,
+                 "max_memory_allocated": dec_peak},
+         mux_ms_per_field=mux_ms, demux_ms_per_field=demux_ms,
+         mux_tflops=mux_flops / mux_ms / 1e9, demux_tflops=demux_flops / demux_ms / 1e9,
+         field_period_ms=period_s * 1e3)
+    check(rc_enc == 0 and enc_stats["fields"] == HEADEND_FIELDS * b
+          and enc_stats["device"] == str(dev), f"encode --mux: rc {rc_enc}, {enc_stats}")
+    check(n_cap == want_n, f"encode --mux wrote {n_cap} samples, want {want_n}")
+    check(enc_launches == HEADEND_FIELDS, f"encode --mux: {enc_launches} offset_fir launches")
+    check(rc == 0 and stats["device"] == str(dev) and fd == HEADEND_FIELDS - 1 and all(exact)
+          and stats["segments_uncorrectable"] == 0,
+          f"decode --demux {b}: {sum(exact)} of {b} slots byte-exact ({stats})")
+    check(rc3 == 0 and fd3 == 3, f"decode --demux {b} --max-fields 3: rc {rc3}, {stats3}")
+    check(launches["acs_forward_chunked"] == fd + 1 and launches["traceback_chunked"] == fd + 1
+          and launches["acs_forward"] == 0 and launches["traceback"] == 0
+          and launches["eq_fir_fused"] == 0,
+          f"decode --demux: launches {launches} for {fd} decoded fields")
+
+    # B=4 at an SDR master clock: --mux --rate -> --demux --rate
+    b4 = MUX_RATE_SLOTS
+    ts4 = rng.integers(0, 256, size=(MUX_RATE_FIELDS, b4, P.FIELD_TS_BYTES), dtype=np.uint8)
+    ts4[..., :: P.MPEG2_BYTES] = 0x47
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        paths = [os.path.join(tmp, f"ch{k}.ts") for k in range(b4)]
+        for k, path in enumerate(paths):
+            ts4[:, k].tofile(path)
+        cap = os.path.join(tmp, "band30.iq")
+        rc4e, st4e, _ = _cli([*paths, "--mux", "--rate", MUX_RATE_SPS, "-o", cap, "--stats"])
+        rc4, st4, wall4 = _cli(["decode", cap, "--demux", str(b4), "--rate", MUX_RATE_SPS,
+                                "--trellis", "viterbi", "--viterbi-chunks", str(CHUNK_MAIN),
+                                "--stats", "-o", os.path.join(tmp, "out.ts")])
+        out4 = np.fromfile(os.path.join(tmp, "out.ts"), np.uint8)
+    fd4 = st4["fields_decoded"]
+    exact4 = fd4 >= MUX_RATE_FIELDS - 2 and out4.tobytes() == ts4[1:1 + fd4].tobytes()
+    emit("headend_rate", slots=b4, sps=float(MUX_RATE_SPS), encode={"rc": rc4e, "stats": st4e},
+         decode={"rc": rc4, "stats": st4, "host_s": wall4, "ts_exact": exact4})
+    check(rc4e == 0 and st4e["output_rate"] == float(MUX_RATE_SPS),
+          f"encode --mux --rate: {st4e}")
+    check(rc4 == 0 and st4["align_parity"] == 1 and st4["segments_uncorrectable"] == 0 and exact4,
+          f"decode --demux --rate: the TS is not the sent TS from field 1 ({st4})")
+    return {k: launches[k] for k in ("acs_forward_chunked", "traceback_chunked")}
+
+
 def _host_ts(rng, n_fields: int):
     """(n_fields, 58656) random TS with packet syncs (tests/test_decoder.py's
     _random_ts at one channel, the same draws)."""
@@ -2134,7 +2507,9 @@ def gauntlet(dev) -> None:
     # the decoder also runs on the first aligned field, whose output the
     # one-field interleaver latency discards: fd + 1 fields per kernel
     want_launches = {"eq_fir_fused": 0, "acs_forward": fd + 1, "traceback": fd + 1,
-                     "pr_acs_forward": 0, "pr_traceback": 0}
+                     "pr_acs_forward": 0, "pr_traceback": 0,
+                     **{k + "_chunked": 0 for k in ("acs_forward", "traceback",
+                                                    "pr_acs_forward", "pr_traceback")}}
     emit("gauntlet", capture={"fields": 5, "multipath": True, "cfo_hz": 400.0, "sro_ppm": 25.0,
                               "snr_db": 24.0, "burst": [s0, 2600, 4.0], "cut": 77_777},
          rc=rc, stats=stats, host_s=wall, host_s_per_field=wall / fd, ts_exact=exact,
@@ -2177,12 +2552,14 @@ def gauntlet(dev) -> None:
           f"cfo track: fields {kept} are not the sent TS ({stats})")
 
 
-def rate(dev) -> None:
+def rate(dev) -> dict:
     """Phase 24: one 20 MS/s SDR channel: `cli encode --rate 20e6` of
     RATE_FIELDS seeded fields and `cli decode --rate 20e6 --trellis
-    viterbi` of what it wrote, on the card; StreamResampler on the card
-    against the CPU on the first RATE_CMP_SAMPLES capture samples, and
-    under two chunkings; the resampler's block timed on the card."""
+    viterbi` of what it wrote, on the card, also with `--viterbi-chunks`;
+    StreamResampler on the card against the CPU on the first
+    RATE_CMP_SAMPLES capture samples, and under two chunkings; the
+    resampler's block timed on the card. Returns the chunked decode's
+    launches of the chunked kernels."""
     import numpy as np
     import torch
 
@@ -2206,8 +2583,14 @@ def rate(dev) -> None:
                                 "--stats", "-o", os.path.join(tmp, "back.ts")])
         launches = _launches()
         back = np.fromfile(os.path.join(tmp, "back.ts"), np.uint8)
+        _zero_all_launches()
+        rc_c, stats_c, wall_c = _cli(["decode", cap, "--rate", RATE_SPS, "--trellis", "viterbi",
+                                      "--viterbi-chunks", str(CHUNK_MAIN), "--stats",
+                                      "-o", os.path.join(tmp, "back_chunked.ts")])
+        launches_c = _launches()
+        back_c = np.fromfile(os.path.join(tmp, "back_chunked.ts"), np.uint8)
         head = np.fromfile(cap, np.complex64, count=RATE_CMP_SAMPLES)[None]
-    fd = stats["fields_decoded"]
+    fd, fd_c = stats["fields_decoded"], stats_c["fields_decoded"]
     exact = back.tobytes() == ts[1 : 1 + fd].tobytes()
     want_n = RATE_FIELDS * n * ratio
     enc_fields = enc_stats["fields"]
@@ -2218,7 +2601,12 @@ def rate(dev) -> None:
                  "offset_fir_launches": enc_launches},
          decode={"rc": rc, "stats": stats, "host_s": wall, "host_s_per_field": wall / fd,
                  "realtime_factor": period_s / (wall / fd), "ts_exact": exact,
-                 "launches": launches}, field_period_ms=period_s * 1e3)
+                 "launches": launches},
+         decode_chunked={"viterbi_chunks": CHUNK_MAIN, "rc": rc_c, "stats": stats_c,
+                         "host_s": wall_c, "host_s_per_field": wall_c / max(1, fd_c),
+                         "realtime_factor": period_s / (wall_c / max(1, fd_c)),
+                         "ts_equal_exact": back_c.tobytes() == back.tobytes(),
+                         "launches": launches_c}, field_period_ms=period_s * 1e3)
     check(rc_enc == 0 and enc_fields == RATE_FIELDS and enc_stats["output_rate"] == 20e6
           and enc_stats["device"] == str(dev), f"encode --rate: rc {rc_enc}, {enc_stats}")
     check(abs(n_cap - want_n) < 64, f"encode --rate wrote {n_cap} samples, want ~{want_n:.0f}")
@@ -2228,6 +2616,12 @@ def rate(dev) -> None:
           f"decode --rate: the TS is not the sent TS from the first aligned field ({stats})")
     check(launches["acs_forward"] == fd + 1 and launches["traceback"] == fd + 1,
           f"decode --rate: launches {launches} for {fd} decoded fields")
+    check(rc_c == 0 and fd_c == fd and back_c.tobytes() == back.tobytes()
+          and stats_c["segments_uncorrectable"] == 0,
+          f"decode --rate --viterbi-chunks {CHUNK_MAIN}: not the exact decode's TS ({stats_c})")
+    check(launches_c["acs_forward_chunked"] == fd + 1 and launches_c["traceback_chunked"] == fd + 1
+          and launches_c["acs_forward"] == 0 and launches_c["traceback"] == 0,
+          f"decode --rate --viterbi-chunks: launches {launches_c} for {fd} decoded fields")
 
     # the resampler itself: card against CPU, and two chunkings on each
     frac = rs.capture_rate(20_000_000)
@@ -2271,6 +2665,7 @@ def rate(dev) -> None:
           f"StreamResampler card vs CPU {err} > 1e-6 (shapes {card.shape} {cpu.shape})")
     check(np.array_equal(card, card_chunked) and np.array_equal(cpu, cpu_chunked),
           "StreamResampler: a chunking changed the output")
+    return {k: launches_c[k] for k in ("acs_forward_chunked", "traceback_chunked")}
 
 
 def resync_full(dev) -> None:

@@ -203,7 +203,8 @@ def test_cli_matches_jax_cli(tmp_path, capsys, fmt):
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--mux"], ["--rate", "20e6", "--mux"],
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--mux", "--checkpoint", "c"],
+                                  ["--rate", "20e6", "--mux", "--profile", "d"],
                                   ["--ppm", "3", "--checkpoint", "c"], ["--checkpoint", "c"],
                                   ["--resume"], ["--profile", "d"],
                                   ["--realtime"]])

@@ -131,11 +131,49 @@ def test_init_pr_metrics_matches_jax():
 
 
 def test_viterbi_pr_decode_field_refuses_chunks():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tn.viterbi_pr_decode_field(torch.zeros(1, NE, 48), torch.zeros(1, NE, dtype=torch.int32),
-                                   tn.init_pr_metrics(1, device="cpu"), n_chunks=24)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdec.NtscDecoder(batch=1, viterbi_chunks=4, device="cpu")
+    """A chunk count that does not divide the field, or leaves no room for
+    the warmup halos, is refused with _chunk_plan's messages; a valid one
+    builds an NtscDecoder."""
+    y = torch.zeros(1, NE, 48)
+    z2, m = torch.zeros(1, NE, dtype=torch.int32), tn.init_pr_metrics(1, device="cpu")
+    for c in (5, 2):   # 5 does not divide 48; 2 leaves windows of 24 + 2 * 128 > 48
+        with pytest.raises(ValueError) as port:
+            tn.viterbi_pr_decode_field(y, z2, m, n_chunks=c)
+        with pytest.raises(ValueError) as ref:
+            jv._chunk_plan(48, c, 128)
+        assert str(port.value) == str(ref.value)
+    assert tdec.NtscDecoder(batch=1, viterbi_chunks=4, device="cpu").batch == 1
+
+
+_JAX_PR_CHUNKED = jax.jit(jn.viterbi_pr_decode_field, static_argnames=("n_chunks",))
+SNR14_SIGMA = float(np.sqrt(21.0 / 10 ** 1.4))   # 14 dB on the 8 levels (power 21)
+
+
+@pytest.mark.parametrize("chunks", [8, 24, 92])      # W mod 4 = 3, 1, 2
+@pytest.mark.parametrize("snr", ["clean", "14dB"])
+def test_chunked_pr_viterbi_matches_jax(chunks, snr):
+    """viterbi_pr_decode_field(n_chunks=C) against the JAX package's
+    chunked PR path on two combed fields at B=2 (the second from the first's
+    carried state; each chunk reads its own rows of the reset/const
+    tables): bytes and z2 bit for bit, metrics within the PR tier's FMA
+    tolerance (XLA:CPU contracts m + bm; measured up to 3.1e-5 here)."""
+    rng = np.random.default_rng(3000 + chunks)
+    b, t = 2, P.TRELLIS_SYMBOLS_PER_ENCODER
+    z2 = rng.integers(0, 2, (b, NE)).astype(np.int32)
+    m = np.asarray(jn.init_pr_metrics(b))
+    z2_t, m_t = torch.tensor(z2), torch.tensor(m)
+    for _ in range(2):
+        lev = rng.integers(0, 8, (b, NE, t + 1)) * 2 - 7 + P.PILOT_OFFSET
+        if snr == "14dB":
+            lev = lev + rng.normal(0, SNR14_SIGMA, lev.shape)
+        y = (lev[..., 1:] - lev[..., :-1]).astype(np.float32)    # one encoder step back
+        want = _JAX_PR_CHUNKED(jnp.asarray(y), jnp.asarray(z2), jnp.asarray(m),
+                               n_chunks=chunks)
+        got = tn.viterbi_pr_decode_field(torch.tensor(y), z2_t, m_t, n_chunks=chunks)
+        _assert_same((got[0].numpy(), got[1].numpy()), want[:2])
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-4, atol=1e-3)
+        z2, m = (np.asarray(x) for x in want[1:])
+        z2_t, m_t = got[1], got[2]
 
 
 def _cci(n: np.ndarray, scale_rms: float) -> np.ndarray:
@@ -225,6 +263,28 @@ def test_ntsc_decoder_state_carries_a_jax_stream(level_fields):
     with pytest.raises(ValueError):
         convert.ntsc_decoder_state_from_numpy(
             {**leaves, "metrics": leaves["metrics"][..., :4]}, device="cpu")
+
+
+def test_ntsc_decoder_chunked_matches_jax(level_fields):
+    """NtscDecoder(viterbi_chunks=24) against the JAX package's on the
+    golden fields with a co-channel tone: TS, n_errors and z2 per field,
+    metrics within the PR tolerance."""
+    import functools
+
+    ts, fields = level_fields
+    lev = fields["tone"]
+    jd = jdec.NtscDecoder(batch=1, viterbi_chunks=24)
+    jd._step = jax.jit(functools.partial(jdec.ntsc_decode_field, n_chunks=24))
+    td = tdec.NtscDecoder(batch=1, viterbi_chunks=24, device="cpu")
+    for k in range(4):
+        tts, tnerr = td.decode(lev[k])
+        _assert_same((tts, tnerr), jd.decode(lev[k]))
+        _assert_same((td.state.prev_il.numpy(), td.state.z2_prev.numpy()),
+                     (jd.state.prev_il, jd.state.z2_prev))
+        np.testing.assert_allclose(td.state.metrics.numpy(), np.asarray(jd.state.metrics),
+                                   rtol=1e-4, atol=1e-3)
+        if k:
+            np.testing.assert_array_equal(tts[0], ts[k - 1])
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ SoftDecoder, IqReceiver(trellis="soft"|"soft-i8"), the decode CLI and
 decoder-state conversion."""
 
 import contextlib
+import functools
 import io
 
 import jax
@@ -200,12 +201,124 @@ def test_kernel_wrappers_refuse_bad_input(case):
 
 
 def test_viterbi_decode_field_refuses_chunks():
+    """A chunk count must divide the field and leave room for the warmup
+    halos: _chunk_plan's ValueErrors, with the JAX package's messages; a
+    valid count builds a SoftDecoder."""
     lev = torch.zeros(1, NE, 48)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tv.viterbi_decode_field(lev, torch.zeros(1, NE, dtype=torch.int32),
-                                tv.init_metrics(1, device="cpu"), n_chunks=24)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdec.SoftDecoder(batch=1, viterbi_chunks=4, device="cpu")
+    z2, m = torch.zeros(1, NE, dtype=torch.int32), tv.init_metrics(1, device="cpu")
+    for c in (5, 2):   # 5 does not divide 48; 2 leaves windows of 24 + 2 * 128 > 48
+        with pytest.raises(ValueError) as port:
+            tv.viterbi_decode_field(lev, z2, m, n_chunks=c)
+        with pytest.raises(ValueError) as ref:
+            jv._chunk_plan(48, c, 128)
+        assert str(port.value) == str(ref.value)
+    assert tdec.SoftDecoder(batch=1, viterbi_chunks=4, device="cpu").batch == 1
+
+
+# -- the chunk-parallel Viterbi (n_chunks > 1) --------------------------------
+
+def test_chunk_warmup_is_one_constant():
+    """The chunked kernels fix their warm-up at compile time (kWarmup in
+    csrc/viterbi_acs.cu); the wrappers' plans and twins use WARMUP, and
+    the JAX package's chunked decode the default of viterbi_bits: all one
+    value."""
+    import inspect
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "atsc_tpu_torch", "csrc", "viterbi_acs.cu")
+    with open(src) as fh:
+        text = fh.read()
+    k_warmup = int(re.search(r"constexpr int kWarmup = (\d+);", text).group(1))
+    jax_default = inspect.signature(jv.viterbi_bits).parameters["warmup"].default
+    assert k_warmup == tk.WARMUP == jax_default
+    assert "warmup" not in text[text.index('extern "C" {'):]   # not an argument
+
+# one jitted JAX chunked field decode per chunk count and input type
+_JAX_CHUNKED = jax.jit(jv.viterbi_decode_field, static_argnames=("n_chunks",))
+SNR14_SIGMA = float(np.sqrt(21.0 / 10 ** 1.4))   # 14 dB on the 8 levels (power 21)
+
+
+@pytest.mark.parametrize("chunks", [8, 24, 92])      # W mod 4 = 3, 1, 2
+@pytest.mark.parametrize("obs", ["f32", "int8"])
+@pytest.mark.parametrize("snr", ["clean", "14dB"])
+def test_chunked_viterbi_bit_identical_to_jax(chunks, obs, snr):
+    """viterbi_decode_field(n_chunks=C) against the JAX package's
+    chunk-parallel path (its lax.scan of _acs_step, per-step
+    renormalization) on two fields at B=2, the second from the first's
+    carried metrics and z2: bytes, z2 and metrics bit for bit."""
+    rng = np.random.default_rng(1000 + chunks)
+    b, t = 2, P.TRELLIS_SYMBOLS_PER_ENCODER
+    z2 = rng.integers(0, 2, (b, NE)).astype(np.int32)
+    m = np.asarray(jv.init_metrics(b))
+    z2_t, m_t = torch.tensor(z2), torch.tensor(m)
+    for _ in range(2):
+        lev = _noisy_levels(rng, b, t, 0.0 if snr == "clean" else SNR14_SIGMA)
+        if obs == "int8":
+            lev = np.asarray(jq.quantize_soft_levels(jnp.asarray(lev)))
+        want = _JAX_CHUNKED(jnp.asarray(lev), jnp.asarray(z2), jnp.asarray(m),
+                            n_chunks=chunks)
+        got = tv.viterbi_decode_field(torch.tensor(lev), z2_t, m_t, n_chunks=chunks)
+        _assert_same(tuple(x.numpy() for x in got), want)
+        z2, m = (np.asarray(x) for x in want[1:])
+        z2_t, m_t = got[1], got[2]
+
+
+@pytest.mark.parametrize("chunks", [8, 24, 92])
+def test_chunked_kernel_twins_match_window_decode(chunks):
+    """The chunked twins against the JAX package's per-step scan run on
+    windows gathered by hand (first, middle and last chunk): the same final
+    metrics, and each chunk's kept region of the bits comes from its own
+    window's traceback."""
+    rng = np.random.default_rng(2000 + chunks)
+    t, l = P.TRELLIS_SYMBOLS_PER_ENCODER, 12
+    obs = torch.tensor(_noisy_levels(rng, 1, t, 0.8)[0].T.copy())       # (T, 12)
+    m0 = torch.zeros(4, chunks * l)
+    m0[:, :l] = torch.tensor(np.asarray(jv.init_metrics(1))[0].T)
+    dec, mout = tk.acs_forward_chunked(obs, m0, chunks)
+    length, w, starts, offs = jv._chunk_plan(t, chunks, 128)
+    assert tuple(dec.shape) == (-(-w // 4), chunks * l)
+    start = torch.argmin(mout, dim=0).to(torch.int32)
+    bits = tk.traceback_chunked(dec, start, t, chunks).numpy()
+    # each chunk's window through the JAX per-step scan
+    for c in (0, chunks // 2, chunks - 1):
+        win = jnp.asarray(obs.numpy()[starts[c]:starts[c] + w].T[None])   # (1, 12, W)
+        init = m0[:, c * l:(c + 1) * l].numpy().T[None]
+        fin, decs = jax.lax.scan(jv._acs_step, jnp.asarray(init), jnp.moveaxis(win, -1, 0))
+        np.testing.assert_array_equal(np.asarray(fin)[0].T, mout[:, c * l:(c + 1) * l].numpy())
+        st = jnp.argmin(fin, axis=-1).astype(jnp.int32)
+        _, (x1, z2) = jax.lax.scan(jv._traceback_step, st, decs, reverse=True)
+        pair = (np.asarray(x1) | (np.asarray(z2) << 1))[:, 0].astype(np.uint8)    # (W, 12)
+        kept = pair[offs[c]:offs[c] + length]
+        got = bits.view(np.uint8).reshape(t // 4, l, 4).transpose(0, 2, 1).reshape(t, l)
+        np.testing.assert_array_equal(got[c * length:(c + 1) * length], kept)
+
+
+def test_chunked_wrappers_refuse_bad_input():
+    t = P.TRELLIS_SYMBOLS_PER_ENCODER
+    obs = torch.zeros(t, 12)
+    with pytest.raises(ValueError, match="chunks must divide"):
+        tk.acs_forward_chunked(obs, torch.zeros(4, 5 * 12), 5)
+    with pytest.raises(ValueError, match="a column per chunk-lane"):
+        tk.acs_forward_chunked(obs, torch.zeros(4, 12), 4)
+    with pytest.raises(ValueError, match="decisions must be"):
+        tk.traceback_chunked(torch.zeros(9, 48, dtype=torch.int32),
+                             torch.zeros(48, dtype=torch.int32), t, 4)
+
+
+def test_soft_decoder_chunked_matches_jax(level_fields):
+    """SoftDecoder(viterbi_chunks=24) against the JAX package's on the
+    noisy golden fields: TS and n_errors per field, and the state."""
+    ts, fields = level_fields
+    lev = fields["noisy"]
+    jd = jdec.SoftDecoder(batch=1, viterbi_chunks=24)
+    jd._step = jax.jit(functools.partial(jdec.soft_decode_field, n_chunks=24))
+    td = tdec.SoftDecoder(batch=1, viterbi_chunks=24, device="cpu")
+    for k in range(3):
+        _assert_same(td.decode(lev[k]), jd.decode(lev[k]))
+        _assert_same(tuple(v.numpy() for v in td.state), tuple(jd.state))
+    np.testing.assert_array_equal(td.decode(lev[3])[0][0], ts[2])
 
 
 # -- the slice -------------------------------------------------------------
@@ -356,6 +469,25 @@ def test_cli_decode_trellis_viterbi_matches_jax_cli(tmp_path, noisy_capture):
     stats = json.loads(err.getvalue().strip().splitlines()[-1])
     assert stats["segments_uncorrectable"] == 0 and "ntsc_comb" not in stats
     assert "mer_db" in stats
+
+
+@pytest.mark.parametrize("flags", [["--trellis", "viterbi", "--viterbi-chunks", "24"],
+                                   ["--trellis", "viterbi-i8", "--viterbi-chunks", "92"]])
+def test_cli_decode_viterbi_chunks_matches_jax_cli(tmp_path, noisy_capture, flags):
+    """`decode --viterbi-chunks N` (soft and soft-i8 tiers) on the noisy
+    capture writes the JAX CLI's TS file, which is the sent TS."""
+    from atsc_tpu import cli as jcli
+    from atsc_tpu_torch import cli as tcli
+
+    ts, iq = noisy_capture
+    cap = tmp_path / "noisy.iq"
+    cap.write_bytes(np.stack([iq[0].real, iq[0].imag], -1).astype(np.float32).tobytes())
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert tcli.main(["decode", str(cap), "-o", str(tmp_path / "port.ts"),
+                          "--device", "cpu", *flags]) == 0
+    assert jcli.main(["decode", str(cap), "-o", str(tmp_path / "jax.ts"), *flags]) == 0
+    got = (tmp_path / "port.ts").read_bytes()
+    assert got == (tmp_path / "jax.ts").read_bytes() == ts[:2, 0].tobytes()
 
 
 def test_cli_decode_viterbi_i8_reports_no_mer(tmp_path, noisy_capture):

@@ -148,13 +148,40 @@ def compile_cu(tag: str, text: str, include: str) -> tuple[str, list[str]]:
     return lib, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
 
 
+class _Missing:
+    """An entry point an earlier tree's library lacks: declared like the
+    others, raising if it is ever called."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __call__(self, *args):
+        raise RuntimeError(f"{self.name}: not in this build")
+
+
+class _AnyTree(ctypes.CDLL):
+    """A kernel library of this tree or of an earlier one: the entry points
+    the package declares and an earlier build does not have (the chunked
+    Viterbi kernels, before they were added) resolve to _Missing."""
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            if name.startswith("__"):
+                raise
+            fn = _Missing(name)
+            setattr(self, name, fn)
+            return fn
+
+
 def bound(module, path: str, device_index: int) -> ctypes.CDLL:
     """The library at path, set up as the module's wrapper sets up its own
     (entry points declared, the FIR's and the equalizer's fast-tier taps
     loaded on the device)."""
     real = _build.load
     module._kernel_lib.cache_clear()
-    _build.load = lambda name: ctypes.CDLL(path)
+    _build.load = lambda name: _AnyTree(path)
     try:
         lib = module._kernel_lib(device_index)
         if module is eqk:
