@@ -23,6 +23,9 @@ Flags of the JAX CLI that this package does not have yet (encode: --mesh,
 --checkpoint, --resume, --profile, --realtime, the soapy sink; decode:
 --mesh, --checkpoint, --resume, --profile, the soapy source; the analyze
 subcommand) stop with an error naming them; none is silently ignored.
+The flags that act only with one of those (--fields-per-step with --mesh,
+--checkpoint-every with --checkpoint, -d/-f/-g with a soapy device) are
+accepted, with the JAX CLI's defaults, and change nothing without it.
 Decode runs the equalizers `--equalizer zf|adaptive|adaptive-dd` (with
 `--forgetting` and `--train-every` for the adaptive ones), the trellis
 tiers `--trellis hard|viterbi|viterbi-i8` (chunk-parallel with
@@ -81,6 +84,27 @@ from atsc_tpu_torch.utils.profiling import ThroughputMeter
 _NOT_PORTED = ("mesh", "checkpoint", "resume", "profile", "realtime")
 
 
+def _add_inert_flags(ap: argparse.ArgumentParser, fields_per_step: int,
+                     gain: float, live: str) -> None:
+    """The JAX CLI's flags that act only together with an unported flag or
+    a soapy device, with its defaults: --fields-per-step (fields a --mesh
+    step takes; without --mesh the output does not depend on it),
+    --checkpoint-every (with --checkpoint) and the SDR's -d/-f/-g (with
+    the soapy `live`). Accepted and unused; the flag they act with is
+    refused as not yet ported."""
+    ap.add_argument("--fields-per-step", type=int, default=fields_per_step,
+                    help="(--mesh) fields a device step takes; the output "
+                         "does not depend on it")
+    ap.add_argument("--checkpoint-every", type=int, default=64, metavar="FIELDS",
+                    help="(--checkpoint) fields between saved states")
+    ap.add_argument("-d", "--driver", default="hackrf",
+                    help=f"SoapySDR driver of the 'soapy' {live}")
+    ap.add_argument("-f", "--frequency", type=float, default=473e6,
+                    help=f"(the 'soapy' {live}) RF centre frequency in Hz")
+    ap.add_argument("-g", "--gain", type=float, default=gain,
+                    help=f"(the 'soapy' {live}) gain in dB")
+
+
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="atsc_tpu_torch", description="ATSC 8VSB encoder (PyTorch + CUDA)"
@@ -127,6 +151,7 @@ def build_argparser() -> argparse.ArgumentParser:
                          "DAC ran at nominal*(1+ppm/1e6), the TX mirror of "
                          "`decode --sro` (controlled-SRO captures for "
                          "receiver testing; composes with --rate)")
+    _add_inert_flags(ap, fields_per_step=8, gain=54.0, live="sink")
     for name in ("mesh", "checkpoint", "profile"):
         ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     for name in ("resume", "realtime"):
@@ -416,6 +441,7 @@ def build_decode_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
+    _add_inert_flags(ap, fields_per_step=4, gain=30.0, live="source")
     for name, default in _DECODE_NOT_PORTED.items():
         flag = f"--{name.replace('_', '-')}"
         if isinstance(default, bool):
@@ -431,7 +457,7 @@ def _decode_not_ported(args) -> str:
     given = [f"--{n.replace('_', '-')}" for n, d in _DECODE_NOT_PORTED.items()
              if getattr(args, n) != d]
     if _is_live(args.input):
-        given.append("the soapy source")
+        given.append("the soapy source (-d/-f/-g)")
     if given:
         return f"decode {', '.join(given)}: not yet ported to atsc_tpu_torch"
     return ""
@@ -883,6 +909,8 @@ def main(argv=None) -> int:
     ap = build_argparser()
     args = ap.parse_args(argv)
     given = [f"--{n}" for n in _NOT_PORTED if getattr(args, n) not in (None, False)]
+    if _is_live(args.output):
+        given.append("the soapy sink (-d/-f/-g)")
     if given:
         ap.error(f"{', '.join(given)}: not yet ported to atsc_tpu_torch")
     channels = args.channels

@@ -9,11 +9,12 @@
 // - pr_acs_forward_kernel <- pr_acs_forward (bodies _pr_acs_kernel,
 //   _pr_update): the 16-state partial-response ACS of the NTSC comb tier;
 // - pr_traceback_kernel   <- pr_traceback (body _pr_tb_kernel).
-// Each of the four also has a chunked instantiation (acs_forward_chunked_
-// kernel, pr_acs_forward_chunked_kernel, traceback_chunked_kernel<kPr>) for
-// the chunk-parallel near-MLSE of `--viterbi-chunks` (the JAX package runs
-// that as a lax.scan, atsc_tpu/ops/viterbi.py _chunked_mlse; ChunkPlan
-// below). The wrappers and plain PyTorch twins are ops/cuda/viterbi_acs.py.
+// Each of the four also has a chunked form (acs_forward_chunked_kernel,
+// traceback_chunked_kernel, pr_acs_forward_chunked_kernel,
+// pr_traceback_chunked_kernel) for the chunk-parallel near-MLSE of
+// `--viterbi-chunks` (the JAX package runs that as a lax.scan,
+// atsc_tpu/ops/viterbi.py _chunked_mlse; ChunkPlan below). The wrappers
+// and plain PyTorch twins are ops/cuda/viterbi_acs.py.
 //
 // Layouts: a lane l = b*12 + e is one (channel, encoder) trellis; obs is
 // T-major (T, L), so the 32 loads of one step by a warp are contiguous;
@@ -657,9 +658,9 @@ inline bool bad_shape(int steps, int lanes) {
 // last a doubled one). A chunk-lane lc = c * L + l (chunk-major, so a
 // warp's loads of one step are 32 consecutive lanes of one row) reads its
 // window straight from the unchunked T-major obs at rows start(c) + p, and
-// its traceback writes only its kept region, byte by byte, into the
-// unchunked (T/4, L) output: no window is ever gathered into memory. Three
-// things differ from the exact kernels above:
+// its traceback writes only its kept region into the unchunked (T/4, L)
+// output: no window is ever gathered into memory. Three things differ from
+// the exact kernels above:
 // - the metrics are renormalized after every step (the reference's
 //   per-step cadence; in float32 (a + b) - c is not (a - c) + b, so the
 //   cadence is part of the numerics);
@@ -669,10 +670,6 @@ inline bool bad_shape(int steps, int lanes) {
 //   the window's true last step; the front padding lies below every kept
 //   region (chunk 0's starts at window step 0, padded step `pad`);
 // - the PR pass reads rc at stream step start(c) + p.
-// One thread per chunk-lane walks its window serially, all S states in
-// registers: the simplest form, with chunks * L threads (a latency lever
-// at small batches, where the exact kernels walk 21,528 steps on few
-// lanes).
 constexpr int kWarmup = 128;   // context steps on either side (viterbi_bits' default)
 
 struct ChunkPlan {
@@ -692,8 +689,6 @@ struct ChunkPlan {
   }
 };
 
-constexpr int kChunkThreads = 64;   // threads per block of the chunked kernels
-
 inline bool bad_plan(const ChunkPlan& p) {
   return p.lanes < 1 || p.chunks < 1 || p.steps < 1 || p.steps % p.chunks != 0 ||
          p.window > p.steps;
@@ -704,71 +699,265 @@ inline ChunkPlan make_plan(int steps, int lanes, int chunks) {
   return {steps, lanes, chunks, length, length + 2 * kWarmup};
 }
 
-inline int chunk_grid(const ChunkPlan& p) {
-  return static_cast<int>((p.chunk_lanes() + kChunkThreads - 1) / kChunkThreads);
+inline int chunk_grid(const ChunkPlan& p, int threads) {
+  return static_cast<int>((p.chunk_lanes() + threads - 1) / threads);
+}
+
+// The chunked 4-state passes: one thread per chunk-lane walks its whole
+// window, all 4 states in registers, in blocks of one warp (at B = 1 the
+// 288 chunk-lanes of C = 24 are 9 blocks on 9 SMs; at B = 384, 3,456).
+//
+// Forward (acs_forward_chunked_kernel): a step is acs4_step and nothing
+// else. The padded front word is peeled off; whole groups of
+// kAcsChunkWords words follow with no bounds test, each group's
+// observations loaded one group ahead into registers through a pointer
+// advanced a row a step; then the last words one at a time. A step's
+// decision byte is put together from masks (the x1 bits of the four
+// survivors, and the step's Z2 bits for x1 = 0 and 1), not bit by bit.
+// What bounds it is issue: the loop is 66 instructions a step in float32
+// and 70 in int8 (cuobjdump -sass; 28 FADD/FMUL, 11 FMNMX, 8 FSETP, 8 SEL,
+// the rest masks, the load and its address), against ~100 for the form
+// with a bounds test, a padding test and a 64-bit row multiply in every
+// step. Measured on an H100 at B = 384, C = 24 (tools/torch_kernel_ab.py
+// --kernels chunked): 0.38 ms against 0.57, the bytes bound 0.16. Tried
+// and slower: an L2 prefetch of the float32 rows (it only adds issue),
+// groups of 2 words, and the x1 / Z2 bits as float sign bits (an add and
+// a multiply-high in place of a compare and a select: 4 more instructions
+// a step, 13 % slower). A state-parallel form (2 threads per chunk-lane,
+// the exact pass's butterfly) needs ~40 instructions a step per thread,
+// ~80 per chunk-lane, and a shuffle on each step's chain.
+//
+// Traceback (traceback_chunked_kernel): the walk runs over output words in
+// stream order. Stream steps 4j..4j+3 are window decision steps q = 4j +
+// base + k (base = pad - start(c)), so their 4 decision bytes are one
+// funnel shift of two consecutive decision words by 8 (base mod 4); each
+// output word is then one chain4x of that word, built in a register and
+// stored whole. Only a kept region's boundary words, which two
+// chunk-lanes share when T / C is not a multiple of 4, are stored byte by
+// byte, and a partial word at the window's top or the kept region's
+// bottom is walked step by step. kTbChunkWords decision words are loaded
+// ahead into registers, each refilled with the word kTbChunkWords below
+// as soon as it is used. Measured as above: 0.10 ms against 0.27 (the
+// form that loaded each word when the walk reached it and stored a byte a
+// step), the bytes bound 0.064; 24 instructions a step. At B = 1 both
+// passes are chains of ~1,000 steps on 9 warps (0.07-0.09 and 0.04-0.07
+// ms), under the host's time for the rest of a B = 1 decode step.
+constexpr int kChunk4Threads = 32;   // threads per block of the chunked 4-state passes
+constexpr int kAcsChunkWords = 4;    // forward: decision words a group of loads covers
+constexpr int kTbChunkWords = 8;     // traceback: decision words in flight
+constexpr int kChunkThreads = 64;    // threads per block of the chunked PR passes
+
+// One step of all four states from observation o, renormalized: returns
+// the step's decision byte (bits 2s, 2s+1 = x1, z2 into state s). The
+// float ops are branches() and survivor()'s, in the reference's order.
+__device__ __forceinline__ uint32_t acs4_step(float o, float (&m)[4]) {
+  float d[8];  // d[v] = (o - level v)^2
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const float t = __fsub_rn(o, static_cast<float>(2 * v - 7) + kPilot);
+    d[v] = __fmul_rn(t, t);
+  }
+  // branch j = 2 x1 + b: p[j] the Z2-resolved minimum, its Z2 bit at bit
+  // 2s + 1 of every state s = 2a + b it feeds (0x22 for b = 0, 0x88 for 1)
+  float p[4];
+  uint32_t z[2] = {0, 0};  // by x1
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = fminf(d[j], d[j + 4]);
+    z[j >> 1] |= d[j + 4] < d[j] ? (j & 1 ? 0x88u : 0x22u) : 0u;
+  }
+  float nm[4];
+  uint32_t x = 0;  // x1 of state s at bit 2s
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {  // s = 2a + b: predecessors 2b + a, 2b + 1 - a
+    const int a = s >> 1, b = s & 1;
+    const float c0 = __fadd_rn(m[2 * b + a], p[b]), c1 = __fadd_rn(m[2 * b + 1 - a], p[2 + b]);
+    x |= c1 < c0 ? 1u << (2 * s) : 0u;
+    nm[s] = fminf(c0, c1);
+  }
+  const float mn = fminf(fminf(nm[0], nm[1]), fminf(nm[2], nm[3]));
+#pragma unroll
+  for (int s = 0; s < 4; ++s) m[s] = __fsub_rn(nm[s], mn);
+  const uint32_t x2 = x << 1;
+  return x | (x2 & z[1]) | (~x2 & z[0]);
 }
 
 // decisions (ceil(W / 4), C L) int32 in the exact pass's word layout
 template <typename T>
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kChunk4Threads)
 acs_forward_chunked_kernel(const T* __restrict__ obs, const float* __restrict__ m_in,
                            int32_t* __restrict__ dec, float* __restrict__ m_out,
                            ChunkPlan plan, float inv) {
-  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  constexpr int S = 4 * kAcsChunkWords;   // steps a group
+  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunk4Threads + threadIdx.x;
   const int64_t n = plan.chunk_lanes();
   if (lc >= n) return;
   const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
   const size_t stride = static_cast<size_t>(plan.lanes);
-  const T* src = obs + static_cast<size_t>(plan.start(c)) * stride + l;
-  float lv[2][4];  // branches(): the levels b, b + 4, 2 + b, 6 + b of bit b
-#pragma unroll
-  for (int b = 0; b < 2; ++b)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      lv[b][i] = static_cast<float>(2 * (b + (i & 1) * 4 + (i >> 1) * 2) - 7) + kPilot;
   float m[4];
 #pragma unroll
   for (int s = 0; s < 4; ++s) m[s] = m_in[s * n + lc];
   const int pad = plan.pad(), words = (plan.window + pad) / 4;
-  T nxt[4];  // the next word's observations, loaded a word ahead
-  auto fetch = [&](int i) {
+  const T* src = obs + static_cast<size_t>(plan.start(c)) * stride + l;   // the next row
+  int32_t* out = dec + lc;
+  // word 0: pad inert steps (no update, zero bits), then window steps 0 .. 3 - pad
+  uint32_t word = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int p = 4 * i + k - pad;
-      nxt[k] = p >= 0 && p < plan.window ? src[static_cast<size_t>(p) * stride] : T(0);
+  for (int k = 0; k < 4; ++k) {
+    if (k < pad) continue;
+    word |= acs4_step(load_obs(*src, inv), m) << (8 * k);
+    src += stride;
+  }
+  *out = static_cast<int32_t>(word);
+  out += n;
+  // words 1 .. words - 1: whole groups, the next group's rows in registers
+  const int groups = (words - 1) / kAcsChunkWords;
+  T cur[S], nxt[S];
+  auto fetch = [&](T (&buf)[S]) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      buf[i] = *src;
+      src += stride;
     }
   };
-  fetch(0);
+  if (groups > 0) fetch(cur);
 #pragma unroll 1
-  for (int i = 0; i < words; ++i) {
-    T cur[4];
+  for (int g = 0; g < groups; ++g) {
+    if (g + 1 < groups) fetch(nxt);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) cur[k] = nxt[k];
-    if (i + 1 < words) fetch(i + 1);
-    uint32_t word = 0;
+    for (int j = 0; j < kAcsChunkWords; ++j) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w |= acs4_step(load_obs(cur[4 * j + k], inv), m) << (8 * k);
+      *out = static_cast<int32_t>(w);
+      out += n;
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) cur[i] = nxt[i];
+  }
+  // the last (words - 1) mod kAcsChunkWords words
+#pragma unroll 1
+  for (int i = 1 + groups * kAcsChunkWords; i < words; ++i) {
+    uint32_t w = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (4 * i + k < pad) continue;  // front padding: no update, zero bits
-      const float o = load_obs(cur[k], inv);
-      const Branches br[2] = {branches(o, lv[0]), branches(o, lv[1])};
-      float nm[4];
-      uint32_t byte = 0;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {  // s = 2a + b: predecessors 2b + a, 2b + 1 - a
-        const int a = s >> 1, b = s & 1;
-        const uint32_t d = survivor(__fadd_rn(m[2 * b + a], br[b].p0),
-                                    __fadd_rn(m[2 * b + 1 - a], br[b].p1), br[b], nm[s]);
-        byte |= d << (2 * s);
-      }
-      const float mn = fminf(fminf(nm[0], nm[1]), fminf(nm[2], nm[3]));
-#pragma unroll
-      for (int s = 0; s < 4; ++s) m[s] = __fsub_rn(nm[s], mn);
-      word |= byte << (8 * k);
+      w |= acs4_step(load_obs(*src, inv), m) << (8 * k);
+      src += stride;
     }
-    dec[static_cast<size_t>(i) * n + lc] = static_cast<int32_t>(word);
+    *out = static_cast<int32_t>(w);
+    out += n;
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) m_out[s * n + lc] = m[s];
+}
+
+// The doubled predecessor table of a decision byte: bits 2s+1, 2s+2 hold
+// 2 pred(s), pred(s) = ((s & 1) << 1) | ((s >> 1) ^ x1 of s), so the state
+// before a step is (pred2(byte) >> u) & 6 for the doubled state u = 2s
+// after it (Tb4::all's 0xD8 table, shifted left once).
+__device__ __forceinline__ uint32_t pred2(uint32_t byte) { return ((byte & 0x55u) ^ 0xD8u) << 1; }
+
+// One chain of the 4-state traceback over a word w of 4 decision bytes,
+// last step first, from the doubled state u: the output word (byte k =
+// x1 | z2<<1 of step k); u becomes the doubled state before the word. Two
+// dependent instructions a step (a shift and a mask).
+__device__ __forceinline__ uint32_t chain4x(uint32_t w, uint32_t& u) {
+  const uint32_t v = (w & 0x55555555u) ^ 0xD8D8D8D8u;   // pred2 of every byte, unshifted
+  uint32_t word = 0;
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    const uint32_t vk = k ? v >> (8 * k - 1) : v << 1;   // byte k's table at bits 1..8
+    word += ((w >> (8 * k) >> u) & 3u) << (8 * k);
+    u = (vk >> u) & 6u;
+  }
+  return word;
+}
+
+// Bytes lo..hi (stream steps, one word) of an output word.
+__device__ __noinline__ void store_bytes(int32_t* at, uint32_t word, int lo, int hi) {
+  uint8_t* ob = reinterpret_cast<uint8_t*>(at);
+  for (int t = lo; t <= hi; ++t) ob[t & 3] = static_cast<uint8_t>(word >> (8 * (t & 3)));
+}
+
+// The chunked 4-state traceback: chunk-lane lc walks its window from
+// `start` at its last step down to its kept region's first, writing the
+// kept steps' x1 | z2<<1 bytes into lane l's column of the (T/4, L) output
+// (byte k of word j = stream step 4j + k).
+__global__ void __launch_bounds__(kChunk4Threads)
+traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
+                         int32_t* __restrict__ bits, ChunkPlan plan) {
+  constexpr int G = kTbChunkWords;
+  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunk4Threads + threadIdx.x;
+  const int64_t n = plan.chunk_lanes();
+  if (lc >= n) return;
+  const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
+  const int t0 = c * plan.length, t1 = t0 + plan.length;   // the kept stream steps [t0, t1)
+  const int row0 = plan.start(c);
+  const int base = plan.pad() - row0;     // stream step t is decision step t + base
+  const int e = base >> 2, r = base & 3;  // floor(base / 4), base mod 4
+  const int32_t* dcol = dec + lc;         // decision word i at dcol[i n]
+  int32_t* ocol = bits + l;               // output word j at ocol[j L]
+  const int64_t lanes = plan.lanes;
+  // output word j's kept bytes, for a word at a window's or kept region's edge
+  auto emit_edge = [&](int j, uint32_t word) {
+    const int lo = max(4 * j, t0), hi = min(4 * j + 3, t1 - 1);
+    if (hi - lo == 3)
+      ocol[j * lanes] = static_cast<int32_t>(word);
+    else if (lo <= hi)
+      store_bytes(ocol + j * lanes, word, lo, hi);
+  };
+  // stream steps hi_t down to lo_t of one output word, step by step
+  uint32_t u = 2u * static_cast<uint32_t>(start[lc]);   // the doubled state
+  auto partial = [&](int hi_t, int lo_t) {
+    uint32_t word = 0;
+    for (int t = hi_t; t >= lo_t; --t) {
+      const int q = t + base;
+      const uint32_t byte = static_cast<uint32_t>(dcol[(q >> 2) * n]) >> (8 * (q & 3));
+      word |= ((byte >> u) & 3u) << (8 * (t & 3));
+      u = (pred2(byte & 0xFFu) >> u) & 6u;
+    }
+    return word;
+  };
+  int t = row0 + plan.window - 1;   // the next stream step to walk
+  if ((t & 3) != 3) {               // a partial word at the window's top
+    const int lo = max(t & ~3, t0);
+    emit_edge(t >> 2, partial(t, lo));
+    t = lo - 1;
+  }
+  // whole words jhi down to jlo: word j's decision bytes are those of
+  // decision words j + e (lo) and j + e + 1 (hi) shifted right by 8r
+  const int jhi = (t + 1) / 4 - 1, jlo = (t0 + 3) >> 2;
+  if (t >= t0 && jhi >= jlo) {
+    const int jk = t1 >> 2;           // words below jk lie whole in the kept region
+    uint32_t hi = r ? static_cast<uint32_t>(dcol[(jhi + e + 1) * n]) : 0u;
+    uint32_t buf[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      buf[g] = jhi - g >= jlo ? static_cast<uint32_t>(dcol[(jhi - g + e) * n]) : 0u;
+    int64_t next = (jhi + e - G) * n;  // the word refilled after the next one is used
+    int32_t* o = ocol + jhi * lanes;
+#pragma unroll 1
+    for (int j0 = jhi; j0 >= jlo; j0 -= G) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int j = j0 - g;
+        if (j < jlo) break;
+        const uint32_t lo = buf[g];
+        if (j - G >= jlo) buf[g] = static_cast<uint32_t>(dcol[next]);
+        next -= n;
+        const uint32_t word = chain4x(__funnelshift_r(lo, hi, 8 * r), u);
+        hi = lo;
+        if (j < jk)
+          *o = static_cast<int32_t>(word);
+        else
+          emit_edge(j, word);   // above the kept region, or its top boundary word
+        o -= lanes;
+      }
+    }
+    t = 4 * jlo - 1;
+  }
+  if (t >= t0)                      // a partial word at the kept region's bottom
+    emit_edge(t >> 2, partial(t, t0));
 }
 
 // decisions (W, C L) int32 in the exact pass's layout
@@ -832,38 +1021,27 @@ pr_acs_forward_chunked_kernel(const float* __restrict__ obs, const int32_t* __re
   for (int u = 0; u < 16; ++u) m_out[u * n + lc] = m[u];
 }
 
-// The chunked tracebacks: chunk-lane lc walks its window from `start` at
+
+// The chunked PR traceback: chunk-lane lc walks its window from `start` at
 // its last step down to its kept region's first, writing the kept steps'
 // x1 | z2<<1 bytes at stream steps start(c) + p of lane l's (T/4, L)
-// column (byte k of word i = step 4i + k).
-template <bool kPr>
+// column (byte k of word i = step 4i + k), one byte a step.
 __global__ void __launch_bounds__(kChunkThreads)
-traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
-                         int32_t* __restrict__ bits, ChunkPlan plan) {
+pr_traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
+                            int32_t* __restrict__ bits, ChunkPlan plan) {
   const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
   const int64_t n = plan.chunk_lanes();
   if (lc >= n) return;
   const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
   const int row0 = plan.start(c), keep0 = plan.offset(c), keep1 = keep0 + plan.length;
-  const int pad = kPr ? 0 : plan.pad();
   uint8_t* out = reinterpret_cast<uint8_t*>(bits);
   uint32_t s = static_cast<uint32_t>(start[lc]);
-  uint32_t w = 0;
 #pragma unroll 1
   for (int p = plan.window - 1; p >= keep0; --p) {
-    uint32_t sel;
-    if (kPr) {
-      w = static_cast<uint32_t>(dec[static_cast<size_t>(p) * n + lc]);
-      sel = s & 3u;  // x1 | z2<<1 of combined state s
-      const uint32_t h_prev = (w >> (2 * s)) & 3u, s2 = s >> 2;
-      s = ((((s2 & 1u) << 1) | (s2 >> 1)) ^ (s & 1u)) << 2 | h_prev;
-    } else {
-      const int q = p + pad;
-      if (q % 4 == 3)  // the top step is always one: W + pad is a multiple of 4
-        w = static_cast<uint32_t>(dec[static_cast<size_t>(q / 4) * n + lc]);
-      sel = (w >> (8 * (q % 4) + 2 * s)) & 3u;  // x1 | z2<<1 into s
-      s = ((s & 1u) << 1) | ((s >> 1) ^ (sel & 1u));
-    }
+    const uint32_t w = static_cast<uint32_t>(dec[static_cast<size_t>(p) * n + lc]);
+    const uint32_t sel = s & 3u;  // x1 | z2<<1 of combined state s
+    const uint32_t h_prev = (w >> (2 * s)) & 3u, s2 = s >> 2;
+    s = ((((s2 & 1u) << 1) | (s2 >> 1)) ^ (s & 1u)) << 2 | h_prev;
     if (p < keep1) {
       const size_t t = static_cast<size_t>(row0) + p;
       out[((t / 4) * plan.lanes + l) * 4 + t % 4] = static_cast<uint8_t>(sel);
@@ -946,10 +1124,10 @@ int atsc_acs_forward_chunked(int device, const void* obs, int obs_i8, const floa
   if (bad_plan(plan)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (obs_i8)
-    acs_forward_chunked_kernel<int8_t><<<chunk_grid(plan), kChunkThreads, 0, st>>>(
+    acs_forward_chunked_kernel<int8_t><<<chunk_grid(plan, kChunk4Threads), kChunk4Threads, 0, st>>>(
         static_cast<const int8_t*>(obs), m_in, dec, m_out, plan, inv);
   else
-    acs_forward_chunked_kernel<float><<<chunk_grid(plan), kChunkThreads, 0, st>>>(
+    acs_forward_chunked_kernel<float><<<chunk_grid(plan, kChunk4Threads), kChunk4Threads, 0, st>>>(
         static_cast<const float*>(obs), m_in, dec, m_out, plan, inv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -962,8 +1140,8 @@ int atsc_traceback_chunked(int device, const int32_t* dec, const int32_t* start,
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const ChunkPlan plan = make_plan(steps, lanes, chunks);
   if (bad_plan(plan) || steps % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  traceback_chunked_kernel<false><<<chunk_grid(plan), kChunkThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
+  traceback_chunked_kernel<<<chunk_grid(plan, kChunk4Threads), kChunk4Threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,7 +1154,7 @@ int atsc_pr_acs_forward_chunked(int device, const float* obs, const int32_t* rc,
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const ChunkPlan plan = make_plan(steps, lanes, chunks);
   if (bad_plan(plan)) return static_cast<int>(cudaErrorInvalidValue);
-  pr_acs_forward_chunked_kernel<<<chunk_grid(plan), kChunkThreads, 0,
+  pr_acs_forward_chunked_kernel<<<chunk_grid(plan, kChunkThreads), kChunkThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(obs, rc, m_in, dec,
                                                                        m_out, plan);
   return static_cast<int>(cudaGetLastError());
@@ -989,8 +1167,8 @@ int atsc_pr_traceback_chunked(int device, const int32_t* dec, const int32_t* sta
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const ChunkPlan plan = make_plan(steps, lanes, chunks);
   if (bad_plan(plan) || steps % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  traceback_chunked_kernel<true><<<chunk_grid(plan), kChunkThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
+  pr_traceback_chunked_kernel<<<chunk_grid(plan, kChunkThreads), kChunkThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(dec, start, bits, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

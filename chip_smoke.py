@@ -149,8 +149,9 @@ Phases, one JSON line each; any failed check exits non-zero:
    function's own bytes: the unchunked obs read once) and one run of its
    twin. The soft, soft-i8 and NTSC decode steps at B=384 and B=1, exact
    against every C, ms per field: each configuration timed in rounds, in
-   turns with the others, the median of the round means and their spread
-   (one C=24 step launches each kernel of its path once, no other); B=8 at
+   turns with the others, the median of the round means and their spread,
+   and the host's time to issue a step (one C=24 step launches each
+   kernel of its path once, no other); B=8 at
    14 dB through IqReceiver: chunked TS equal to the exact TS, the soft
    tier's the sent TS.
 27. headend: `cli encode --channels 23 --mux` of 8 seeded fields (one TS
@@ -217,9 +218,19 @@ TB_DESIGN = ("chunk-parallel: 16 chunks of whole groups per lane, a thread per (
 PR_TB_DESIGN = ("chunk-parallel: 8 chunks of whole groups per lane, a thread per (lane, chunk), "
                 "16 entry chains (prmt gathers) to the merge, entry states resolved in shared "
                 "memory, heads retraced")  # csrc/viterbi_acs.cu
-CHUNKED_DESIGN = ("one thread per (lane, chunk), all states in registers, per-step "
-                  "renormalization, windows read from the unchunked obs, kept regions "
-                  "written byte by byte")  # csrc/viterbi_acs.cu, the *_chunked kernels
+# the chunked kernels (csrc/viterbi_acs.cu, the *_chunked kernels): a thread
+# per (lane, chunk), all states in registers, per-step renormalization,
+# windows read from the unchunked obs
+CHUNKED_DESIGN = {
+    "acs_forward": "blocks of one warp; padded word peeled, 16-step groups of obs one group "
+                   "ahead in registers, no bounds test in the loop; decision bytes from "
+                   "masks",
+    "traceback": "blocks of one warp; output words in stream order, each one funnel shift of "
+                 "two decision words and one 4-step chain on doubled states, 8 words in "
+                 "flight, whole-word stores, kept-region boundary words byte by byte",
+    "pr_acs_forward": "64 threads per block, one step a loop pass",
+    "pr_traceback": "64 threads per block, one step a loop pass, kept steps byte by byte",
+}
 EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
              "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
              "float32 chunks of 2 bands; exact: CUDA cores, Kahan chunks")  # csrc/eq_fir.cu
@@ -244,17 +255,26 @@ def check(ok: bool, msg: str) -> None:
 
 def timed(fn, reps: int = 10) -> float:
     """Mean device ms of fn() over reps back-to-back calls, after one."""
+    return timed_with_host(fn, reps)[0]
+
+
+def timed_with_host(fn, reps: int = 10) -> tuple[float, float]:
+    """(mean device ms, mean host ms to issue one call) of fn() over reps
+    back-to-back calls, after one: the host clock stops when the last call
+    returns, before any wait for the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / reps, host
 
 
 def device_kept(dev, after: str) -> None:
@@ -646,7 +666,7 @@ def main() -> int:
            "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
            "launches": vit_launches[k], **vit[k], "library_ms": None,
            "chunked": {"launches": chunked["launches"][k + "_chunked"],
-                       "design": CHUNKED_DESIGN, "per_chunks": chunked["per"][k]}}
+                       "design": CHUNKED_DESIGN[k], "per_chunks": chunked["per"][k]}}
           for k, line in (("acs_forward", 157), ("traceback", 189),
                           ("pr_acs_forward", 344), ("pr_traceback", 375))),
         {"name": "trellis_fused", "route": "cuda",
@@ -2143,18 +2163,22 @@ def _chunk_bounds(t: int, l: int, c: int, w: int, offs) -> dict:
 
 def _timed_rounds(runs: dict, rounds: int, reps: int) -> dict:
     """Each of runs' callables timed `rounds` times, in turns with the
-    others (timed(fn, reps) each; the order rotated every round, so a drift
-    of the card or the host falls on all of them alike). Per name: the
-    median of the round means, their least and greatest, device ms."""
+    others (timed_with_host(fn, reps) each; the order rotated every round,
+    so a drift of the card or the host falls on all of them alike). Per
+    name: the median of the round means, their least and greatest, device
+    ms; and host_ms, the median of the host's times to issue one call: a
+    step whose host_ms is about its ms is bound by the host."""
     import numpy as np
 
-    names, got = list(runs), {k: [] for k in runs}
+    names, got, host = list(runs), {k: [] for k in runs}, {k: [] for k in runs}
     for r in range(rounds):
         k0 = r % len(names)
         for k in names[k0:] + names[:k0]:
-            got[k].append(timed(runs[k], reps=reps))
-    return {k: {"ms": float(np.median(v)), "min_ms": min(v), "max_ms": max(v)}
-            for k, v in got.items()}
+            ms, host_ms = timed_with_host(runs[k], reps=reps)
+            got[k].append(ms)
+            host[k].append(host_ms)
+    return {k: {"ms": float(np.median(v)), "min_ms": min(v), "max_ms": max(v),
+                "host_ms": float(np.median(host[k]))} for k, v in got.items()}
 
 
 def viterbi_chunked(dev) -> dict:

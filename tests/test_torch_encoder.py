@@ -203,11 +203,48 @@ def test_cli_matches_jax_cli(tmp_path, capsys, fmt):
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
+def test_cli_fields_per_step_matches_jax_cli(tmp_path):
+    """`encode --fields-per-step 2` on a 3-field TS (not a multiple of 2),
+    cf32: within 5e-6 of the JAX CLI's output at --fields-per-step 2, as
+    test_cli_matches_jax_cli holds the default, and byte for byte the
+    port's output without the flag (it reads fields, not steps)."""
+    from atsc_tpu.cli import main as jax_main
+
+    ts_path = tmp_path / "in.ts"
+    _random_ts(27, (3, P.FIELD_TS_BYTES)).tofile(ts_path)
+    out = {k: tmp_path / f"{k}.iq" for k in ("pt", "pt_default", "jx")}
+    assert pt_cli.main([str(ts_path), "-o", str(out["pt"]), "--fields-per-step", "2",
+                        "--device", "cpu"]) == 0
+    assert pt_cli.main([str(ts_path), "-o", str(out["pt_default"]), "--device", "cpu"]) == 0
+    assert jax_main([str(ts_path), "-o", str(out["jx"]), "--fields-per-step", "2"]) == 0
+    got, want = np.fromfile(out["pt"], np.float32), np.fromfile(out["jx"], np.float32)
+    assert got.size == want.size == 3 * N * 2
+    assert np.abs(got - want).max() <= 5e-6
+    assert out["pt"].read_bytes() == out["pt_default"].read_bytes()
+
+
+@pytest.mark.parametrize("flag", [["--fields-per-step", "3"], ["--checkpoint-every", "5"],
+                                  ["-d", "lime", "-f", "615e6", "-g", "20"],
+                                  ["--driver", "uhd", "--frequency", "5e8", "--gain", "0"]])
+def test_cli_accepts_flags_without_effect(tmp_path, flag):
+    """The JAX CLI's flags that act only with --mesh, --checkpoint or a
+    soapy sink parse, and change no byte of a cs8 encode without them."""
+    ts_path = tmp_path / "in.ts"
+    _random_ts(28, (1, P.FIELD_TS_BYTES)).tofile(ts_path)
+    base = [str(ts_path), "--format", "cs8", "--device", "cpu", "-o"]
+    assert pt_cli.main([*base, str(tmp_path / "plain.iq")]) == 0
+    assert pt_cli.main([*base, str(tmp_path / "flag.iq"), *flag]) == 0
+    assert (tmp_path / "flag.iq").read_bytes() == (tmp_path / "plain.iq").read_bytes()
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--mux", "--checkpoint", "c"],
                                   ["--rate", "20e6", "--mux", "--profile", "d"],
                                   ["--ppm", "3", "--checkpoint", "c"], ["--checkpoint", "c"],
                                   ["--resume"], ["--profile", "d"],
-                                  ["--realtime"]])
+                                  ["--realtime"], ["--mesh", "2x1", "--fields-per-step", "2"],
+                                  ["--checkpoint", "c", "--checkpoint-every", "4"],
+                                  ["-o", "soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"],
+                                  ["-o", "soapy:lime"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as exc:
         pt_cli.main([str(tmp_path / "in.ts"), "--device", "cpu", *flag])

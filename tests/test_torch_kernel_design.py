@@ -36,7 +36,17 @@ sources, so a wrong map shows here without a card:
   equal traceback_plain / pr_traceback_plain bit for bit on forward-pass,
   random and never-merging decisions; it checks that the head walk writes
   only words the first phase left, and that below the head it would write
-  the same words.
+  the same words;
+- the chunked 4-state models replay the chunk-lane threads of
+  acs_forward_chunked_kernel (the peeled, padded front word, the groups
+  of words read from registers filled a group ahead, the last words, the
+  decision byte put together from masks, the per-step renormalization)
+  and of traceback_chunked_kernel (output words in stream order from
+  funnel-shifted decision words held in a ring refilled ahead, the chain
+  on doubled states, whole-word stores inside a kept region and bytes on
+  its boundary words, written once each), and must equal
+  acs_forward_chunked_plain / traceback_chunked_plain bit for bit at
+  window lengths of every residue mod 4.
 """
 
 import importlib.util
@@ -784,3 +794,250 @@ def test_tb_tool_heads_and_unmerged_words(pr):
     assert (heads[:-1] == sizes[:-1, None]).all()
     plain = vk.pr_traceback_plain if pr else vk.traceback_plain
     np.testing.assert_array_equal(bits, plain(words, torch.tensor(start)).numpy())
+
+
+# -- the chunked 4-state passes ----------------------------------------------
+
+CHUNK4_THREADS = _constant("viterbi_acs.cu", "kChunk4Threads")
+ACS_CHUNK_WORDS = _constant("viterbi_acs.cu", "kAcsChunkWords")
+TB_CHUNK_WORDS = _constant("viterbi_acs.cu", "kTbChunkWords")
+CHUNK_T = 600                    # 24 x 25 steps: W = 600 / C + 256 <= T for C >= 2
+# W mod 4 = 0, 3, 2, 1 (every front padding) at T = CHUNK_T
+CHUNK_COUNTS = (2, 8, 12, 24)
+
+
+def _chunk_lanes(n_chunks: int, lanes: int):
+    """The chunk-lanes of the launch: every (block, thread) of the grid of
+    kChunk4Threads-thread blocks, lc = block * threads + thread, those past
+    C L returning at once; (c, l) of the others."""
+    n = n_chunks * lanes
+    lc = np.arange(-(-n // CHUNK4_THREADS) * CHUNK4_THREADS)
+    lc = lc[lc < n]
+    return lc, lc // lanes, lc % lanes
+
+
+def _acs4_step(o: np.ndarray, m: list):
+    """acs4_step on every chunk-lane in float32, one rounding per
+    operation: the decision byte assembled from the x1 mask and the Z2
+    masks by x1, as the kernel does, and the metrics renormalized."""
+    d = []
+    for v in range(8):
+        t = o - (np.float32(2 * v - 7) + _PILOT)
+        d.append(t * t)
+    p, z = [], [np.zeros(o.shape, np.uint32), np.zeros(o.shape, np.uint32)]
+    for j in range(4):
+        p.append(np.minimum(d[j], d[j + 4]))
+        z[j >> 1] |= np.where(d[j + 4] < d[j], np.uint32(0x88 if j & 1 else 0x22), np.uint32(0))
+    nm, x = [], np.zeros(o.shape, np.uint32)
+    for s in range(4):
+        a, b = s >> 1, s & 1
+        c0, c1 = m[2 * b + a] + p[b], m[2 * b + 1 - a] + p[2 + b]
+        x |= np.where(c1 < c0, np.uint32(1 << (2 * s)), np.uint32(0))
+        nm.append(np.minimum(c0, c1))
+    mn = np.minimum(np.minimum(nm[0], nm[1]), np.minimum(nm[2], nm[3]))
+    m[:] = [v - mn for v in nm]
+    x2 = x << np.uint32(1)
+    return x | (x2 & z[1]) | (~x2 & z[0])
+
+
+def _emulate_acs_chunked(obs: np.ndarray, m_in: np.ndarray, n_chunks: int, inv=None):
+    """acs_forward_chunked_kernel, every thread at once: the peeled front
+    word with its pad inert steps, the whole groups of kAcsChunkWords
+    words read from registers filled one group ahead (the row pointer
+    advanced a row a load), the last words one at a time. Returns
+    (decisions (ceil(W/4), C L) int32, metrics (4, C L))."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    steps, lanes = obs.shape
+    _, w, starts, _ = _chunk_plan(steps, n_chunks, vk.WARMUP)
+    lc, c, l = _chunk_lanes(n_chunks, lanes)
+    pad, words = -w % 4, -(-w // 4)
+    row = starts[c].copy()                             # the next row of each thread
+    m = [m_in[s, lc].astype(np.float32) for s in range(4)]
+    dec = np.zeros((words, n_chunks * lanes), np.uint32)
+
+    def load():
+        nonlocal row
+        o = obs[row, l]
+        row = row + 1
+        return o
+
+    def step(o):
+        return _acs4_step(o if inv is None else o.astype(np.float32) * np.float32(inv), m)
+
+    word = np.zeros(lc.shape, np.uint32)
+    for k in range(pad, 4):
+        word |= step(load()) << np.uint32(8 * k)
+    dec[0, lc] = word
+    out = 1
+    groups = (words - 1) // ACS_CHUNK_WORDS
+    size = 4 * ACS_CHUNK_WORDS
+    cur = [load() for _ in range(size)] if groups else None
+    for g in range(groups):
+        nxt = [load() for _ in range(size)] if g + 1 < groups else cur
+        for j in range(ACS_CHUNK_WORDS):
+            word = np.zeros(lc.shape, np.uint32)
+            for k in range(4):
+                word |= step(cur[4 * j + k]) << np.uint32(8 * k)
+            dec[out, lc] = word
+            out += 1
+        cur = nxt
+    for _ in range(1 + groups * ACS_CHUNK_WORDS, words):
+        word = np.zeros(lc.shape, np.uint32)
+        for k in range(4):
+            word |= step(load()) << np.uint32(8 * k)
+        dec[out, lc] = word
+        out += 1
+    assert out == words and (row == starts[c] + w).all()   # every window row read once
+    m_out = np.zeros((4, n_chunks * lanes), np.float32)
+    for s in range(4):
+        m_out[s, lc] = m[s]
+    return dec.view(np.int32), m_out
+
+
+def test_chunked_design_constants():
+    """One warp a block; whole words a forward group; the traceback's
+    words in flight fit the registers a thread has to spare."""
+    assert CHUNK4_THREADS == 32 and 1 <= ACS_CHUNK_WORDS <= 8 and 1 <= TB_CHUNK_WORDS <= 16
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    assert sorted(-_chunk_plan(CHUNK_T, c, vk.WARMUP)[1] % 4 for c in CHUNK_COUNTS) == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("lanes", [1, 12, 13])
+@pytest.mark.parametrize("n_chunks", CHUNK_COUNTS)
+def test_acs_chunked_model_equals_plain(n_chunks, lanes):
+    """T=600 in C = 2, 8, 12, 24 windows (every front padding, 0-3 inert
+    steps; the last words outside the whole groups), one lane, one
+    channel and 13 lanes (a warp of chunk-lanes from several chunks): the
+    emulated kernel's decisions and final metrics equal
+    acs_forward_chunked_plain bit for bit on float32 levels and int8
+    codes, chunk 0 from a cold start."""
+    from atsc_tpu_torch.ops.quantize import SOFT_LEVEL_INV, quantize_soft_levels
+
+    rng = np.random.default_rng(n_chunks * 100 + lanes)
+    lv = 2.0 * rng.integers(0, 8, (CHUNK_T, lanes)) - 7.0 + float(_PILOT)
+    obs = torch.tensor((lv + 0.5 * rng.standard_normal(lv.shape)).astype(np.float32))
+    m_in = torch.zeros((4, n_chunks * lanes))
+    m_in[1:, :lanes] = 1e9
+    for x, inv in ((obs, None), (quantize_soft_levels(obs), SOFT_LEVEL_INV)):
+        dec, m_out = _emulate_acs_chunked(x.numpy(), m_in.numpy(), n_chunks, inv)
+        want_dec, want_m = vk.acs_forward_chunked_plain(x, m_in, n_chunks, inv)
+        np.testing.assert_array_equal(dec, want_dec.numpy())
+        np.testing.assert_array_equal(m_out.view(np.int32), want_m.numpy().view(np.int32))
+
+
+def _chain4x(w: np.ndarray, u: np.ndarray):
+    """chain4x on every lane: (the output word, the doubled state before
+    the word)."""
+    v = (w & np.uint32(0x55555555)) ^ np.uint32(0xD8D8D8D8)
+    word = np.zeros(w.shape, np.uint32)
+    for k in range(3, -1, -1):
+        vk_ = v >> np.uint32(8 * k - 1) if k else v << np.uint32(1)
+        word += (((w >> np.uint32(8 * k)) >> u) & np.uint32(3)) << np.uint32(8 * k)
+        u = (vk_ >> u) & np.uint32(6)
+    return word, u
+
+
+def _emulate_tb_chunked(dec: np.ndarray, start: np.ndarray, steps: int, n_chunks: int):
+    """traceback_chunked_kernel, chunk by chunk, every lane of a chunk at
+    once: the partial word at the window's top step by step, the whole
+    words from decision words funnel-shifted by 8 (base mod 4) out of a
+    ring of kTbChunkWords registers refilled kTbChunkWords words ahead,
+    the partial word at the kept region's bottom. Counts every write of
+    every output byte, whole-word stores apart, and checks each byte is
+    written once and whole words only inside a kept region. Returns bits
+    (T/4, L) int32."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    length, w, starts, _ = _chunk_plan(steps, n_chunks, vk.WARMUP)
+    lanes = dec.shape[1] // n_chunks
+    dec = dec.view(np.uint32)
+    out = np.zeros((steps // 4, lanes), np.uint32)
+    writes = np.zeros((steps, lanes), np.int64)
+    pad, g_n = -w % 4, TB_CHUNK_WORDS
+    for c in range(n_chunks):
+        col = dec[:, c * lanes:(c + 1) * lanes]
+        t0, t1, row0 = c * length, (c + 1) * length, int(starts[c])
+        base = pad - row0
+        e, r = base >> 2, base & 3
+        u = 2 * start[c * lanes:(c + 1) * lanes].astype(np.uint32)
+
+        def emit(j, word, whole):
+            lo, hi = max(4 * j, t0), min(4 * j + 3, t1 - 1)
+            if whole:
+                assert hi - lo == 3 and 4 * j >= t0 and 4 * j + 3 < t1
+            for t in range(lo, hi + 1):
+                b = np.uint32(8 * (t & 3))
+                out[j] = (out[j] & ~(np.uint32(0xFF) << b)) | (((word >> b) & 0xFF) << b)
+                writes[t] += 1
+
+        def partial(hi_t, lo_t):
+            nonlocal u
+            word = np.zeros(lanes, np.uint32)
+            for t in range(hi_t, lo_t - 1, -1):
+                q = t + base
+                byte = (col[q >> 2] >> np.uint32(8 * (q & 3))) & np.uint32(0xFF)
+                word |= ((byte >> u) & np.uint32(3)) << np.uint32(8 * (t & 3))
+                u = (((((byte & 0x55) ^ 0xD8) << 1).astype(np.uint32)) >> u) & np.uint32(6)
+            return word
+
+        t = row0 + w - 1
+        if t & 3 != 3:
+            lo = max(t & ~3, t0)
+            emit(t >> 2, partial(t, lo), False)
+            t = lo - 1
+        jhi, jlo = (t + 1) // 4 - 1, (t0 + 3) >> 2
+        if t >= t0 and jhi >= jlo:
+            hi_w = col[jhi + e + 1] if r else np.zeros(lanes, np.uint32)
+            buf = [col[jhi - g + e] if jhi - g >= jlo else None for g in range(g_n)]
+            nxt = jhi + e - g_n
+            for j0 in range(jhi, jlo - 1, -g_n):
+                for g in range(g_n):
+                    j = j0 - g
+                    if j < jlo:
+                        break
+                    lo_w = buf[g]
+                    assert lo_w is not None and (lo_w == col[j + e]).all()
+                    if j - g_n >= jlo:
+                        buf[g] = col[nxt]
+                    nxt -= 1
+                    a = ((hi_w.astype(np.uint64) << np.uint64(32)) | lo_w) >> np.uint64(8 * r)
+                    word, u = _chain4x((a & 0xFFFFFFFF).astype(np.uint32), u)
+                    hi_w = lo_w
+                    emit(j, word, j < t1 >> 2)
+            t = 4 * jlo - 1
+        if t >= t0:
+            emit(t >> 2, partial(t, t0), False)
+    assert (writes == 1).all()
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["real", "random", "unmerged"])
+@pytest.mark.parametrize("lanes", [1, 12, 13])
+@pytest.mark.parametrize("n_chunks", CHUNK_COUNTS)
+def test_tb_chunked4_model_equals_plain(n_chunks, lanes, kind):
+    """T=600 in C = 2, 8, 12, 24 windows (every front padding; kept
+    regions of 300, 75, 50 and 25 steps, so boundary words shared by two
+    chunks at C = 8 and 24), 1, 12 and 13 lanes: the emulated chunked
+    traceback writes every output byte once and equals
+    traceback_chunked_plain bit for bit on the forward pass's decisions,
+    random words and words on which no two chains ever merge."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    w = _chunk_plan(CHUNK_T, n_chunks, vk.WARMUP)[1]
+    rows, n = -(-w // 4), n_chunks * lanes
+    seed = n_chunks * 100 + lanes
+    if kind == "real":
+        rng = np.random.default_rng(seed)
+        lv = 2.0 * rng.integers(0, 8, (CHUNK_T, lanes)) - 7.0 + float(_PILOT)
+        obs = torch.tensor((lv + 0.5 * rng.standard_normal(lv.shape)).astype(np.float32))
+        m_in = torch.zeros((4, n))
+        m_in[1:, :lanes] = 1e9
+        d, m_out = vk.acs_forward_chunked_plain(obs, m_in, n_chunks)
+        dec, start = d.numpy(), torch.argmin(m_out, dim=0).to(torch.int32).numpy()
+    else:
+        dec, start = _tb_decisions(False, kind, 4 * rows, n, seed)
+    bits = _emulate_tb_chunked(dec, start, CHUNK_T, n_chunks)
+    want = vk.traceback_chunked_plain(torch.tensor(dec), torch.tensor(start), CHUNK_T, n_chunks)
+    np.testing.assert_array_equal(bits, want.numpy())

@@ -27,6 +27,15 @@ trees' kernels, on one CUDA device at B=384:
               per block, kTcChannels = 16 against 8; cf32,
               cs16 and cs8 windows (random IQ and its codes), hard, soft and
               soft-code outputs
+  chunked     acs_forward_chunked (float32 and int8) and traceback_chunked
+              (csrc/viterbi_acs.cu, the chunked 4-state passes) at B=384
+              and B=1 for C = 2 and 24 chunks: words a
+              register group of the forward pass, kAcsChunkWords = 4 (this
+              tree) against 2; decision words in flight in the traceback,
+              kTbChunkWords = 8 against 4 and 16; threads per block,
+              kChunk4Threads = 32 against 64; on noisy 8-level soft
+              levels, their int8 codes and the forward pass's decisions;
+              and the instructions of each build's loops (below)
 
 A variant is a copy of this tree's source with that one constant changed;
 each build is compiled here with the package's nvcc flags into
@@ -36,11 +45,19 @@ with CUDA events, the second pass in the reverse order of the first. One
 JSON line per build and case: {"kernel", "build", "ms", "identical",
 "max_abs_err", ...}, compared with this tree's build; the first line is
 nvidia-smi's name and power limit. Exit 1 if a build fails or differs
-from this tree's build beyond the kernel's limit: pr_acs and acs in any
-bit (decisions and final metrics); tb in any bit; offset_fir by more
+from this tree's build beyond the kernel's limit: pr_acs, acs and chunked
+in any bit (decisions and final metrics); tb in any bit; offset_fir by more
 than 2e-6 (cf32) or 1 LSB (codes); eq_fir by more than 1e-4 in a soft
 level, or in a hard symbol or soft code other than by 1 within 1e-4 of a
 decision boundary (chip_smoke phase 7's limits).
+
+For `chunked` it also disassembles each build's library (cuobjdump -sass
+beside nvcc) and prints, per chunked 4-state kernel, the instructions of
+its largest loop and of one trellis step of it: the loop's count over the
+steps one pass of it walks (4 kAcsChunkWords and 4 kTbChunkWords where the
+source defines them; else the earlier forms' one word, 4 steps, and one
+step), the listing of those kernels written to
+atsc_tpu_torch/_build/ab/sass/<build>.txt.
 
 Usage: python tools/torch_kernel_ab.py [--kernels NAME ...]
        [--earlier DIR ...] [--batch 384] [--iters 10]
@@ -91,7 +108,11 @@ KERNELS = {
     "tb": ("viterbi_acs", vk, (("kTbChunks", 16, (8, 32)), ("kPrTbChunks", 8, (16, 32)),
                                 ("kTbLanes", 32, (16, 8)))),
     "eq_fir": ("eq_fir", eqk, (("kTilesPerWarp", 4, (2,)), ("kTcChannels", 16, (8,)))),
+    "chunked": ("viterbi_acs", vk, (("kAcsChunkWords", 4, (2,)), ("kTbChunkWords", 8, (4, 16)),
+                                    ("kChunk4Threads", 32, (64,)))),
 }
+CHUNKS = (2, 24)     # chunked: the chunk counts
+CHUNKED_SASS = ("acs_forward_chunked_kernel", "traceback_chunked_kernel")
 FIR_FORMATS = (("cf32", False), ("cs16", False), ("cs8", False), ("cs16", True),
                ("cs8", True))
 FIR_TIMED = (("cf32", False), ("cs16", False), ("cs8", True))
@@ -422,6 +443,114 @@ def ab_tb(libs, names, dev, gen, args) -> bool:
     return ok
 
 
+def ab_chunked(libs, names, dev, gen, args) -> bool:
+    """acs_forward_chunked (float32 levels and their int8 codes) and
+    traceback_chunked on that pass's decisions, at B=args.batch and B=1 for
+    each of CHUNKS; chunk 0 starts cold, the others flat."""
+    ok = True
+    for b in (args.batch, 1):
+        lanes = b * P.TRELLIS_ENCODERS
+        ideal = torch.randint(0, 8, (STEPS, lanes), device=dev, generator=gen).float() * 2 - 7
+        obs = ideal + P.PILOT_OFFSET + 0.5 * torch.randn(ideal.shape, device=dev, generator=gen)
+        codes = quantize_soft_levels(obs)
+        del ideal
+        for c in CHUNKS:
+            m4 = torch.zeros((4, c * lanes), device=dev)
+            m4[1:, :lanes] = 1e9
+            with routed(vk, libs["this tree"]):
+                dec, mo = vk.acs_forward_chunked(obs, m4, c)
+            start = torch.argmin(mo, dim=0).to(torch.int32)
+            cases = {
+                ("acs_forward_chunked", "float32"): lambda c=c, m4=m4: vk.acs_forward_chunked(
+                    obs, m4, c),
+                ("acs_forward_chunked", "int8"): lambda c=c, m4=m4: vk.acs_forward_chunked(
+                    codes, m4, c, SOFT_LEVEL_INV),
+                ("traceback_chunked", "forward"): lambda c=c, dec=dec, start=start:
+                    vk.traceback_chunked(dec, start, STEPS, c),
+            }
+            for (kernel, case), fn in cases.items():
+                def run(n, fn=fn):
+                    with routed(vk, libs[n]):
+                        return fn()
+
+                outs = {n: run(n) for n in names}
+                times = in_turns(names, run, args.iters)
+                want = outs["this tree"]
+                for n in names:
+                    got = outs[n]
+                    pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+                    same = all(torch.equal(g, w) for g, w in pairs)
+                    ok &= same
+                    emit(kernel=kernel, build=n, case=case, batch=b, chunks=c, steps=STEPS,
+                         lanes=lanes, ms=times[n], identical=same)
+                del outs
+            del dec, mo
+        del obs, codes
+    return ok
+
+
+def loops(listing: str) -> dict:
+    """cuobjdump -sass text -> {function: [instruction count of each loop,
+    from a label to a branch back to it]}."""
+    out, name, ins, labels, branches = {}, None, [], {}, []
+
+    def close():
+        if name is not None:
+            out[name] = sorted((i - labels[t] + 1 for i, t in branches if t in labels
+                                and labels[t] <= i), reverse=True)
+
+    for line in listing.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            close()
+            name, ins, labels, branches = fn.group(1), [], {}, []
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(ins)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name is not None:
+            labels["0x" + m.group(1).lstrip("0").lower()] = len(ins)
+            br = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", m.group(2))
+            if br:
+                branches.append((len(ins), br.group(1).lower() if br.group(1).startswith("0x")
+                                 else br.group(1)))
+            ins.append(m.group(2))
+    close()
+    return out
+
+
+def _sass_kernel(function: str) -> str | None:
+    """The chunked 4-state kernel a mangled function name instantiates."""
+    return next((k for k in CHUNKED_SASS if k in function and "pr_" + k not in function), None)
+
+
+def sass(libs: dict, plan: dict) -> None:
+    """The chunked 4-state kernels' loops per build (see the module note)."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out_dir = os.path.join(AB_DIR, "sass")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, lib in libs.items():
+        listing = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                                 check=True).stdout
+        text = plan[("chunked", name)]
+        per_pass = {}
+        for kernel, const, earlier in (("acs_forward_chunked_kernel", "kAcsChunkWords", 4),
+                                       ("traceback_chunked_kernel", "kTbChunkWords", 1)):
+            found = re.search(rf"constexpr int {const} = (\d+);", text)
+            per_pass[kernel] = 4 * int(found.group(1)) if found else earlier
+        for fn, sizes in loops(listing).items():
+            kernel = _sass_kernel(fn)
+            if kernel and sizes:
+                emit(kernel=kernel, build=name, function=fn, loop_instructions=sizes[0],
+                     steps_a_pass=per_pass[kernel], per_step=sizes[0] / per_pass[kernel],
+                     other_loops=sizes[1:])
+        with open(os.path.join(out_dir, re.sub(r"\W", "_", name) + ".txt"), "w") as fh:
+            fh.writelines("Function : " + part for part in listing.split("Function : ")[1:]
+                          if _sass_kernel(part.split(None, 1)[0]))
+
+
 def ab_eq_fir(libs, names, dev, gen, args) -> bool:
     """The fast tier on a random cf32 window and its cs16/cs8 codes."""
     from atsc_tpu_torch.models.receiver import _osc_planar
@@ -507,6 +636,9 @@ def main(argv=None) -> int:
             ok &= ab_eq_fir(libs[kernel], names, dev, gen, args)
         elif kernel == "tb":
             ok &= ab_tb(libs[kernel], names, dev, gen, args)
+        elif kernel == "chunked":
+            sass(libs[kernel], plan)
+            ok &= ab_chunked(libs[kernel], names, dev, gen, args)
         else:
             ok &= ab_trellis(kernel, libs[kernel], names, dev, gen, args)
         torch.cuda.empty_cache()
