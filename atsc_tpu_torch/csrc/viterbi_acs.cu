@@ -960,93 +960,465 @@ traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restr
     emit_edge(t >> 2, partial(t, t0));
 }
 
-// decisions (W, C L) int32 in the exact pass's layout
+// The chunked PR passes: every thread of a chunk-lane walks its whole
+// window, in blocks of kChunkThreads threads.
+//
+// Forward (pr_acs_forward_chunked_kernel): T threads a chunk-lane (T = 1,
+// 2 or 4, pr_lane_threads), the 16 states split by s2 into groups of the 4
+// h'. New group s2 reads only predecessor groups pred0(s2) (its even h',
+// x1 = 0) and pred0(s2) ^ 1 (odd h'): groups {0, 2} read {0, 1}, groups
+// {1, 3} read {2, 3}, and a group's delayed reference levels depend only
+// on its parity (pr_level). A step is four pr_group calls:
+// - T = 1: the thread runs all four, the levels as immediates;
+// - T = 2: thread b runs new groups 3b ("kept", from its own old group K
+//   and the received R) and 2 - b ("sent", from R and K); it keeps the
+//   kept one and sends the other, with its half minimum, by 5 xor shuffles
+//   a step, each thread renormalizing what it holds (K = g0 / g3, R = g1 /
+//   g2), so no value is chosen by a select;
+// - T = 4: quad lane q = 2p + j runs one group (j = 0: kept of pair p,
+//   j = 1: sent), fetching its two predecessor groups by 8 indexed shuffles
+//   of the raw metrics and the minimum by 2 xor shuffles.
+// The obs and rc of kPrGroupSteps T steps are loaded one group ahead into
+// registers through row pointers; a warp with no reset step in a group
+// runs it with the reference levels as they are, one with a reset step
+// selects the sync level per step (8 selects). The two pair compares and
+// the pick (c1 < c0, c3 < c2, m23 < m01) are the sign bits of three FADDs,
+// shifted into the decision word a bit per funnel shift: the compares run
+// on the FMA pipe, and the ALU pipe (half rate) keeps the minima and the
+// shifts (compares and ORs under their predicates, one instruction fewer
+// a state all on the ALU pipe, ran 7 % slower at C = 24). What bounds it is issue: the float ops are fixed (248 a step in
+// the reference's order, no FMA, and the per-step renormalization's 15
+// FMNMX and 16 FSUB) and the loop is 397 instructions a chunk-lane step at
+// T = 1 (cuobjdump -sass; 213 a thread at T = 2, 130 at T = 4), against
+// 409 for the form with 64 reset selects and a 64-bit row multiply a step.
+// Measured on an H100 at B = 384 (tools/torch_kernel_ab.py --kernels
+// chunked): C = 24, T = 1, 1.82 ms against 2.19, at 89 % of one
+// instruction a cycle on the busiest schedulers (7 warps each of the
+// 3,456); C = 8, T = 2, 1.90 against 2.54 (2.07 at T = 1); C = 2, T = 4,
+// 2.76 against 6.16; at B = 1 T = 4 is 2.5-2.8x T = 1 (C = 24: 0.13
+// against 0.35 ms, the parent 0.40). Groups of 2T steps keep a group's code near 800 instructions a
+// thread: at T = 1 groups of 4 steps took 1.89 ms at C = 24, of 8 (96
+// registers, not all warps resident) 2.78.
+//
+// Traceback (pr_traceback_chunked_kernel): the walk runs over output words
+// in stream order, each a 4-step chain (pr_chain4) over the words of its 4
+// steps, built in a register and stored whole. kPrTbAhead decision words
+// are in flight as cp.async copies into a ring of output words in shared
+// memory (this thread's column; each word's copies one group), the slots of
+// a word refilled as soon as they are read. Only a kept region's boundary
+// words, which two chunk-lanes share when T / C is not a multiple of 4, are
+// stored byte by byte, and a partial word at the window's top or the kept
+// region's bottom is walked step by step. Measured as above: C = 24, 0.21
+// ms against 0.52 (the bytes bound 0.165); C = 2, 0.35 against 4.30, where
+// 8 words loaded ahead into registers took 0.95 (16 and 32 words in
+// registers were slower still).
+constexpr int kPrLaneThreads = 0;    // forward: threads a chunk-lane, 0: chosen from C L
+constexpr int kPrGroupSteps = 2;     // forward: steps a register group, per thread a chunk-lane
+constexpr int kPrTbAhead = 32;       // traceback: decision words in flight
+
+// E_b[h] = 4h + 2b - 7: the level that h' = h emits in a group of parity b,
+// and the delayed reference level of hypothesis h of a predecessor group
+// of parity b
+__device__ __forceinline__ float pr_level(int b, int h) {
+  return static_cast<float>(4 * h + 2 * b - 7);
+}
+
+// One group: the new metrics n[h'] of the 4 states h' of one s2 from the
+// predecessor groups x0 (x1 = 0: h' = 0, 2) and x1 (x1 = 1: h' = 1, 3),
+// with their reference levels e0, e1 and a[h'] = obs - the level h' emits.
+// Shifts the group's 8 decision bits into bits from below (bits 2h', 2h'+1
+// = the pick of h'). c1 - c0 is negative exactly when c1 < c0 (finite
+// candidates, never -0: x + t*t rounds -0 + +0 to +0), so its sign bit is
+// the strict compare.
+__device__ __forceinline__ void pr_group(const float (&a)[4], const float (&x0)[4],
+                                         const float (&x1)[4], const float (&e0)[4],
+                                         const float (&e1)[4], float (&n)[4], uint32_t& bits) {
+#pragma unroll
+  for (int h1 = 3; h1 >= 0; --h1) {
+    const float (&x)[4] = h1 & 1 ? x1 : x0;
+    const float (&e)[4] = h1 & 1 ? e1 : e0;
+    float c[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float tt = __fadd_rn(a[h1], e[h]);
+      c[h] = __fadd_rn(x[h], __fmul_rn(tt, tt));
+    }
+    const float m01 = fminf(c[0], c[1]), m23 = fminf(c[2], c[3]);
+    const uint32_t d01 = __float_as_uint(__fsub_rn(c[1], c[0]));
+    const uint32_t d23 = __float_as_uint(__fsub_rn(c[3], c[2]));
+    const uint32_t dp = __float_as_uint(__fsub_rn(m23, m01));
+    n[h1] = fminf(m01, m23);
+    bits = __funnelshift_l(dp, bits, 1);                        // pick = m23 < m01
+    bits = __funnelshift_l((dp & d23) | (~dp & d01), bits, 1);  // pick ? c3 < c2 : c1 < c0
+  }
+}
+
+// The reference levels of a step: pe[b][h] = E_b[h], or the sync level on a
+// reset step (kReset only)
+template <bool kReset>
+__device__ __forceinline__ void pr_refs(const float (&lv)[2][4], bool rst, float sync,
+                                        float (&pe)[2][4]) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) pe[b][h] = kReset && rst ? sync : lv[b][h];
+}
+
+__device__ __forceinline__ float min4(const float (&v)[4]) {
+  return fminf(fminf(v[0], v[1]), fminf(v[2], v[3]));
+}
+
+// What one thread of a chunk-lane holds between steps, per T; step() runs
+// one step and returns its decision word (bits 2u, 2u+1 = the pick of state
+// u), whole in every thread of the chunk-lane.
+template <int T>
+struct PrLane;
+
+template <>
+struct PrLane<1> {
+  float m[4][4];   // by group s2, then h'
+  __device__ PrLane(int, const float* m_in, int64_t n, int64_t lc) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) m[u >> 2][u & 3] = m_in[u * n + lc];
+  }
+  template <bool kReset>
+  __device__ __forceinline__ uint32_t step(float o, bool rst, float sync) {
+    float lv[2][4], pe[2][4], a[2][4];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        lv[b][h] = pr_level(b, h);
+        a[b][h] = __fsub_rn(o, lv[b][h]);
+      }
+    pr_refs<kReset>(lv, rst, sync, pe);
+    float nm[4][4];
+    uint32_t word = 0;   // the groups' bits, s2 = 3 first
+#pragma unroll
+    for (int s2 = 3; s2 >= 0; --s2) {
+      const int sp = pred0(s2);
+      pr_group(a[s2 & 1], m[sp], m[sp ^ 1], pe[sp & 1], pe[(sp & 1) ^ 1], nm[s2], word);
+    }
+    const float mn = fminf(fminf(min4(nm[0]), min4(nm[1])), fminf(min4(nm[2]), min4(nm[3])));
+#pragma unroll
+    for (int s2 = 0; s2 < 4; ++s2)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) m[s2][h] = __fsub_rn(nm[s2][h], mn);
+    return word;
+  }
+  __device__ void store(float* m_out, int64_t n, int64_t lc) const {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) m_out[u * n + lc] = m[u >> 2][u & 3];
+  }
+};
+
+// Thread b: K = old group 3b, R = old group 1 + b; new group 3b (kept) from
+// x1 = 0: K, x1 = 1: R, new group 2 - b (sent) from x1 = 0: R, x1 = 1: K.
+// K's reference levels are E_b, R's E_(1-b), the emitted ones E_b.
+template <>
+struct PrLane<2> {
+  float k[4], r[4];
+  float lv[2][4];   // E_b, E_(1-b)
+  uint32_t sel;     // __byte_perm: the kept group's byte to 3b, the sent one's to 2 - b
+  int b;
+  __device__ PrLane(int q, const float* m_in, int64_t n, int64_t lc) : b(q) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      k[h] = m_in[(12 * b + h) * n + lc];
+      r[h] = m_in[(4 + 4 * b + h) * n + lc];
+      lv[0][h] = pr_level(b, h);
+      lv[1][h] = pr_level(1 - b, h);
+    }
+    sel = b ? 0x0141u : 0x1410u;
+  }
+  template <bool kReset>
+  __device__ __forceinline__ uint32_t step(float o, bool rst, float sync) {
+    float pe[2][4], a[4], kept[4], sent[4];
+    pr_refs<kReset>(lv, rst, sync, pe);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) a[h] = __fsub_rn(o, lv[0][h]);
+    uint32_t bk = 0, bs = 0;
+    pr_group(a, k, r, pe[0], pe[1], kept, bk);
+    pr_group(a, r, k, pe[1], pe[0], sent, bs);
+    const float half = fminf(min4(kept), min4(sent));
+    const float mn = fminf(half, __shfl_xor_sync(kFull, half, 1));
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      r[h] = __fsub_rn(__shfl_xor_sync(kFull, sent[h], 1), mn);
+      k[h] = __fsub_rn(kept[h], mn);
+    }
+    const uint32_t part = __byte_perm(bk, bs, sel);
+    return part | __shfl_xor_sync(kFull, part, 1);
+  }
+  __device__ void store(float* m_out, int64_t n, int64_t lc) const {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      m_out[(12 * b + h) * n + lc] = k[h];
+      m_out[(4 + 4 * b + h) * n + lc] = r[h];
+    }
+  }
+};
+
+// Quad lane q = 2p + j runs new group g(q) = j ? 2 - p : 3p (0, 2, 3, 1)
+// from x0 = j ? R_p : K_p and x1 = the other, K_p = old group 3p (quad lane
+// 2p's) and R_p = old group 1 + p (quad lane 3 - 2p's); x0's reference
+// levels are E_(p^j), x1's E_(1-(p^j)), the emitted ones E_p.
+template <>
+struct PrLane<4> {
+  float x0[4], x1[4], own[4], mn;
+  float lv[4], e[2][4];
+  int src0, src1, g;
+  __device__ PrLane(int q, const float* m_in, int64_t n, int64_t lc) {
+    const int p = q >> 1, j = q & 1;
+    src0 = j ? 3 - 2 * p : 2 * p;
+    src1 = j ? 2 * p : 3 - 2 * p;
+    g = j ? 2 - p : 3 * p;
+    const int g0 = j ? 1 + p : 3 * p, g1 = j ? 3 * p : 1 + p;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      x0[h] = m_in[(4 * g0 + h) * n + lc];
+      x1[h] = m_in[(4 * g1 + h) * n + lc];
+      own[h] = 0.0f;
+      lv[h] = pr_level(p, h);
+      e[0][h] = pr_level(p ^ j, h);
+      e[1][h] = pr_level(1 - (p ^ j), h);
+    }
+    mn = 0.0f;
+  }
+  template <bool kReset>
+  __device__ __forceinline__ uint32_t step(float o, bool rst, float sync) {
+    float pe[2][4], a[4];
+    pr_refs<kReset>(e, rst, sync, pe);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) a[h] = __fsub_rn(o, lv[h]);
+    uint32_t bits = 0;
+    pr_group(a, x0, x1, pe[0], pe[1], own, bits);
+    float m = min4(own);
+    m = fminf(m, __shfl_xor_sync(kFull, m, 1));
+    mn = fminf(m, __shfl_xor_sync(kFull, m, 2));
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      x0[h] = __fsub_rn(__shfl_sync(kFull, own[h], src0, 4), mn);
+      x1[h] = __fsub_rn(__shfl_sync(kFull, own[h], src1, 4), mn);
+    }
+    uint32_t part = bits << (8 * g);
+    part |= __shfl_xor_sync(kFull, part, 1);
+    return part | __shfl_xor_sync(kFull, part, 2);
+  }
+  __device__ void store(float* m_out, int64_t n, int64_t lc) const {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) m_out[(4 * g + h) * n + lc] = __fsub_rn(own[h], mn);
+  }
+};
+
+// decisions (W, C L) int32 in the exact pass's layout; thread q of
+// chunk-lane lc is thread T lc + q, and stores the decision words of the
+// steps p with p mod T = q. Threads past the last chunk-lane in a warp that
+// holds one run along (the shuffles take the whole warp) and store nothing.
+template <int T>
 __global__ void __launch_bounds__(kChunkThreads)
 pr_acs_forward_chunked_kernel(const float* __restrict__ obs, const int32_t* __restrict__ rc,
                               const float* __restrict__ m_in, int32_t* __restrict__ dec,
                               float* __restrict__ m_out, ChunkPlan plan) {
-  const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  constexpr int G = kPrGroupSteps * T;   // steps a register group
+  static_assert(kChunkThreads % 32 == 0, "whole warps");
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
   const int64_t n = plan.chunk_lanes();
-  if (lc >= n) return;
+  if ((tid - threadIdx.x % 32) / T >= n) return;   // the whole warp lies past the end
+  const int q = static_cast<int>(tid % T);
+  const bool valid = tid / T < n;
+  const int64_t lc = valid ? tid / T : n - 1;
   const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
   const size_t stride = static_cast<size_t>(plan.lanes);
   const int row0 = plan.start(c);
-  const float* src = obs + static_cast<size_t>(row0) * stride + l;
+  const float* src = obs + static_cast<size_t>(row0) * stride + l;   // the next row
   const int32_t* rsrc = rc + static_cast<size_t>(row0) * 12 + l % 12;
-  float m[16];
+  int32_t* out = dec + lc;
+  PrLane<T> lane(q, m_in, n, lc);
+  auto put = [&](int p, uint32_t word) {
+    if (valid && p % T == q) *out = static_cast<int32_t>(word);
+    out += n;
+  };
+  float o_cur[G], o_nxt[G];
+  int32_t r_cur[G], r_nxt[G];
+  auto fetch = [&](float (&o)[G], int32_t (&r)[G]) {
 #pragma unroll
-  for (int u = 0; u < 16; ++u) m[u] = m_in[u * n + lc];
-  float o_next = src[0];
-  int32_t r_next = rsrc[0];
+    for (int i = 0; i < G; ++i) {
+      o[i] = *src;
+      r[i] = rsrc[12 * i];
+      src += stride;
+    }
+    rsrc += 12 * G;
+  };
+  const int groups = plan.window / G;
+  if (groups > 0) fetch(o_cur, r_cur);
 #pragma unroll 1
-  for (int p = 0; p < plan.window; ++p) {
-    const float o = o_next;
-    const int32_t r = r_next;
-    if (p + 1 < plan.window) {
-      o_next = src[static_cast<size_t>(p + 1) * stride];
-      r_next = rsrc[static_cast<size_t>(p + 1) * 12];
+  for (int g = 0; g < groups; ++g) {
+    if (g + 1 < groups) fetch(o_nxt, r_nxt);
+    int32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < G; ++i) any |= r_cur[i];
+    if (__any_sync(kFull, any & 1)) {   // a reset step in the warp's group
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        put(g * G + i,
+            lane.template step<true>(o_cur[i], r_cur[i] & 1, (r_cur[i] >> 1) == 1 ? 5.0f : -5.0f));
+    } else {
+#pragma unroll
+      for (int i = 0; i < G; ++i) put(g * G + i, lane.template step<false>(o_cur[i], false, 0.0f));
     }
-    const bool reset = r & 1;
-    const float sync = (r >> 1) == 1 ? 5.0f : -5.0f;
-    float nm[16];
-    uint32_t word = 0;
 #pragma unroll
-    for (int u = 0; u < 16; ++u) {  // u = s2*4 + h'
-      const int s2 = u >> 2, h1 = u & 3;
-      const int sp = pred0(s2) ^ (h1 & 1);
-      const float a = __fsub_rn(o, static_cast<float>(2 * (2 * h1 + (s2 & 1)) - 7));
-      float cand[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const float pe = reset ? sync : static_cast<float>(2 * (2 * h + (sp & 1)) - 7);
-        const float tt = __fadd_rn(a, pe);
-        cand[h] = __fadd_rn(m[sp * 4 + h], __fmul_rn(tt, tt));
-      }
-      const float m01 = fminf(cand[0], cand[1]);
-      const uint32_t i01 = cand[1] < cand[0];
-      const float m23 = fminf(cand[2], cand[3]);
-      const uint32_t i23 = cand[3] < cand[2];
-      const bool pick = m23 < m01;
-      nm[u] = fminf(m01, m23);
-      word |= (pick ? 2u + i23 : i01) << (2 * u);
+    for (int i = 0; i < G; ++i) {
+      o_cur[i] = o_nxt[i];
+      r_cur[i] = r_nxt[i];
     }
-    float mn = nm[0];
-#pragma unroll
-    for (int u = 1; u < 16; ++u) mn = fminf(mn, nm[u]);
-#pragma unroll
-    for (int u = 0; u < 16; ++u) m[u] = __fsub_rn(nm[u], mn);
-    dec[static_cast<size_t>(p) * n + lc] = static_cast<int32_t>(word);
   }
-#pragma unroll
-  for (int u = 0; u < 16; ++u) m_out[u * n + lc] = m[u];
+#pragma unroll 1
+  for (int p = groups * G; p < plan.window; ++p) {   // the last W mod G steps
+    const int32_t r = *rsrc;
+    put(p, lane.template step<true>(*src, r & 1, (r >> 1) == 1 ? 5.0f : -5.0f));
+    src += stride;
+    rsrc += 12;
+  }
+  if (valid) lane.store(m_out, n, lc);
 }
 
+// Threads a chunk-lane of the chunked PR forward pass for n chunk-lanes:
+// kPrLaneThreads where it is set, else 4 up to kPrSplit4 (B = 1 at any C,
+// B = 384 at C = 2: one thread a chunk-lane leaves schedulers idle), 2 up
+// to kPrSplit2 (B = 384 at C = 8), then 1, which issues the fewest
+// instructions a chunk-lane (B = 384 at C = 24 and 92).
+constexpr int64_t kPrSplit4 = 9216, kPrSplit2 = 65536;   // chunk-lanes
+
+inline int pr_lane_threads(int64_t n) {
+  if (kPrLaneThreads > 0) return kPrLaneThreads;
+  return n <= kPrSplit4 ? 4 : n <= kPrSplit2 ? 2 : 1;
+}
+
+// The PR predecessor groups as a table at bits 2s: pred0(s >> 2) ^ (s & 1)
+// for combined state s = 4 s2 + h'.
+__host__ __device__ constexpr uint32_t pr_pred_table() {
+  uint32_t t = 0;
+  for (int s = 0; s < 16; ++s) t |= static_cast<uint32_t>(pred0(s >> 2) ^ (s & 1)) << (2 * s);
+  return t;
+}
+
+// A 4-byte copy from global to shared memory that holds no register while
+// it is in flight (cp.async), its commit and the wait for all but the N
+// newest groups of this thread's copies.
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One PR traceback step from the doubled state u = 2s (s the combined
+// state at the step) and the step's decision word w: the doubled state
+// before it, 2 (pred << 2 | the pick of s).
+__device__ __forceinline__ uint32_t pr_back(uint32_t w, uint32_t u) {
+  return (((pr_pred_table() >> u) & 3u) << 3) | (((w >> u) & 3u) << 1);
+}
+
+// One chain over the words w[3], w[2], w[1], w[0] of 4 steps, last step
+// first, from the doubled state u: the output word (byte k = x1 | z2<<1 =
+// s & 3 at step k); u becomes the doubled state before step 0.
+__device__ __forceinline__ uint32_t pr_chain4(const uint32_t (&w)[4], uint32_t& u) {
+  uint32_t v[4];
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    v[k] = u;
+    u = pr_back(w[k], u);
+  }
+  const uint32_t lo = __byte_perm(v[0], v[1], 0x0040u), hi = __byte_perm(v[2], v[3], 0x0040u);
+  return (__byte_perm(lo, hi, 0x5410u) >> 1) & 0x03030303u;
+}
 
 // The chunked PR traceback: chunk-lane lc walks its window from `start` at
 // its last step down to its kept region's first, writing the kept steps'
-// x1 | z2<<1 bytes at stream steps start(c) + p of lane l's (T/4, L)
-// column (byte k of word i = step 4i + k), one byte a step.
+// x1 | z2<<1 bytes into lane l's column of the (T/4, L) output (byte k of
+// word j = stream step 4j + k); stream step t is decision row t - start(c).
 __global__ void __launch_bounds__(kChunkThreads)
 pr_traceback_chunked_kernel(const int32_t* __restrict__ dec, const int32_t* __restrict__ start,
                             int32_t* __restrict__ bits, ChunkPlan plan) {
+  constexpr int GW = kPrTbAhead / 4;   // output words in flight
+  static_assert(kPrTbAhead % 4 == 0, "whole output words");
+  __shared__ uint32_t ring[GW][4][kChunkThreads];
   const int64_t lc = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
   const int64_t n = plan.chunk_lanes();
   if (lc >= n) return;
   const int c = static_cast<int>(lc / plan.lanes), l = static_cast<int>(lc % plan.lanes);
-  const int row0 = plan.start(c), keep0 = plan.offset(c), keep1 = keep0 + plan.length;
-  uint8_t* out = reinterpret_cast<uint8_t*>(bits);
-  uint32_t s = static_cast<uint32_t>(start[lc]);
-#pragma unroll 1
-  for (int p = plan.window - 1; p >= keep0; --p) {
-    const uint32_t w = static_cast<uint32_t>(dec[static_cast<size_t>(p) * n + lc]);
-    const uint32_t sel = s & 3u;  // x1 | z2<<1 of combined state s
-    const uint32_t h_prev = (w >> (2 * s)) & 3u, s2 = s >> 2;
-    s = ((((s2 & 1u) << 1) | (s2 >> 1)) ^ (s & 1u)) << 2 | h_prev;
-    if (p < keep1) {
-      const size_t t = static_cast<size_t>(row0) + p;
-      out[((t / 4) * plan.lanes + l) * 4 + t % 4] = static_cast<uint8_t>(sel);
+  const int t0 = c * plan.length, t1 = t0 + plan.length;   // the kept stream steps [t0, t1)
+  const int row0 = plan.start(c);
+  const int32_t* dcol = dec + lc;   // stream step t at dcol[(t - row0) n]
+  int32_t* ocol = bits + l;         // output word j at ocol[j L]
+  const int64_t lanes = plan.lanes;
+  auto emit_edge = [&](int j, uint32_t word) {   // word j's kept bytes
+    const int lo = max(4 * j, t0), hi = min(4 * j + 3, t1 - 1);
+    if (hi - lo == 3)
+      ocol[j * lanes] = static_cast<int32_t>(word);
+    else if (lo <= hi)
+      store_bytes(ocol + j * lanes, word, lo, hi);
+  };
+  uint32_t u = 2u * static_cast<uint32_t>(start[lc]);   // the doubled state
+  auto partial = [&](int hi_t, int lo_t) {   // steps hi_t down to lo_t of one word
+    uint32_t word = 0;
+    for (int t = hi_t; t >= lo_t; --t) {
+      word |= ((u >> 1) & 3u) << (8 * (t & 3));
+      u = pr_back(static_cast<uint32_t>(dcol[(t - row0) * n]), u);
     }
+    return word;
+  };
+  int t = row0 + plan.window - 1;   // the next stream step to walk
+  if ((t & 3) != 3) {               // a partial word at the window's top
+    const int lo = max(t & ~3, t0);
+    emit_edge(t >> 2, partial(t, lo));
+    t = lo - 1;
   }
+  // whole words jhi down to jlo, word j's step 4j + k copied into ring[j mod
+  // GW][k] of this thread GW words ahead
+  const int jhi = (t + 1) / 4 - 1, jlo = (t0 + 3) >> 2;
+  if (t >= t0 && jhi >= jlo) {
+    const int jk = t1 >> 2;           // words below jk lie whole in the kept region
+    uint32_t* col = &ring[0][0][threadIdx.x];
+    auto fetch = [&](int j) {         // word j's rows, one copy group (empty below jlo)
+      if (j >= jlo) {
+        const int32_t* src = dcol + (4 * j - row0) * n;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          cp_async4(col + ((j % GW) * 4 + k) * kChunkThreads, src + k * n);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < GW; ++i) fetch(jhi - i);
+    int32_t* o = ocol + jhi * lanes;
+#pragma unroll 1
+    for (int j = jhi; j >= jlo; --j) {
+      cp_async_wait<GW - 1>();        // word j's group is in
+      const uint32_t* r = col + (j % GW) * 4 * kChunkThreads;
+      const uint32_t w[4] = {r[0], r[kChunkThreads], r[2 * kChunkThreads], r[3 * kChunkThreads]};
+      const uint32_t word = pr_chain4(w, u);
+      fetch(j - GW);                  // into the slots just read
+      if (j < jk)
+        *o = static_cast<int32_t>(word);
+      else
+        emit_edge(j, word);   // above the kept region, or its top boundary word
+      o -= lanes;
+    }
+    t = 4 * jlo - 1;
+  }
+  if (t >= t0)                      // a partial word at the kept region's bottom
+    emit_edge(t >> 2, partial(t, t0));
 }
 
 }  // namespace
@@ -1154,9 +1526,19 @@ int atsc_pr_acs_forward_chunked(int device, const float* obs, const int32_t* rc,
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const ChunkPlan plan = make_plan(steps, lanes, chunks);
   if (bad_plan(plan)) return static_cast<int>(cudaErrorInvalidValue);
-  pr_acs_forward_chunked_kernel<<<chunk_grid(plan, kChunkThreads), kChunkThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(obs, rc, m_in, dec,
-                                                                       m_out, plan);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int lane_threads = pr_lane_threads(plan.chunk_lanes());
+  const int blocks = static_cast<int>((plan.chunk_lanes() * lane_threads + kChunkThreads - 1) /
+                                      kChunkThreads);
+  if (lane_threads == 4)
+    pr_acs_forward_chunked_kernel<4><<<blocks, kChunkThreads, 0, st>>>(obs, rc, m_in, dec, m_out,
+                                                                       plan);
+  else if (lane_threads == 2)
+    pr_acs_forward_chunked_kernel<2><<<blocks, kChunkThreads, 0, st>>>(obs, rc, m_in, dec, m_out,
+                                                                       plan);
+  else
+    pr_acs_forward_chunked_kernel<1><<<blocks, kChunkThreads, 0, st>>>(obs, rc, m_in, dec, m_out,
+                                                                       plan);
   return static_cast<int>(cudaGetLastError());
 }
 

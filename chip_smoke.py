@@ -228,8 +228,15 @@ CHUNKED_DESIGN = {
     "traceback": "blocks of one warp; output words in stream order, each one funnel shift of "
                  "two decision words and one 4-step chain on doubled states, 8 words in "
                  "flight, whole-word stores, kept-region boundary words byte by byte",
-    "pr_acs_forward": "64 threads per block, one step a loop pass",
-    "pr_traceback": "64 threads per block, one step a loop pass, kept steps byte by byte",
+    "pr_acs_forward": "64 threads per block; T threads a chunk-lane chosen from C L (4 up to "
+                      "9,216 chunk-lanes, 2 up to 65,536, then 1), the 16 states split by s2 "
+                      "into groups of 4 (T=2: 5 xor shuffles a step, T=4: 10 shuffles); obs "
+                      "and rc of 2T-step groups one group ahead in registers; a warp-uniform "
+                      "no-reset path; the pick and pair compares as FADD sign bits gathered "
+                      "by funnel shifts",
+    "pr_traceback": "64 threads per block; output words in stream order, each a 4-step chain, "
+                    "32 decision words in flight through a cp.async ring in shared memory, "
+                    "whole-word stores, kept-region boundary words byte by byte",
 }
 EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
              "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
@@ -2185,7 +2192,8 @@ def viterbi_chunked(dev) -> dict:
     """Phase 26: the chunked instantiations of the four Viterbi kernels
     against their plain twins on the card, bit for bit, at B=384 and B=1 for
     every chunk count of CHUNKS (float32 and int8 4-state passes, the PR
-    pass with its reset steps, both tracebacks), each timed beside its
+    pass with its reset steps: every window of every C holds one for every
+    encoder, checked first; both tracebacks), each timed beside its
     bound; the soft, soft-i8 and NTSC decode steps at B=384 and B=1, exact
     against chunked, timed in rounds (_timed_rounds); then B=8 at
     CHUNK_SNR_DB through IqReceiver, chunked TS equal to the exact TS (the
@@ -2203,9 +2211,14 @@ def viterbi_chunked(dev) -> dict:
 
     t = P.TRELLIS_SYMBOLS_PER_ENCODER
     gen = torch.Generator(dev).manual_seed(26)
-    rc = torch.tensor(vk._pr_rc_table(), device=dev)
+    rc_np = vk._pr_rc_table()
+    rc = torch.tensor(rc_np, device=dev)
     per = {k: {} for k in vk.KERNELS}
     checks = {}
+    for c in CHUNKS:   # the PR pass's reset branch runs in every window, for every encoder
+        _, w, starts, _ = _chunk_plan(t, c, vk.WARMUP)
+        check(all(bool((rc_np[s:s + w] & 1).any(axis=0).all()) for s in starts),
+              f"C={c}: a window of {w} steps holds no reset step for some encoder")
     for b in (B_FULL, 1):
         l = 12 * b
         ideal = (torch.randint(0, 8, (t + 1, l), generator=gen, device=dev).float() * 2 - 7

@@ -46,9 +46,20 @@ sources, so a wrong map shows here without a card:
   on doubled states, whole-word stores inside a kept region and bytes on
   its boundary words, written once each), and must equal
   acs_forward_chunked_plain / traceback_chunked_plain bit for bit at
-  window lengths of every residue mod 4.
+  window lengths of every residue mod 4;
+- the chunked PR models replay pr_acs_forward_chunked_kernel at 1, 2 and
+  4 threads a chunk-lane (the state split by s2 with its shuffle sources,
+  the groups of steps read from rows loaded a group ahead, the
+  warp-uniform no-reset path, the decision bits from the sign bits of
+  float32 differences, the store owner of each word) and
+  pr_traceback_chunked_kernel (output words as 4-step chains over a ring
+  of words copied ahead, stream realignment by start(c), whole words
+  inside a kept region and bytes on its boundary words, each written
+  once), and must equal pr_acs_forward_chunked_plain /
+  pr_traceback_chunked_plain bit for bit with reset steps in every window.
 """
 
+import functools
 import importlib.util
 import os
 import re
@@ -895,13 +906,6 @@ def _emulate_acs_chunked(obs: np.ndarray, m_in: np.ndarray, n_chunks: int, inv=N
     return dec.view(np.int32), m_out
 
 
-def test_chunked_design_constants():
-    """One warp a block; whole words a forward group; the traceback's
-    words in flight fit the registers a thread has to spare."""
-    assert CHUNK4_THREADS == 32 and 1 <= ACS_CHUNK_WORDS <= 8 and 1 <= TB_CHUNK_WORDS <= 16
-    from atsc_tpu_torch.ops.viterbi import _chunk_plan
-
-    assert sorted(-_chunk_plan(CHUNK_T, c, vk.WARMUP)[1] % 4 for c in CHUNK_COUNTS) == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("lanes", [1, 12, 13])
@@ -1041,3 +1045,371 @@ def test_tb_chunked4_model_equals_plain(n_chunks, lanes, kind):
     bits = _emulate_tb_chunked(dec, start, CHUNK_T, n_chunks)
     want = vk.traceback_chunked_plain(torch.tensor(dec), torch.tensor(start), CHUNK_T, n_chunks)
     np.testing.assert_array_equal(bits, want.numpy())
+
+
+# -- the chunked PR passes -----------------------------------------------------
+
+PR_LANE_THREADS = _constant("viterbi_acs.cu", "kPrLaneThreads")
+PR_GROUP_STEPS = _constant("viterbi_acs.cu", "kPrGroupSteps")
+PR_TB_AHEAD = _constant("viterbi_acs.cu", "kPrTbAhead")
+CHUNK_THREADS = _constant("viterbi_acs.cu", "kChunkThreads")
+PR_SPLIT = tuple(int(x) for x in re.search(                 # kPrSplit4, kPrSplit2
+    r"constexpr int64_t kPrSplit4 = (\d+), kPrSplit2 = (\d+);", _source("viterbi_acs.cu")).groups())
+_F32 = np.float32
+
+
+def _pr_lane_threads(n: int) -> int:
+    """pr_lane_threads: threads a chunk-lane for n chunk-lanes."""
+    if PR_LANE_THREADS > 0:
+        return PR_LANE_THREADS
+    return 4 if n <= PR_SPLIT[0] else 2 if n <= PR_SPLIT[1] else 1
+
+
+def _pr_level(b, h):
+    """E_b[h] = 4h + 2b - 7 (b, h arrays or ints), float32."""
+    return (4 * np.asarray(h) + 2 * np.asarray(b) - 7).astype(_F32)
+
+
+def _pr_group(a, x0, x1, e0, e1, bits):
+    """pr_group on every thread (arrays (4, N) by h' or h, float32): the new
+    metrics of the group and bits with the group's 8 decision bits shifted
+    in, from the sign bits of three float32 differences a state."""
+    n = np.empty(a.shape, _F32)
+    for h1 in range(3, -1, -1):
+        x, e = (x1, e1) if h1 & 1 else (x0, e0)
+        tt = a[h1] + e
+        c = x + tt * tt
+        m01, m23 = np.minimum(c[0], c[1]), np.minimum(c[2], c[3])
+        d01, d23 = (c[1] - c[0]).view(np.uint32), (c[3] - c[2]).view(np.uint32)
+        dp = (m23 - m01).view(np.uint32)
+        n[h1] = np.minimum(m01, m23)
+        bits = (bits << np.uint32(1)) | (dp >> np.uint32(31))
+        bits = (bits << np.uint32(1)) | (((dp & d23) | (~dp & d01)) >> np.uint32(31))
+    return n, bits
+
+
+def _emulate_pr_chunked(obs: np.ndarray, rc: np.ndarray, m_in: np.ndarray, n_chunks: int,
+                        threads: int | None = None):
+    """pr_acs_forward_chunked_kernel<T>, every thread of the launch at once (T
+    = threads, else pr_lane_threads): thread tid runs chunk-lane tid / T,
+    warps past the last chunk-lane return, the others run along; groups of
+    kPrGroupSteps T steps read from rows loaded a group ahead; a warp takes
+    the no-reset path unless one of its threads has a reset step in the
+    group; the state split with its shuffle sources (T = 2: the kept group
+    and the sent one by xor 1; T = 4: each thread's two predecessor groups
+    from quad lanes src0 / src1, the minimum by xor 1 and 2); the decision
+    word's owner stores it. Returns (decisions (W, C L) int32, metrics (16,
+    C L), the no-reset and reset groups run by warps)."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    steps, lanes = obs.shape
+    _, w, starts, _ = _chunk_plan(steps, n_chunks, vk.WARMUP)
+    n = n_chunks * lanes
+    t = threads or _pr_lane_threads(n)
+    g_steps = PR_GROUP_STEPS * t
+    tid = np.arange(-(-n * t // CHUNK_THREADS) * CHUNK_THREADS)
+    tid = tid[(tid - tid % 32) // t < n]                 # whole warps past the end return
+    q, valid = tid % t, tid // t < n
+    lc = np.minimum(tid // t, n - 1)
+    c, l = lc // lanes, lc % lanes
+    row = starts[c].copy()                               # each thread's next row
+    warp = (tid - tid[0]) // 32
+    dec = np.zeros((w, n), np.int64)
+    stores = np.zeros((w, n), np.int64)
+    e = [_pr_level(0, np.arange(4)[:, None]), _pr_level(1, np.arange(4)[:, None])]
+
+    def shuffle(v, src):                                  # v (..., N) from thread src
+        assert ((src - src % 32) == (tid - tid % 32)).all()   # inside the warp
+        return v[..., src - tid[0]]
+
+    def held(groups):                                     # m_in's groups (N,) -> (4, N)
+        return np.stack([m_in[4 * groups + h, lc] for h in range(4)]).astype(_F32)
+
+    hs = np.arange(4)[:, None]
+    m = k = r = x0 = x1 = last = None
+    if t == 1:                                            # m[s2]: group s2
+        m = np.stack([held(np.full(tid.shape, s2)) for s2 in range(4)])
+    elif t == 2:                                          # K = group 3b, R = group 1 + b
+        k, r = held(3 * q), held(1 + q)
+        lv = [_pr_level(q, hs), _pr_level(1 - q, hs)]
+    else:                                                 # quad lane q = 2p + j
+        p, j = q >> 1, q & 1
+        src0 = tid - q + np.where(j == 1, 3 - 2 * p, 2 * p)
+        src1 = tid - q + np.where(j == 1, 2 * p, 3 - 2 * p)
+        g = np.where(j == 1, 2 - p, 3 * p)
+        x0, x1 = held(np.where(j == 1, 1 + p, 3 * p)), held(np.where(j == 1, 3 * p, 1 + p))
+        lv, f0, f1 = _pr_level(p, hs), _pr_level(p ^ j, hs), _pr_level(1 - (p ^ j), hs)
+
+    def refs(lvl, rst, sync):                             # pr_refs
+        return np.where(rst, sync, lvl).astype(_F32)
+
+    def step(o, rst, sync):
+        nonlocal m, k, r, x0, x1, last
+        zero = np.zeros(tid.shape, np.uint32)
+        if t == 1:
+            a = [o - e[0], o - e[1]]
+            pe = [refs(e[0], rst, sync), refs(e[1], rst, sync)]
+            nm, word = [None] * 4, zero
+            for s2 in range(3, -1, -1):
+                sp = int(_pred0(s2))
+                nm[s2], word = _pr_group(a[s2 & 1], m[sp], m[sp ^ 1], pe[sp & 1],
+                                         pe[(sp & 1) ^ 1], word)
+            mn = np.min(np.stack(nm), axis=(0, 1))
+            m = np.stack(nm) - mn
+            return word
+        if t == 2:
+            pe = [refs(lv[0], rst, sync), refs(lv[1], rst, sync)]
+            a = o - lv[0]
+            kept, bk = _pr_group(a, k, r, pe[0], pe[1], zero)
+            sent, bs = _pr_group(a, r, k, pe[1], pe[0], zero)
+            half = np.minimum(kept.min(0), sent.min(0))
+            mn = np.minimum(half, shuffle(half, tid ^ 1))
+            r, k = shuffle(sent, tid ^ 1) - mn, kept - mn
+            part = np.where(q == 0, bk | (bs << np.uint32(16)),          # __byte_perm
+                            (bk << np.uint32(24)) | (bs << np.uint32(8)))
+            return part | shuffle(part, tid ^ 1)
+        pe = [refs(f0, rst, sync), refs(f1, rst, sync)]
+        own, bits = _pr_group(o - lv, x0, x1, pe[0], pe[1], zero)   # own: group g
+        mm = own.min(0)
+        mm = np.minimum(mm, shuffle(mm, tid ^ 1))
+        mn = np.minimum(mm, shuffle(mm, tid ^ 2))
+        x0, x1 = shuffle(own, src0) - mn, shuffle(own, src1) - mn
+        last = own - mn                                   # group g, renormalized
+        part = bits << (8 * g).astype(np.uint32)
+        part |= shuffle(part, tid ^ 1)
+        return part | shuffle(part, tid ^ 2)
+
+    def load():
+        nonlocal row
+        o, rr = obs[row, l], rc[row, l % 12]
+        row = row + 1
+        return o.astype(_F32), rr
+
+    def put(pstep, word):                                 # the owner of step pstep stores
+        mine = valid & (pstep % t == q)
+        dec[pstep, lc[mine]] = word[mine]
+        stores[pstep, lc[mine]] += 1
+
+    groups, runs = w // g_steps, [0, 0]
+    cur = [load() for _ in range(g_steps)] if groups else []
+    for gi in range(groups):
+        nxt = [load() for _ in range(g_steps)] if gi + 1 < groups else cur
+        rst_any = np.zeros(tid.shape, bool)
+        for _, rr in cur:
+            rst_any |= (rr & 1) == 1
+        slow = np.zeros(warp.max() + 1, bool)
+        np.logical_or.at(slow, warp, rst_any)                # __any_sync
+        slow = slow[warp]
+        runs[0] += int((~slow[::32]).sum())
+        runs[1] += int(slow[::32].sum())
+        for i, (o, rr) in enumerate(cur):
+            rst = slow & ((rr & 1) == 1)                      # the no-reset path selects nothing
+            sync = np.where((rr >> 1) == 1, _F32(5), _F32(-5))
+            put(gi * g_steps + i, step(o, rst, sync))
+        cur = nxt
+    for pstep in range(groups * g_steps, w):                # the last W mod G steps
+        o, rr = load()
+        put(pstep, step(o, (rr & 1) == 1, np.where((rr >> 1) == 1, _F32(5), _F32(-5))))
+    assert (row == starts[c] + w).all() and (stores == 1).all()
+    m_out = np.zeros((16, n), _F32)
+    held_out = ([(np.full(tid.shape, s2), m[s2]) for s2 in range(4)] if t == 1 else
+                [(3 * q, k), (1 + q, r)] if t == 2 else [(g, last)])
+    for groups_, v in held_out:
+        for h in range(4):
+            m_out[4 * groups_[valid] + h, lc[valid]] = v[h, valid]
+    dec = np.where(dec >= 1 << 31, dec - (1 << 32), dec).astype(np.int32)
+    return dec, m_out, runs
+
+
+@functools.lru_cache(maxsize=None)
+def _pr_chunk_case(n_chunks: int, lanes: int):
+    """(obs, rc, m_in, decisions, final metrics) of pr_acs_forward_chunked_plain
+    on the comb (one encoder step back) of noisy 8-level symbols over CHUNK_T
+    steps with the field's first CHUNK_T rc rows (reset steps at 0, 69 and
+    138 mod 207, so in every window), chunk 0 from a cold start."""
+    rng = np.random.default_rng(n_chunks * 100 + lanes)
+    lev = 2.0 * rng.integers(0, 8, (CHUNK_T + 1, lanes)) - 7.0
+    lev = lev + 0.5 * rng.standard_normal(lev.shape)
+    obs = (lev[1:] - lev[:-1]).astype(np.float32)
+    rc = np.ascontiguousarray(vk._pr_rc_table()[:CHUNK_T])
+    m_in = np.zeros((16, n_chunks * lanes), np.float32)
+    m_in[1:, :lanes] = 1e9
+    dec, m_out = vk.pr_acs_forward_chunked_plain(torch.tensor(obs), torch.tensor(rc),
+                                                 torch.tensor(m_in), n_chunks)
+    return obs, rc, m_in, dec.numpy(), m_out.numpy()
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4])
+@pytest.mark.parametrize("lanes", [1, 12, 13])
+@pytest.mark.parametrize("n_chunks", CHUNK_COUNTS)
+def test_pr_chunked_model_equals_plain(n_chunks, lanes, threads):
+    """T=600 in C = 2, 8, 12, 24 windows (every W mod 4 and start(c) mod 4)
+    with reset steps inside every window, 1, 12 and 13 lanes, 1, 2 and 4
+    threads a chunk-lane: the emulated kernel's decisions and final metrics
+    equal pr_acs_forward_chunked_plain bit for bit, with warps on both the
+    no-reset and the reset path."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    obs, rc, m_in, want_dec, want_m = _pr_chunk_case(n_chunks, lanes)
+    _, w, starts, _ = _chunk_plan(CHUNK_T, n_chunks, vk.WARMUP)
+    assert all(((rc[s:s + w] & 1) == 1).any(0).all() for s in starts)
+    dec, m_out, runs = _emulate_pr_chunked(obs, rc, m_in, n_chunks, threads)
+    np.testing.assert_array_equal(dec, want_dec)
+    np.testing.assert_array_equal(m_out.view(np.int32), want_m.view(np.int32))
+    assert runs[0] > 0 and runs[1] > 0
+
+
+def _pr_pred_table() -> int:
+    """pr_pred_table: pred0(s >> 2) ^ (s & 1) at bits 2s."""
+    return sum(int(_pred0(s >> 2) ^ (s & 1)) << (2 * s) for s in range(16))
+
+
+def _pr_back(w: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """pr_back on every lane: the doubled state before a step."""
+    tab = np.uint32(_pr_pred_table())
+    three = np.uint32(3)
+    return (((tab >> u) & three) << np.uint32(3)) | (((w >> u) & three) << np.uint32(1))
+
+
+def _emulate_pr_tb_chunked(dec: np.ndarray, start: np.ndarray, steps: int, n_chunks: int):
+    """pr_traceback_chunked_kernel, chunk by chunk, every lane of a chunk at
+    once: the partial word at the window's top step by step, the whole
+    words each a 4-step chain over the rows a ring of kPrTbAhead / 4 words
+    copied ahead holds (word j in slot j mod the ring, refilled with word j
+    minus the ring once word j is read), the partial word at the kept
+    region's bottom; stream step t is decision row t - start(c). Counts
+    every write of every output byte and checks each is written once and
+    whole words only inside a kept region. Returns bits (T/4, L) int32."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    length, w, starts, _ = _chunk_plan(steps, n_chunks, vk.WARMUP)
+    lanes = dec.shape[1] // n_chunks
+    dec = dec.view(np.uint32)
+    out = np.zeros((steps // 4, lanes), np.uint32)
+    writes = np.zeros((steps, lanes), np.int64)
+    gw = PR_TB_AHEAD // 4
+    for c in range(n_chunks):
+        col = dec[:, c * lanes:(c + 1) * lanes]
+        t0, t1, row0 = c * length, (c + 1) * length, int(starts[c])
+        u = 2 * start[c * lanes:(c + 1) * lanes].astype(np.uint32)
+
+        def emit(j, word, whole):
+            lo, hi = max(4 * j, t0), min(4 * j + 3, t1 - 1)
+            if whole:
+                assert hi - lo == 3 and 4 * j >= t0 and 4 * j + 3 < t1
+            for t in range(lo, hi + 1):
+                b = np.uint32(8 * (t & 3))
+                out[j] = (out[j] & ~(np.uint32(0xFF) << b)) | (((word >> b) & 0xFF) << b)
+                writes[t] += 1
+
+        def partial(hi_t, lo_t):
+            nonlocal u
+            word = np.zeros(lanes, np.uint32)
+            for t in range(hi_t, lo_t - 1, -1):
+                word |= ((u >> np.uint32(1)) & np.uint32(3)) << np.uint32(8 * (t & 3))
+                u = _pr_back(col[t - row0], u)
+            return word
+
+        t = row0 + w - 1
+        if t & 3 != 3:
+            lo = max(t & ~3, t0)
+            emit(t >> 2, partial(t, lo), False)
+            t = lo - 1
+        jhi, jlo = (t + 1) // 4 - 1, (t0 + 3) >> 2
+        if t >= t0 and jhi >= jlo:
+            ring = [None] * gw                           # (word, its 4 rows) a slot
+
+            def fetch(j):
+                if j >= jlo:
+                    ring[j % gw] = (j, [col[4 * j + k - row0] for k in range(4)])
+
+            for i in range(gw):
+                fetch(jhi - i)
+            for j in range(jhi, jlo - 1, -1):
+                held_j, rows = ring[j % gw]
+                assert held_j == j                        # the slot holds word j
+                v = []
+                for k in range(3, -1, -1):
+                    v.append(u)
+                    u = _pr_back(rows[k], u)
+                word = np.zeros(lanes, np.uint32)
+                for k, uk in zip(range(3, -1, -1), v):
+                    word |= ((uk >> np.uint32(1)) & np.uint32(3)) << np.uint32(8 * k)
+                fetch(j - gw)
+                emit(j, word, j < t1 >> 2)
+            t = 4 * jlo - 1
+        if t >= t0:
+            emit(t >> 2, partial(t, t0), False)
+    assert (writes == 1).all()
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["real", "random", "unmerged"])
+@pytest.mark.parametrize("lanes", [1, 12, 13])
+@pytest.mark.parametrize("n_chunks", CHUNK_COUNTS)
+def test_pr_tb_chunked_model_equals_plain(n_chunks, lanes, kind):
+    """T=600 in C = 2, 8, 12, 24 windows (start(c) of every residue mod 4;
+    kept regions of 300, 75, 50 and 25 steps, so boundary words shared by
+    two chunks at C = 8 and 24), 1, 12 and 13 lanes: the emulated word-wise
+    traceback writes every output byte once and equals
+    pr_traceback_chunked_plain bit for bit on the forward pass's decisions,
+    random words and words on which no two chains ever merge."""
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    w = _chunk_plan(CHUNK_T, n_chunks, vk.WARMUP)[1]
+    n = n_chunks * lanes
+    if kind == "real":
+        *_, dec, m_out = _pr_chunk_case(n_chunks, lanes)
+        start = np.argmin(m_out, axis=0).astype(np.int32)
+    else:
+        dec, start = _tb_decisions(True, kind, w, n, n_chunks * 100 + lanes)
+    bits = _emulate_pr_tb_chunked(dec, start, CHUNK_T, n_chunks)
+    want = vk.pr_traceback_chunked_plain(torch.tensor(dec), torch.tensor(start), CHUNK_T,
+                                         n_chunks)
+    np.testing.assert_array_equal(bits, want.numpy())
+
+
+def test_chunked_design_constants():
+    """4-state: one warp a block; whole words a forward group; the
+    traceback's words in flight fit the registers a thread has to spare.
+    PR: whole warps a block; 1, 2 or 4 threads a chunk-lane (or chosen at
+    launch: 4 up to kPrSplit4 chunk-lanes, B=1 and B=384 at C=2; 2 up to
+    kPrSplit2, B=384 at C=8; 1 beyond, B=384 at C=24 and 92); a forward
+    group of a few steps a thread; the traceback's ring of whole words in
+    static shared memory; its predecessor table the trellis' own. T=600
+    windows have every W mod 4."""
+    from atsc_tpu_torch.ops.ntsc import _pr_tables
+    from atsc_tpu_torch.ops.viterbi import _chunk_plan
+
+    assert CHUNK4_THREADS == 32 and 1 <= ACS_CHUNK_WORDS <= 8 and 1 <= TB_CHUNK_WORDS <= 16
+    assert CHUNK_THREADS % 32 == 0 and PR_LANE_THREADS in (0, 1, 2, 4)
+    assert 1 <= PR_GROUP_STEPS <= 4 and PR_TB_AHEAD % 4 == 0
+    assert PR_TB_AHEAD * CHUNK_THREADS * 4 <= 48 * 1024
+    if PR_LANE_THREADS == 0:
+        assert 0 < PR_SPLIT[0] < PR_SPLIT[1]
+        assert [_pr_lane_threads(c * 12 * b) for b, c in ((1, 92), (384, 2), (384, 8), (384, 24))] \
+            == [4, 4, 2, 1]
+    pred = _pr_tables()[2][:, 0] // 4                     # predecessor group of each state
+    assert [(_pr_pred_table() >> (2 * u)) & 3 for u in range(16)] == pred.tolist()
+    assert sorted(-_chunk_plan(CHUNK_T, c, vk.WARMUP)[1] % 4 for c in CHUNK_COUNTS) == [0, 1, 2, 3]
+
+
+def test_pr_chunked_state_split_and_shuffle_sources():
+    """New group s2 reads predecessor groups pred0(s2) (x1 = 0) and
+    pred0(s2) ^ 1 (x1 = 1). T = 2: thread b runs the kept group 3b from (K,
+    R) = old groups (3b, 1 + b) and the sent group 2 - b from (R, K); it
+    keeps the kept one, the next K, and its partner's sent one is its next
+    R. T = 4: quad lane q = 2p + j runs group j ? 2 - p : 3p and fetches its
+    (x1 = 0, x1 = 1) groups from quad lanes src0 and src1, the lanes that
+    ran them."""
+    for b in (0, 1):
+        kept, sent, k, r = 3 * b, 2 - b, 3 * b, 1 + b
+        assert (_pred0(kept), _pred0(kept) ^ 1) == (k, r)
+        assert (_pred0(sent), _pred0(sent) ^ 1) == (r, k)
+        assert 2 - (1 - b) == r and (kept & 1, sent & 1) == (b, b)   # one emitted parity
+    runs = {2 * p + j: (2 - p if j else 3 * p) for p in (0, 1) for j in (0, 1)}
+    assert sorted(runs.values()) == [0, 1, 2, 3]
+    for q, g in runs.items():
+        p, j = q >> 1, q & 1
+        src0, src1 = (3 - 2 * p, 2 * p) if j else (2 * p, 3 - 2 * p)
+        assert (runs[src0], runs[src1]) == (_pred0(g), _pred0(g) ^ 1)

@@ -29,13 +29,23 @@ trees' kernels, on one CUDA device at B=384:
               soft-code outputs
   chunked     acs_forward_chunked (float32 and int8) and traceback_chunked
               (csrc/viterbi_acs.cu, the chunked 4-state passes) at B=384
-              and B=1 for C = 2 and 24 chunks: words a
+              and B=1 for C = 2 and 24 chunks (--chunks): words a
               register group of the forward pass, kAcsChunkWords = 4 (this
               tree) against 2; decision words in flight in the traceback,
               kTbChunkWords = 8 against 4 and 16; threads per block,
               kChunk4Threads = 32 against 64; on noisy 8-level soft
-              levels, their int8 codes and the forward pass's decisions;
-              and the instructions of each build's loops (below)
+              levels, their int8 codes and the forward pass's decisions.
+              The chunked PR passes, pr_acs_forward_chunked on the comb of
+              such levels with the field's reset/sign table and
+              pr_traceback_chunked on its decisions, at the same points:
+              threads a chunk-lane, kPrLaneThreads = 0 (this tree: chosen
+              from C L) against 1, 2 and 4; steps a register group per
+              thread a chunk-lane, kPrGroupSteps = 2 against 1 and 4;
+              decision words in flight in the traceback, kPrTbAhead = 32
+              against 16 and 64; threads per block, kChunkThreads = 64
+              against 32. A variant runs only the cases of the kernels
+              its constant shapes. And the instructions of each build's
+              loops (below)
 
 A variant is a copy of this tree's source with that one constant changed;
 each build is compiled here with the package's nvcc flags into
@@ -43,24 +53,30 @@ atsc_tpu_torch/_build/ab/. Every build runs on the same inputs through the
 package's own wrapper, routed to that build's library. Each is timed twice
 with CUDA events, the second pass in the reverse order of the first. One
 JSON line per build and case: {"kernel", "build", "ms", "identical",
-"max_abs_err", ...}, compared with this tree's build; the first line is
-nvidia-smi's name and power limit. Exit 1 if a build fails or differs
-from this tree's build beyond the kernel's limit: pr_acs, acs and chunked
+"max_abs_err", ...}, compared with this tree's build; the first two lines
+are nvidia-smi's name and power limit, and the card's highest SM clock.
+Exit 1 if a build fails or differs from this tree's build beyond the
+kernel's limit: pr_acs, acs and chunked
 in any bit (decisions and final metrics); tb in any bit; offset_fir by more
 than 2e-6 (cf32) or 1 LSB (codes); eq_fir by more than 1e-4 in a soft
 level, or in a hard symbol or soft code other than by 1 within 1e-4 of a
 decision boundary (chip_smoke phase 7's limits).
 
 For `chunked` it also disassembles each build's library (cuobjdump -sass
-beside nvcc) and prints, per chunked 4-state kernel, the instructions of
-its largest loop and of one trellis step of it: the loop's count over the
-steps one pass of it walks (4 kAcsChunkWords and 4 kTbChunkWords where the
-source defines them; else the earlier forms' one word, 4 steps, and one
-step), the listing of those kernels written to
+beside nvcc) and prints, per chunked kernel (each instantiation), the
+instructions of its largest loop and of one trellis step of it: the
+instructions on the loop's main path (the longest path from its head to
+its back branch through blocks that run no FSEL, where one exists: the PR
+forward pass's no-reset path; else the longest) over the steps one pass of
+it walks (4 kAcsChunkWords, 4 kTbChunkWords, kPrGroupSteps times the
+threads a chunk-lane T, and the PR traceback's one output word, 4 steps,
+where the source defines those constants; else the earlier forms' one
+word, 4 steps, and one step), and for the PR forward pass that per thread
+times T; the listing of those kernels written to
 atsc_tpu_torch/_build/ab/sass/<build>.txt.
 
 Usage: python tools/torch_kernel_ab.py [--kernels NAME ...]
-       [--earlier DIR ...] [--batch 384] [--iters 10]
+       [--earlier DIR ...] [--batch 384] [--iters 10] [--chunks 2 24]
 (DIR: a checkout of another tree inside this one, for example a `git
 archive` of the parent commit unpacked into the git-ignored .archive_check/)
 """
@@ -109,10 +125,18 @@ KERNELS = {
                                 ("kTbLanes", 32, (16, 8)))),
     "eq_fir": ("eq_fir", eqk, (("kTilesPerWarp", 4, (2,)), ("kTcChannels", 16, (8,)))),
     "chunked": ("viterbi_acs", vk, (("kAcsChunkWords", 4, (2,)), ("kTbChunkWords", 8, (4, 16)),
-                                    ("kChunk4Threads", 32, (64,)))),
+                                    ("kChunk4Threads", 32, (64,)),
+                                    ("kPrLaneThreads", 0, (1, 2, 4)), ("kPrGroupSteps", 2, (1, 4)),
+                                    ("kPrTbAhead", 32, (16, 64)), ("kChunkThreads", 64, (32,)))),
 }
 CHUNKS = (2, 24)     # chunked: the chunk counts
-CHUNKED_SASS = ("acs_forward_chunked_kernel", "traceback_chunked_kernel")
+# chunked: the kernels (longest names first) and the constants that shape each
+CHUNKED_SASS = {
+    "pr_acs_forward_chunked_kernel": ("kPrLaneThreads", "kPrGroupSteps", "kChunkThreads"),
+    "pr_traceback_chunked_kernel": ("kPrTbAhead", "kChunkThreads"),
+    "acs_forward_chunked_kernel": ("kAcsChunkWords", "kChunk4Threads"),
+    "traceback_chunked_kernel": ("kTbChunkWords", "kChunk4Threads"),
+}
 FIR_FORMATS = (("cf32", False), ("cs16", False), ("cs8", False), ("cs16", True),
                ("cs8", True))
 FIR_TIMED = (("cf32", False), ("cs16", False), ("cs8", True))
@@ -165,8 +189,24 @@ def compile_cu(tag: str, text: str, include: str) -> tuple[str, list[str]]:
                            src], capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {src}:\n{proc.stdout}{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    return lib, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    return lib, ptxas_usage(proc.stdout + proc.stderr)
+
+
+def ptxas_usage(log: str) -> list[str]:
+    """nvcc -Xptxas -v output -> one line per kernel: its name (with its
+    template argument) and its registers, spills and shared memory."""
+    out, name = [], None
+    for ln in log.splitlines():
+        fn = re.search(r"Compiling entry function '(\S+)'", ln)
+        if fn:
+            m = re.search(r"\d+((?:[a-z]+_)+kernel)(?:I(Li(\d+)E|[a-z])E)?", fn.group(1))
+            name = (m.group(1) + (f"<{m.group(3) or m.group(2)}>" if m.group(2) else "")
+                    if m else fn.group(1))
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out.append(f"{name}: {ln.strip()}")
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 class _Missing:
@@ -443,23 +483,40 @@ def ab_tb(libs, names, dev, gen, args) -> bool:
     return ok
 
 
+def shaped_by(kernel: str, name: str) -> bool:
+    """Whether build `name` runs the cases of chunked kernel `kernel`: this
+    tree and earlier trees always, a variant when its constant shapes the
+    kernel."""
+    return "=" not in name or name.split("=")[0] in CHUNKED_SASS[kernel + "_kernel"]
+
+
 def ab_chunked(libs, names, dev, gen, args) -> bool:
     """acs_forward_chunked (float32 levels and their int8 codes) and
-    traceback_chunked on that pass's decisions, at B=args.batch and B=1 for
-    each of CHUNKS; chunk 0 starts cold, the others flat."""
+    traceback_chunked on that pass's decisions, then pr_acs_forward_chunked
+    on the comb of the levels (one encoder step back) with the field's
+    reset/sign table and pr_traceback_chunked on its decisions, at
+    B=args.batch and B=1 for each of args.chunks; chunk 0 starts cold, the
+    others flat."""
     ok = True
+    rc = torch.tensor(vk._pr_rc_table(), device=dev)
     for b in (args.batch, 1):
         lanes = b * P.TRELLIS_ENCODERS
-        ideal = torch.randint(0, 8, (STEPS, lanes), device=dev, generator=gen).float() * 2 - 7
-        obs = ideal + P.PILOT_OFFSET + 0.5 * torch.randn(ideal.shape, device=dev, generator=gen)
+        ideal = torch.randint(0, 8, (STEPS + 1, lanes), device=dev, generator=gen).float() * 2 - 7
+        lev = ideal + P.PILOT_OFFSET + 0.5 * torch.randn(ideal.shape, device=dev, generator=gen)
+        obs = lev[1:].contiguous()
+        comb = (lev[1:] - lev[:-1]).contiguous()
         codes = quantize_soft_levels(obs)
-        del ideal
-        for c in CHUNKS:
+        del ideal, lev
+        for c in args.chunks:
             m4 = torch.zeros((4, c * lanes), device=dev)
             m4[1:, :lanes] = 1e9
+            m16 = torch.zeros((16, c * lanes), device=dev)
+            m16[1:, :lanes] = 1e9
             with routed(vk, libs["this tree"]):
                 dec, mo = vk.acs_forward_chunked(obs, m4, c)
+                pdec, pmo = vk.pr_acs_forward_chunked(comb, rc, m16, c)
             start = torch.argmin(mo, dim=0).to(torch.int32)
+            pstart = torch.argmin(pmo, dim=0).to(torch.int32)
             cases = {
                 ("acs_forward_chunked", "float32"): lambda c=c, m4=m4: vk.acs_forward_chunked(
                     obs, m4, c),
@@ -467,16 +524,22 @@ def ab_chunked(libs, names, dev, gen, args) -> bool:
                     codes, m4, c, SOFT_LEVEL_INV),
                 ("traceback_chunked", "forward"): lambda c=c, dec=dec, start=start:
                     vk.traceback_chunked(dec, start, STEPS, c),
+                ("pr_acs_forward_chunked", "comb"): lambda c=c, m16=m16:
+                    vk.pr_acs_forward_chunked(comb, rc, m16, c),
+                ("pr_traceback_chunked", "forward"): lambda c=c, pdec=pdec, pstart=pstart:
+                    vk.pr_traceback_chunked(pdec, pstart, STEPS, c),
             }
             for (kernel, case), fn in cases.items():
+                run_names = [n for n in names if shaped_by(kernel, n)]
+
                 def run(n, fn=fn):
                     with routed(vk, libs[n]):
                         return fn()
 
-                outs = {n: run(n) for n in names}
-                times = in_turns(names, run, args.iters)
+                outs = {n: run(n) for n in run_names}
+                times = in_turns(run_names, run, args.iters)
                 want = outs["this tree"]
-                for n in names:
+                for n in run_names:
                     got = outs[n]
                     pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
                     same = all(torch.equal(g, w) for g, w in pairs)
@@ -484,20 +547,28 @@ def ab_chunked(libs, names, dev, gen, args) -> bool:
                     emit(kernel=kernel, build=n, case=case, batch=b, chunks=c, steps=STEPS,
                          lanes=lanes, ms=times[n], identical=same)
                 del outs
-            del dec, mo
-        del obs, codes
+            del dec, mo, pdec, pmo
+        del obs, codes, comb
     return ok
 
 
 def loops(listing: str) -> dict:
-    """cuobjdump -sass text -> {function: [instruction count of each loop,
-    from a label to a branch back to it]}."""
+    """cuobjdump -sass text -> {function: [(instructions of a loop, from a
+    label to a branch back to it; its instructions on the main path), ...]},
+    largest loop first. The main path of a loop that runs an FSEL: the
+    longest path from its head to its back branch that runs none, where
+    one exists (the chunked PR forward pass's no-reset path); of any other
+    loop, the whole loop."""
     out, name, ins, labels, branches = {}, None, [], {}, []
 
     def close():
-        if name is not None:
-            out[name] = sorted((i - labels[t] + 1 for i, t in branches if t in labels
-                                and labels[t] <= i), reverse=True)
+        if name is None:
+            return
+        found = []
+        for i, t in branches:
+            if t in labels and labels[t] <= i:
+                found.append((i - labels[t] + 1, main_path(ins, labels, labels[t], i)))
+        out[name] = sorted(found, reverse=True)
 
     for line in listing.splitlines():
         fn = re.search(r"Function : (\S+)", line)
@@ -521,13 +592,49 @@ def loops(listing: str) -> dict:
     return out
 
 
+def main_path(ins: list[str], labels: dict, head: int, back: int) -> int:
+    """Instructions on the longest path from instruction `head` to the
+    back branch at `back` that runs no FSEL (forward edges only:
+    fall-through, unless the instruction is an unpredicated BRA or EXIT,
+    and forward branches inside the loop), where the loop runs an FSEL and
+    such a path exists; else all of the loop's instructions."""
+    def target(i):
+        br = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", ins[i])
+        if not br:
+            return None
+        t = br.group(1).lower() if br.group(1).startswith("0x") else br.group(1)
+        return labels.get(t)
+
+    def fsel(i):
+        return ins[i].lstrip("@!P0123456789T ").startswith("FSEL")
+
+    best = [None] * (back + 2)    # longest FSEL-free path from i to the back branch
+    if any(fsel(i) for i in range(head, back + 1)):
+        for i in range(back, head - 1, -1):
+            if fsel(i):
+                continue
+            if i == back:
+                best[i] = 1
+                continue
+            nxt = []
+            t = target(i)
+            if t is not None and i < t <= back:
+                nxt.append(t)
+            op = ins[i].strip()
+            if not ((op.startswith("BRA") or op.startswith("EXIT")) and not op.startswith("@")):
+                nxt.append(i + 1)
+            got = [best[j] for j in nxt if best[j] is not None]
+            best[i] = 1 + max(got) if got else None
+    return best[head] or back - head + 1
+
+
 def _sass_kernel(function: str) -> str | None:
-    """The chunked 4-state kernel a mangled function name instantiates."""
-    return next((k for k in CHUNKED_SASS if k in function and "pr_" + k not in function), None)
+    """The chunked kernel a mangled function name instantiates."""
+    return next((k for k in CHUNKED_SASS if k in function), None)
 
 
 def sass(libs: dict, plan: dict) -> None:
-    """The chunked 4-state kernels' loops per build (see the module note)."""
+    """The chunked kernels' loops per build (see the module note)."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out_dir = os.path.join(AB_DIR, "sass")
     os.makedirs(out_dir, exist_ok=True)
@@ -535,17 +642,25 @@ def sass(libs: dict, plan: dict) -> None:
         listing = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
                                  check=True).stdout
         text = plan[("chunked", name)]
-        per_pass = {}
-        for kernel, const, earlier in (("acs_forward_chunked_kernel", "kAcsChunkWords", 4),
-                                       ("traceback_chunked_kernel", "kTbChunkWords", 1)):
+        per_pass = {}   # steps a pass of the main loop: from its constant, else earlier forms'
+        for kernel, const, steps, earlier in (
+                ("acs_forward_chunked_kernel", "kAcsChunkWords", lambda v: 4 * v, 4),
+                ("traceback_chunked_kernel", "kTbChunkWords", lambda v: 4 * v, 1),
+                ("pr_acs_forward_chunked_kernel", "kPrGroupSteps", lambda v: v, 1),
+                ("pr_traceback_chunked_kernel", "kPrTbAhead", lambda v: 4, 1)):   # a word a pass
             found = re.search(rf"constexpr int {const} = (\d+);", text)
-            per_pass[kernel] = 4 * int(found.group(1)) if found else earlier
-        for fn, sizes in loops(listing).items():
+            per_pass[kernel] = steps(int(found.group(1))) if found else earlier
+        for fn, found in loops(listing).items():
             kernel = _sass_kernel(fn)
-            if kernel and sizes:
-                emit(kernel=kernel, build=name, function=fn, loop_instructions=sizes[0],
-                     steps_a_pass=per_pass[kernel], per_step=sizes[0] / per_pass[kernel],
-                     other_loops=sizes[1:])
+            if kernel and found:
+                (size, main), others = found[0], found[1:]
+                threads = re.search(r"kernelILi(\d)EE", fn)
+                lane_threads = int(threads.group(1)) if threads else 1
+                steps = per_pass[kernel] * lane_threads   # a PR forward group: kPrGroupSteps T
+                emit(kernel=kernel, build=name, function=fn, loop_instructions=size,
+                     main_path=main, steps_a_pass=steps, per_step=main / steps,
+                     lane_threads=lane_threads, per_lane_step=lane_threads * main / steps,
+                     other_loops=[f[0] for f in others])
         with open(os.path.join(out_dir, re.sub(r"\W", "_", name) + ".txt"), "w") as fh:
             fh.writelines("Function : " + part for part in listing.split("Function : ")[1:]
                           if _sass_kernel(part.split(None, 1)[0]))
@@ -608,12 +723,15 @@ def main(argv=None) -> int:
                     "run beside this tree's (named by the directory's last part)")
     ap.add_argument("--batch", type=int, default=384)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--chunks", type=int, nargs="*", default=list(CHUNKS),
+                    help="chunked: the chunk counts")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.cuda.set_device(dev)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
+    for query in ("name,power.limit", "clocks.max.sm"):   # the clock: for issue floors
+        print(subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
 
     plan = sources(args.kernels, args.earlier)
     tags = {k: f"{k[0]}-{i}" for i, k in enumerate(plan)}
