@@ -48,15 +48,32 @@
 // warps on an SM; 4 tiles per warp and 16 channels per block measured
 // 5-10 % faster than 2 and 8 at B = 384 (tools/torch_kernel_ab.py).
 //
-// exact (K = 256, tier 1): float32 operands on the CUDA cores. Each output
-// sums 1,026 terms; the sum is taken in chunks of 8 taps (16 terms) in
-// float32, and the chunks are added with Kahan compensation, so the level
-// stays within a few ulp of the correctly rounded sum that the plain twin
-// takes in float64 (a plain float32 chain drifts ~1e-5, the tier's whole
-// budget). Grid (ceil(260416 / 1024), B), 256 threads, 4 consecutive
-// outputs per thread over a register window of the staged samples
-// (de-interleaved by 4, conflict-free), taps in __constant__ memory at
-// compile-time indices.
+// exact (K = 256, tier 1): float32 accuracy from the tensor cores by a
+// 3 x TF32 split. Each operand x (the derotated samples in staging, the
+// taps once on the host) is split into tf32 words hi = tf32(x) and lo =
+// tf32(x - hi), and each product is taken as lo*hi + hi*lo + hi*hi: the
+// dropped lo*lo term and lo's own rounding leave x*y to within ~2^-21 of
+// itself. The tiling is the fast tier's, with bands of 32: output j =
+// 32 a + n and tap t = 32 s + k - n (n, k < 32), 17 bands, and band s's B
+// matrix is cut into 8 x 8 tap blocks C_m[k][n] = taps[8 m + k - n], m =
+// 4 s + kh - nt. mma.sync.m16n8k8 (tf32 -> f32) takes A, 16 rows of 8
+// samples, by ldmatrix.x4 from staged rows of 32 samples (re hi, re lo,
+// im hi, im lo; 528 bytes apart, conflict-free for any shift), and B by
+// two 4-byte loads a lane from a 1-D array of the hi and lo taps in shared
+// memory: the 33 x 2 x 2 band matrices would take ~1,000 registers a lane
+// or 132 KB of shared memory, the 1-D array takes 9 KB. A block of 4
+// warps stages 4,096 outputs of one channel (4,608 samples: derotated,
+// split) and each warp holds 2 tiles of 16 x 32 outputs across the band
+// loop, so one band's 7 tap blocks (per plane, hi and lo) load once for
+// both tiles. The tensor cores' float32 sums round toward zero, not to
+// nearest, so each output sums chunks of 4 k-steps (32 taps of one plane)
+// from zero, hi*hi in one accumulator and the two small products in
+// another, and the chunks are added on the CUDA cores with Kahan
+// compensation: the level stays within a few ulp of the correctly rounded
+// sum that the plain twin takes in float64 (a plain float32 chain drifts
+// ~1e-5, the tier's whole budget; a CPU model that rounds every k-step
+// and every accumulation toward zero stays within 3e-6,
+// tests/test_torch_kernel_design.py).
 //
 // The Mosaic geometry of the TPU kernel (two BlockSpecs over one buffer for
 // the halo, 8-row halo tiles, 128-wide bands, a 2048-row output grid) was
@@ -68,8 +85,13 @@
 //   bf16 tensor rate, 989 TFLOP/s); 0.90 GB moved for a cf32 window (0.80
 //   GB in: the 260416 + 2K samples per plane the FIR reads; 0.10 GB of
 //   int8 out), so 0.27 ms at 3.35 TB/s: bound by bytes.
-// - exact: 2 x 513 multiply-adds per output, 2.05e11 FLOP, so 3.1 ms at
-//   67 TFLOP/s fp32: bound by operations (the Kahan steps add ~25 %).
+// - exact: 2 x 513 multiply-adds per output, 2.05e11 FLOP: 3.1 ms at 67
+//   TFLOP/s fp32 on the CUDA cores, or, as 3 tf32 products each, 6.16e11
+//   FLOP and 1.245 ms at the dense tf32 rate (494.7 TFLOP/s), above its
+//   0.80 GB (0.24 ms): bound by tensor operations. This form executes 544
+//   taps a plane for the 513 (17 bands of 32), 6 % more, and is held
+//   further by the ldmatrix traffic (~1 shared-memory wavefront per mma)
+//   and the Kahan steps where mma.sync falls short of that rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +99,7 @@
 #include <string.h>
 
 #include "device_guard.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -132,30 +155,6 @@ static_assert(kTcCols % 16 == 0 && kSpan % 16 == 0, "spans copy in 16-byte piece
 // registers, {b0, b1} of output columns 0-7 then of columns 8-15
 __device__ uint4 g_fast_b[kBandPlanes * 32];
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // d += a (16 x 16, row) * b (16 x 8, col): bf16 operands, float32 sums
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -197,8 +196,8 @@ __device__ __forceinline__ void copy_span(T* dst, const T* src, int base) {
   constexpr int kPieces = kSpan * static_cast<int>(sizeof(T)) / 16;  // per plane
   for (int i = threadIdx.x; i < 2 * kPieces; i += kTcThreads) {
     const int plane = i >= kPieces, k = i - plane * kPieces;
-    cp_async16(reinterpret_cast<unsigned char*>(dst + plane * kSpan) + 16 * k,
-               reinterpret_cast<const unsigned char*>(src + plane * kWinLen + base) + 16 * k);
+    cp_async<16>(reinterpret_cast<unsigned char*>(dst + plane * kSpan) + 16 * k,
+                 reinterpret_cast<const unsigned char*>(src + plane * kWinLen + base) + 16 * k);
   }
 }
 
@@ -322,22 +321,38 @@ eq_fir_tc_kernel(const T* __restrict__ win, const float* __restrict__ osc, void*
   }
 }
 
-// -- exact tier: CUDA cores, Kahan-compensated chunks -------------------------
+// -- exact tier: 3 x TF32 on the tensor cores, Kahan-compensated chunks -------
 
 constexpr int kExactK = 256;
-constexpr int kExactTaps = 2 * kExactK + 1;  // 513
-constexpr int kThreads = 256;
-constexpr int kR = 4;             // consecutive outputs per thread
-constexpr int kTile = kThreads * kR;
-constexpr int kGrid = (kNOut + kTile - 1) / kTile;
-constexpr int kChunk = 8;         // taps per float32 partial sum
+constexpr int kExactTaps = 2 * kExactK + 1;        // 513
+constexpr int kXBand = 32;                         // outputs per row, taps per band row
+constexpr int kXNt = kXBand / 8;                   // 8-wide column tiles and k-steps of a band
+constexpr int kXBands = (kExactTaps - 1 + kXBand - 1) / kXBand + 1;  // 17
+constexpr int kXBlocks = 2 * kXNt - 1;             // 8 x 8 tap blocks a band reads
+constexpr int kXWarps = 4;
+constexpr int kXThreads = 32 * kXWarps;
+constexpr int kXTilesPerWarp = 2;                  // 16-row tiles a warp holds across the bands
+constexpr int kXChunkSteps = 4;                    // k-steps (8 taps of a plane) per float32 chunk
+constexpr int kXRows = kXWarps * kXTilesPerWarp * 16;  // output rows per block
+constexpr int kXCols = kXRows * kXBand;            // outputs per block (4096)
+constexpr int kXGrid = (kNOut + kXCols - 1) / kXCols;
+constexpr int kXStaged = kXRows + kXBands - 1;     // staged rows
+constexpr int kXRowBytes = 4 * (4 * kXBand + 4);   // re hi, re lo, im hi, im lo + 16 bytes
+constexpr int kXTapLen = kXBand * (kXBands + 1);   // a tap plane: kXBand zeros, the taps, zeros
+constexpr int kXTapBytes = 4 * 4 * kXTapLen;       // p hi, p lo, q hi, q lo
+constexpr int kXSmem = kXTapBytes + kXStaged * kXRowBytes;
 
-static_assert(kNOut % kR == 0, "a thread's outputs are all valid or all past the end");
-static_assert((kGrid - 1) * kTile + kTile + kExactTaps - 1 <= kWinLen,
+static_assert(kXBand % 8 == 0 && kNOut % kXBand == 0,
+              "a row of outputs is all valid or all past the end");
+static_assert((kXGrid - 1) * kXCols + kXStaged * kXBand <= kWinLen,
               "the last block's staging stays inside the window");
+static_assert((2 * kXNt) % kXChunkSteps == 0, "a chunk never straddles two bands");
+static_assert(kXRowBytes % 128 == 16, "the 8 rows of an ldmatrix phase hit distinct banks");
+static_assert(kXTapBytes % 128 == 0, "the staged rows start on a 128-byte boundary");
 
-__constant__ float c_p[kExactTaps];
-__constant__ float c_q[kExactTaps];
+// the taps split into tf32 hi and lo parts, planes p hi, p lo, q hi, q lo,
+// tap t at [plane][kXBand + t] (atsc_eq_fir_set_taps)
+__device__ float4 g_exact_taps[kXTapLen];
 
 __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
   const float y = __fsub_rn(x, comp);
@@ -346,90 +361,166 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
   sum = t;
 }
 
+// 4 consecutive samples of a window plane, as float
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const int16_t* p, float (&x)[4]) {
+  const short4 v = *reinterpret_cast<const short4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const int8_t* p, float (&x)[4]) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kXThreads, 2)
 eq_fir_exact_kernel(const T* __restrict__ win, const float* __restrict__ osc,
                     void* __restrict__ out, int out_mode, float s, float oscale) {
-  constexpr int kSpanX = kTile + kExactTaps - 1;  // staged samples per plane
-  constexpr int kCols = kSpanX / kR;              // columns per row
-  constexpr int kStride = kCols + 8;              // row stride (staging writes conflict-free)
-  static_assert(kSpanX % kR == 0, "the span fills whole columns");
-  __shared__ float su[kR * kStride];
-  __shared__ float sv[kR * kStride];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_taps = reinterpret_cast<float*>(smem);   // [4][kXTapLen]
+  unsigned char* s_rows = smem + kXTapBytes;        // [kXStaged][kXRowBytes]
 
   const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const T* wr = win + static_cast<size_t>(b) * 2 * kWinLen;
-  const T* wi = wr + kWinLen;
-  const float* cr = osc;
-  const float* ci = osc + kWinLen;
-  for (int i = threadIdx.x; i < kSpanX; i += kThreads) {
-    const int n = base + i;  // < kWinLen (static_assert above)
-    float ur, ui;
-    derotate(static_cast<float>(wr[n]), static_cast<float>(wi[n]), cr[n], ci[n], s, ur, ui);
-    const int at = (i % kR) * kStride + i / kR;
-    su[at] = ur;
-    sv[at] = ui;
+  const int base = blockIdx.x * kXCols;
+  for (int i = threadIdx.x; i < kXTapLen; i += kXThreads)
+    reinterpret_cast<float4*>(s_taps)[i] = g_exact_taps[i];
+  // derotate the span [base, base + kXStaged kXBand) and split it into the
+  // staged rows: row r holds samples base + kXBand r + [0, kXBand) of each
+  // plane as tf32 hi and lo words
+  {
+    const T* wr = win + static_cast<size_t>(b) * 2 * kWinLen + base;
+    const T* wi = wr + kWinLen;
+    const float* cr = osc + base;
+    const float* ci = osc + kWinLen + base;
+    for (int i = threadIdx.x; i < kXStaged * kXBand / 4; i += kXThreads) {
+      const int n = 4 * i;
+      float xr[4], xi[4], c0[4], c1[4];
+      load4(wr + n, xr);
+      load4(wi + n, xi);
+      load4(cr + n, c0);
+      load4(ci + n, c1);
+      uint4 rh, rl, ih, il;
+      uint32_t* prh = &rh.x;
+      uint32_t* prl = &rl.x;
+      uint32_t* pih = &ih.x;
+      uint32_t* pil = &il.x;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float ur, ui;
+        derotate(xr[k], xi[k], c0[k], c1[k], s, ur, ui);
+        split_tf32(ur, prh[k], prl[k]);
+        split_tf32(ui, pih[k], pil[k]);
+      }
+      uint4* row = reinterpret_cast<uint4*>(s_rows + (n / kXBand) * kXRowBytes + 4 * (n % kXBand));
+      row[0] = rh;
+      row[kXBand / 4] = rl;
+      row[2 * kXBand / 4] = ih;
+      row[3 * kXBand / 4] = il;
+    }
   }
   __syncthreads();
 
-  const int j0 = base + kR * threadIdx.x;
-  if (j0 >= kNOut) return;
-  // sample m = kR * threadIdx.x + d lives at row d % kR, column threadIdx.x + d / kR
-  const float* pu = su + threadIdx.x;
-  const float* pv = sv + threadIdx.x;
-#define EQ_AT(P, d) (P)[((d) % kR) * kStride + (d) / kR]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // the mma layouts: group g, thread t4 in it
+  // ldmatrix.x4: lane q*8 + r gives row r + 8 (q & 1), columns 4 (q >> 1) onward
+  const int q = lane >> 3;
+  const int row0 = warp * kXTilesPerWarp * 16;  // the warp's first output row
+  const uint32_t a_lane = smem_addr(s_rows) +
+                          (row0 + (lane & 7) + 8 * (q & 1)) * kXRowBytes + (q >> 1) * 16;
+  // tap block C_m[k][n] = taps[8 m + k - n]: this lane's b0 (k = t4, n = g)
+  // and b1 (k = t4 + 4)
+  const float* tap_lane = s_taps + kXBand + t4 - g;
 
-  float xr[kR], xi[kR];  // xr[r] = u[m0 + t + r] at tap t
+  // big: the hi x hi products of a chunk; small: lo x hi and hi x lo;
+  // sum, comp: the Kahan sum of the chunks. [tile][nt][e]: the mma C layout
+  // of output rows g (e < 2) and g + 8, columns 8 nt + 2 t4 + (e & 1)
+  float big[kXTilesPerWarp][kXNt][4], small[kXTilesPerWarp][kXNt][4];
+  float sum[kXTilesPerWarp][kXNt][4], comp[kXTilesPerWarp][kXNt][4];
 #pragma unroll
-  for (int r = 0; r < kR - 1; ++r) {
-    xr[r] = EQ_AT(pu, r);
-    xi[r] = EQ_AT(pv, r);
-  }
-  float part[kR], sum[kR], comp[kR];
+  for (int tile = 0; tile < kXTilesPerWarp; ++tile)
 #pragma unroll
-  for (int r = 0; r < kR; ++r) part[r] = sum[r] = comp[r] = 0.0f;
+    for (int nt = 0; nt < kXNt; ++nt)
 #pragma unroll
-  for (int t = 0; t < kExactTaps; ++t) {
-    xr[kR - 1] = EQ_AT(pu, t + kR - 1);
-    xi[kR - 1] = EQ_AT(pv, t + kR - 1);
+      for (int e = 0; e < 4; ++e)
+        big[tile][nt][e] = small[tile][nt][e] = sum[tile][nt][e] = comp[tile][nt][e] = 0.0f;
+
+  // Band sb of the output tile at rows a0: lev[kXBand (a0 + r) + n] +=
+  // sum_k u[kXBand (a0 + sb + r) + k] B_sb[k][n], B_sb[k][n] = taps[kXBand sb
+  // + k - n]; in 8 x 8 pieces (k = 8 kh + k', n = 8 nt + n') B_sb is the tap
+  // block C_m with m = kXNt sb + kh - nt.
+#pragma unroll 1
+  for (int sb = 0; sb < kXBands; ++sb) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      part[r] = fmaf(xr[r], c_p[t], part[r]);
-      part[r] = fmaf(xi[r], c_q[t], part[r]);
-    }
-    if (t % kChunk == kChunk - 1 || t == kExactTaps - 1) {
+    for (int pl = 0; pl < 2; ++pl) {
+      uint32_t bh[kXBlocks][2], bl[kXBlocks][2];  // block m = kXNt sb + d - (kXNt - 1)
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        kahan_add(sum[r], comp[r], part[r]);
-        part[r] = 0.0f;
+      for (int d = 0; d < kXBlocks; ++d) {
+        const float* tp = tap_lane + 8 * (kXNt * sb + d - (kXNt - 1)) + 2 * pl * kXTapLen;
+        bh[d][0] = __float_as_uint(tp[0]);
+        bh[d][1] = __float_as_uint(tp[4]);
+        bl[d][0] = __float_as_uint(tp[kXTapLen]);
+        bl[d][1] = __float_as_uint(tp[kXTapLen + 4]);
+      }
+#pragma unroll
+      for (int kh = 0; kh < kXNt; ++kh) {
+#pragma unroll
+        for (int tile = 0; tile < kXTilesPerWarp; ++tile) {
+          const uint32_t a =
+              a_lane + (16 * tile + sb) * kXRowBytes + 4 * (2 * pl * kXBand + 8 * kh);
+          uint32_t ah[4], al[4];
+          ldmatrix_x4(ah, a);
+          ldmatrix_x4(al, a + 4 * kXBand);
+#pragma unroll
+          for (int nt = 0; nt < kXNt; ++nt) {
+            const int d = kh - nt + kXNt - 1;
+            mma_tf32(small[tile][nt], al, bh[d][0], bh[d][1]);
+            mma_tf32(small[tile][nt], ah, bl[d][0], bl[d][1]);
+            mma_tf32(big[tile][nt], ah, bh[d][0], bh[d][1]);
+          }
+        }
+        if ((pl * kXNt + kh + 1) % kXChunkSteps == 0) {
+#pragma unroll
+          for (int tile = 0; tile < kXTilesPerWarp; ++tile)
+#pragma unroll
+            for (int nt = 0; nt < kXNt; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                kahan_add(sum[tile][nt][e], comp[tile][nt][e],
+                          __fadd_rn(big[tile][nt][e], small[tile][nt][e]));
+                big[tile][nt][e] = small[tile][nt][e] = 0.0f;
+              }
+        }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kR - 1; ++r) {
-      xr[r] = xr[r + 1];
-      xi[r] = xi[r + 1];
-    }
   }
-#undef EQ_AT
-  float lev[kR];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) lev[r] = __fsub_rn(sum[r], comp[r]);
 
   // the output mode is uniform across a launch: a runtime switch here
   // costs next to nothing and keeps it out of the template
-  const size_t o = static_cast<size_t>(b) * kNOut + j0;  // a multiple of 4
-  if (out_mode == kSoft) {
-    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
-        make_float4(lev[0], lev[1], lev[2], lev[3]);
-  } else {
-    char4 v;
-    int8_t* c = reinterpret_cast<int8_t*>(&v);
 #pragma unroll
-    for (int r = 0; r < kR; ++r)
-      c[r] = static_cast<int8_t>(out_mode == kHard ? hard_symbol(lev[r])
-                                                   : soft_code(lev[r], oscale));
-    *reinterpret_cast<char4*>(static_cast<int8_t*>(out) + o) = v;
+  for (int tile = 0; tile < kXTilesPerWarp; ++tile) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j_row = base + (row0 + 16 * tile + g + 8 * h) * kXBand;
+      if (j_row >= kNOut) continue;
+#pragma unroll
+      for (int nt = 0; nt < kXNt; ++nt) {
+        const size_t o = static_cast<size_t>(b) * kNOut + j_row + 8 * nt + 2 * t4;
+        const float v0 = __fsub_rn(sum[tile][nt][2 * h], comp[tile][nt][2 * h]);
+        const float v1 = __fsub_rn(sum[tile][nt][2 * h + 1], comp[tile][nt][2 * h + 1]);
+        if (out_mode == kSoft) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+        } else {
+          const bool hard = out_mode == kHard;
+          char2 y;
+          y.x = static_cast<signed char>(hard ? hard_symbol(v0) : soft_code(v0, oscale));
+          y.y = static_cast<signed char>(hard ? hard_symbol(v1) : soft_code(v1, oscale));
+          *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = y;
+        }
+      }
+    }
   }
 }
 
@@ -438,8 +529,11 @@ cudaError_t launch(const void* win, const float* osc, void* out, int batch, int 
                    int out_mode, float s, float oscale, cudaStream_t stream) {
   const T* w = static_cast<const T*>(win);
   if (tier == 1) {
-    eq_fir_exact_kernel<T><<<dim3(kGrid, batch), kThreads, 0, stream>>>(w, osc, out, out_mode,
-                                                                         s, oscale);
+    const cudaError_t err = cudaFuncSetAttribute(
+        eq_fir_exact_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+    if (err != cudaSuccess) return err;
+    eq_fir_exact_kernel<T><<<dim3(kXGrid, batch), kXThreads, kXSmem, stream>>>(
+        w, osc, out, out_mode, s, oscale);
     return cudaSuccess;
   }
   constexpr int kSmem = fast_smem_bytes<T>();
@@ -450,6 +544,18 @@ cudaError_t launch(const void* win, const float* osc, void* out, int batch, int 
   eq_fir_tc_kernel<T><<<grid, kTcThreads, kSmem, stream>>>(w, osc, out, batch, out_mode, s,
                                                             oscale);
   return cudaSuccess;
+}
+
+// x -> its tf32 parts hi = tf32(x), lo = tf32(x - hi), as float32 values
+void split_tf32_host(float x, float& hi, float& lo) {
+  uint32_t u;
+  memcpy(&u, &x, sizeof u);
+  u = tf32_bits(u);
+  memcpy(&hi, &u, sizeof u);
+  const float rest = x - hi;  // exact
+  memcpy(&u, &rest, sizeof u);
+  u = tf32_bits(u);
+  memcpy(&lo, &u, sizeof u);
 }
 
 // float32 -> bf16 bits, rounded to nearest even (the taps are finite)
@@ -466,10 +572,11 @@ extern "C" {
 // Loads the ntaps float32 taps p and q (host memory) of a tier on `device`:
 // tier 0 (fast, K = 128, ntaps 257) as the 34 bf16 B operands of the
 // tensor-core kernel in fragment order, tier 1 (exact, K = 256, ntaps 513)
-// into constant memory. Call once per (device, tier) before that tier's
-// first launch. The copies are ordered only against the legacy default
-// stream, so the device is synchronized before returning: a first launch
-// on any stream, a non-blocking one included, then reads the taps.
+// split into tf32 hi and lo parts, as four zero-padded tap planes. Call
+// once per (device, tier) before that tier's first launch. The copies are
+// ordered only against the legacy default stream, so the device is
+// synchronized before returning: a first launch on any stream, a
+// non-blocking one included, then reads the taps.
 int atsc_eq_fir_set_taps(int device, int tier, const float* p, const float* q, int ntaps) {
   if ((tier != 0 && tier != 1) || ntaps != (tier == 0 ? kFastTaps : kExactTaps))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -477,8 +584,14 @@ int atsc_eq_fir_set_taps(int device, int tier, const float* p, const float* q, i
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaError_t err;
   if (tier == 1) {
-    err = cudaMemcpyToSymbol(c_p, p, sizeof(float) * ntaps);
-    if (err == cudaSuccess) err = cudaMemcpyToSymbol(c_q, q, sizeof(float) * ntaps);
+    // planes p hi, p lo, q hi, q lo: tap t at kXBand + t, zeros around;
+    // hi = tf32(x), lo = tf32(x - hi)
+    float image[4 * kXTapLen] = {};
+    for (int t = 0; t < kExactTaps; ++t) {
+      split_tf32_host(p[t], image[kXBand + t], image[kXTapLen + kXBand + t]);
+      split_tf32_host(q[t], image[2 * kXTapLen + kXBand + t], image[3 * kXTapLen + kXBand + t]);
+    }
+    err = cudaMemcpyToSymbol(g_exact_taps, image, sizeof image);
   } else {
     // register r = 2 nt + hk of lane (g, cc) packs B[k][n], B[k + 1][n] with
     // n = 8 nt + g, k = 2 cc + 8 hk; band s of plane re/im: B[k][n] =

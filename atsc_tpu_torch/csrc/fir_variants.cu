@@ -13,44 +13,70 @@
 //   I = FU pr - FW pi,  Q = FU pi + FW pr                    ((pr, pi) = phasor[b])
 //
 // where W_lo[m, r] = c[m - r] and W_hi[m, r] = c[128 + m - r] are the banded
-// 128 x 128 tap matrices (ops/rrc_filter.py). The products are executed
-// dense, zeros included: 1,024 flop per output pair, against ~450 useful
-// flop in offset_fir.cu's direct 111-tap form. Whether staging operands and
-// weights in shared memory pays for that on this card is what the probe
-// measures.
+// 128 x 128 tap matrices (ops/rrc_filter.py): [W_lo; W_hi] = W2, W2[m, r] =
+// c[m - r], is Toeplitz, and its 8 x 8 block (k-step q, n-tile nt) is the
+// tap block D_{q - nt}[k][n] = c[8 (q - nt) + k - n], nonzero only for q -
+// nt in [0, 14]: 15 of the 32 k-steps of each n-tile (120 multiply-adds per
+// output for 111 useful taps). Whether the banded form beats offset_fir.cu's
+// direct 111-tap form on this card is what the probe measures.
+//
+// The products run on the tensor cores as 3 x TF32, mma.sync.m16n8k8 (tf32
+// -> f32): each operand x is split into tf32 words hi = tf32(x) and lo =
+// tf32(x - hi) (the taps as a block stages them from W2, the modulated
+// samples as it stages each tile), each product taken as lo*hi + hi*lo (one
+// accumulator) + hi*hi (another). TF32 alone (10 fraction bits) would miss
+// the 2e-6 bound by far; hi + lo holds x to within 2^-22 of it, so each
+// product is within ~2^-21 of x*y and a 112-term sum of products of |x| <=
+// 7.5 and taps of |c| summing to 0.19 stays well inside 2e-6 of the float32
+// sums (a CPU model that rounds every k-step and every accumulation toward
+// zero: 6.3e-7 against run_variant_plain, tests/test_torch_kernel_design.py),
+// about the error of an fp32 SGEMM. The B fragments come from the taps'
+// hi and lo planes in shared memory (1.4 KB): an n-tile's k-steps walk the
+// tap blocks in order, so a window of 4 blocks (16 registers) slides one
+// block a step, 4 four-byte loads a lane for the 24 products of a k-step.
+// Holding all 15 blocks (60 registers) took 194-213 registers a thread and
+// one block an SM; the shared-modulation variants then ran 24-29 % longer
+// (tools/torch_kernel_ab.py).
 //
 // Variants, as template flags:
-// - SHARED_MOD = false: the a rows [j0, j0 + 32) and the one-row-shifted b
-//   rows [j0 + 1, j0 + 33) are each read and modulated (64 rows a tile);
-//   true: rows [j0, j0 + 33) are modulated once and b is the same tile read
-//   one row down.
-// - ONE_DOT = true: one accumulator over K = 256 of [u_a | u_b] against
-//   [W_lo; W_hi]; false: two K = 128 accumulators, summed at the end.
+// - SHARED_MOD = false: the a rows [j0, j0 + kTile) and the one-row-shifted
+//   b rows [j0 + 1, j0 + kTile + 1) are each modulated (2 kTile rows a
+//   tile); true: rows [j0, j0 + kTile + 1) are modulated once and b is the
+//   same rows read one down.
+// - ONE_DOT = true: one accumulator pair over K = 256 of [u_a | u_b]
+//   against [W_lo; W_hi]; false: the W_lo product (k-steps 0-15) and the
+//   W_hi product (16-31) in their own accumulators, summed at the end.
 // base = (false, false), sharedmod = (true, false), onedot = (false, true),
 // combo = (true, true).
 //
-// Grid (nchunk, B), 256 threads: a block owns 2040 / nchunk output rows of
-// one channel and walks them in tiles of 32 rows; it loads W_lo and W_hi
-// (128 KB of float32) into dynamic shared memory once, so nchunk is how many
-// blocks load the weights per channel. A tile: stage the modulated operand
-// rows in shared memory (row-major), then each thread computes 4 rows x 4
-// columns x 2 planes, stepping k by 4: per step 8 float4 operand loads (a
-// warp shares its 4 rows, so each is a broadcast) and 4 float4 weight loads
-// (a warp reads one 512-byte weight row, conflict-free) feed 128 FMAs.
-// All float32 on the CUDA cores: the 5e-6 IQ bound rules out TF32 and bf16.
-// FMA contraction is allowed (the tolerance is 2e-6, not bit identity).
+// Grid (nchunk, B), 4 warps: a block owns 2040 / nchunk output rows of one
+// channel and walks them in tiles of 16 rows. A tile: its symbol and
+// oscillator rows arrive by cp.async while the previous tile's products
+// run; they are modulated and split into operand rows of 128 samples (u hi,
+// u lo, w hi, w lo; 2,064 bytes apart, so the 8 rows of an ldmatrix phase
+// hit distinct banks), then warp cg computes the tile's rows x n-tiles
+// 4 cg .. 4 cg + 3 of both planes over its 18 k-steps, reading each A
+// fragment by ldmatrix.x4 once for the up to 4 n-tiles it feeds, and
+// rotates by the phasor. nchunk is how many blocks share a channel's rows.
+// A block takes 56 KB of shared memory with shared modulation (3 blocks an
+// SM, at <= 170 registers a thread: kRegsFloor), 87 KB with separate
+// modulation (2), so one block's modulation, barriers and stores overlap
+// the others' products. Tiles of 32 rows (8 warps, 107 / 169 KB, 2 / 1
+// blocks an SM) ran 3-18 % slower (tools/torch_kernel_ab.py).
 //
-// What bounds it on an H100: operations. At B = 384 the executed products
-// are 1.03e11 flop (1.53 ms at the 67 TFLOP/s fp32 peak); the useful work is
-// 44.4 GFLOP (0.663 ms), the bytes 0.9 GB (0.27 ms). One block per SM (the
-// weights take 128 KB of shared memory), 8 warps, so the loop relies on its
-// 32 independent accumulators to hide shared-memory latency. A tensor-core
-// form (a 3 x TF32 split or wgmma) is later work.
+// What bounds it on an H100: at B = 384 the useful work is 44.4 GFLOP,
+// 0.663 ms at the 67 TFLOP/s fp32 peak on the CUDA cores, or, as 3 tf32
+// products each, 1.33e11 FLOP and 0.269 ms at the dense tf32 rate of 494.7
+// TFLOP/s; the bytes are 0.9 GB (0.80 GB of IQ written), 0.269 ms at 3.35
+// TB/s: tensor operations and bytes even. This form executes 120
+// multiply-adds a plane per output for the 111 (8 % more; the dense banded
+// product would be 256).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -59,153 +85,258 @@ constexpr int kInRows = 2041;             // rows of the padded field (261,248 s
 constexpr int kOutRows = 2040;            // output rows (261,120 samples)
 constexpr int kPaddedSymbols = kInRows * kBlk;
 constexpr int kPaddedOut = kOutRows * kBlk;
-constexpr int kTile = 32;                 // output rows per tile
-constexpr int kThreads = 256;
+constexpr int kTaps = 112;                // RRC taps, the last 0 (P.RRC_TAPS)
+constexpr int kSteps = 2 * kBlk / 8;      // k-steps of 8 over K = 256
+constexpr int kNTiles = kBlk / 8;         // 8-column n-tiles of an output row
+constexpr int kBlocks = (kTaps - 1 + 7) / 8 + 1;  // nonzero 8 x 8 tap blocks D_0 .. D_14
+constexpr int kTile = 16;                 // output rows per tile: 16-row mma tiles
+constexpr int kGroupTiles = 4;            // n-tiles per warp
+constexpr int kRowWarps = kNTiles / kGroupTiles;  // warps per 16-row tile
+constexpr int kWarps = kTile / 16 * kRowWarps;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRegsFloor = 168;           // registers a thread that set the blocks an SM
+constexpr int kRowBytes = 4 * (4 * kBlk + 4);  // u hi, u lo, w hi, w lo + 16 bytes
+constexpr int kFieldBytes = (kTile + 1) * kBlk;        // a tile's symbol rows
+constexpr int kOscBytes = (kTile + 1) * kBlk * 4;      // a tile's oscillator rows, per plane
+constexpr int kRawBytes = kFieldBytes + 2 * kOscBytes;
+// the k-steps a warp walks, relative to its first n-tile c0: [0, kWalk),
+// the union of its n-tiles' nonzero steps
+constexpr int kWalk = kGroupTiles + kBlocks - 1;
+constexpr int kTapOff = 32;               // c[i] at [kTapOff + i] of a tap plane, zeros around
+constexpr int kTapLen = kTapOff + 8 * kWalk;  // covers every block a lane loads
+constexpr int kTapBytes = 2 * 4 * kTapLen;    // hi, lo
 constexpr float kLevelBias = 1.25f - 7.0f;
 
-static_assert(kThreads == (kTile / 4) * 32, "8 warps of 4 rows each cover a tile");
-static_assert(kBlk == 32 * 4, "a warp's 32 lanes cover a row, 4 columns each");
+static_assert(kTile % 16 == 0 && kNTiles % kGroupTiles == 0,
+              "the warps cover the tile's 16-row tiles x the n-tiles of a row");
+static_assert(kRowBytes % 128 == 16, "the 8 rows of an ldmatrix phase hit distinct banks");
+static_assert((kRawBytes + kTapBytes) % 128 == 0,
+              "the operand rows start on a 128-byte boundary");
+static_assert(8 * (1 - kGroupTiles) - 7 + kTapOff >= 0 && 8 * (kWalk - 1) + 7 + kTapOff < kTapLen,
+              "every tap block a lane loads lies in the tap planes");
+static_assert(kNTiles - kGroupTiles + kWalk <= kSteps, "every warp's steps lie in K = 256");
 
 template <bool SHARED_MOD>
-constexpr int operand_floats() {
-  return SHARED_MOD ? 2 * (kTile + 1) * kBlk : 4 * kTile * kBlk;
+constexpr int operand_rows() {
+  return SHARED_MOD ? kTile + 1 : 2 * kTile;
 }
 
 template <bool SHARED_MOD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * kBlk * kBlk + operand_floats<SHARED_MOD>());
+  return kRawBytes + kTapBytes + static_cast<size_t>(operand_rows<SHARED_MOD>()) * kRowBytes;
 }
 
-// Modulate `count` field rows starting at `first` into dst (plane u) and
-// dst + plane (plane w), row-major; rows at index >= limit are zeros (they
-// feed only outputs past the block's end, which are never stored).
-__device__ __forceinline__ void stage(float* dst, int plane, const int8_t* f, const float* osc,
-                                      int first, int count, int limit) {
-  for (int g = threadIdx.x; g < count * (kBlk / 4); g += kThreads) {
-    const int r = g / (kBlk / 4);
-    const int c = (g % (kBlk / 4)) * 4;
-    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 w = u;
-    if (r < limit) {
-      const int n = (first + r) * kBlk + c;
-      const char4 v = *reinterpret_cast<const char4*>(f + n);
-      const float4 re = *reinterpret_cast<const float4*>(osc + n);
-      const float4 im = *reinterpret_cast<const float4*>(osc + kPaddedSymbols + n);
-      const float l0 = static_cast<float>(v.x) * 2.0f + kLevelBias;
-      const float l1 = static_cast<float>(v.y) * 2.0f + kLevelBias;
-      const float l2 = static_cast<float>(v.z) * 2.0f + kLevelBias;
-      const float l3 = static_cast<float>(v.w) * 2.0f + kLevelBias;
-      u = make_float4(l0 * re.x, l1 * re.y, l2 * re.z, l3 * re.w);
-      w = make_float4(l0 * im.x, l1 * im.y, l2 * im.z, l3 * im.w);
+// blocks an SM: as many as shared memory holds (an SM's 228 KB, 1 KB of it
+// reserved a block), at no fewer than kRegsFloor registers a thread
+template <bool SHARED_MOD>
+constexpr int blocks_per_sm() {
+  const int by_smem = static_cast<int>(233472 / (smem_bytes<SHARED_MOD>() + 1024));
+  const int by_regs = 65536 / (kThreads * kRegsFloor);
+  return by_smem < by_regs ? (by_smem > 0 ? by_smem : 1) : by_regs;
+}
+
+// Copies field rows [first, first + count) (symbols, 4 bytes a copy) and
+// their oscillator rows (16 bytes a copy) into raw by cp.async.
+__device__ __forceinline__ void copy_raw(unsigned char* raw, const int8_t* f, const float* osc,
+                                         int first, int count) {
+  const int fp = count * kBlk / 4;       // symbol copies
+  const int op = count * kBlk / 4;       // oscillator copies per plane
+  for (int i = threadIdx.x; i < fp + 2 * op; i += kThreads) {
+    if (i < fp) {
+      cp_async<4>(raw + 4 * i, f + first * kBlk + 4 * i);
+    } else {
+      const int plane = i - fp >= op, k = i - fp - plane * op;
+      cp_async<16>(raw + kFieldBytes + plane * kOscBytes + 16 * k,
+                   osc + plane * kPaddedSymbols + first * kBlk + 4 * k);
     }
-    *reinterpret_cast<float4*>(dst + r * kBlk + c) = u;
-    *reinterpret_cast<float4*>(dst + plane + r * kBlk + c) = w;
   }
 }
 
-// acc[0] (plane u) and acc[1] (plane w) += op[rows ty*4 .. +4, 0:128) @
-// wt[0:128, tx*4 .. +4), op's plane w at op + plane.
-__device__ __forceinline__ void mac128(float (&acc)[2][4][4], const float* op, int plane,
-                                       const float* wt, int ty, int tx) {
-  const float* a = op + ty * 4 * kBlk;
-  const float* wc = wt + tx * 4;
-#pragma unroll 2
-  for (int k = 0; k < kBlk; k += 4) {
-    float4 wv[4];
+// Modulates raw rows [src, src + count) into operand rows [0, count) of dst
+// as tf32 hi and lo words of u = lvl * osc_re and w = lvl * osc_im; rows at
+// index >= limit are zeros (they feed only outputs past the tile's end,
+// which are never stored).
+__device__ __forceinline__ void modulate(unsigned char* dst, const unsigned char* raw, int src,
+                                         int count, int limit) {
+  for (int i = threadIdx.x; i < count * (kBlk / 4); i += kThreads) {
+    const int r = i / (kBlk / 4);
+    const int c = (i % (kBlk / 4)) * 4;
+    uint4 uh = make_uint4(0u, 0u, 0u, 0u), ul = uh, wh = uh, wl = uh;
+    if (r < limit) {
+      const int n = (src + r) * kBlk + c;
+      const char4 v = *reinterpret_cast<const char4*>(raw + n);
+      const float4 re = *reinterpret_cast<const float4*>(raw + kFieldBytes + 4 * n);
+      const float4 im = *reinterpret_cast<const float4*>(raw + kFieldBytes + kOscBytes + 4 * n);
+      const float lv[4] = {static_cast<float>(v.x) * 2.0f + kLevelBias,
+                           static_cast<float>(v.y) * 2.0f + kLevelBias,
+                           static_cast<float>(v.z) * 2.0f + kLevelBias,
+                           static_cast<float>(v.w) * 2.0f + kLevelBias};
+      const float cr[4] = {re.x, re.y, re.z, re.w};
+      const float ci[4] = {im.x, im.y, im.z, im.w};
+      uint32_t* puh = &uh.x;
+      uint32_t* pul = &ul.x;
+      uint32_t* pwh = &wh.x;
+      uint32_t* pwl = &wl.x;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wv[kk] = *reinterpret_cast<const float4*>(wc + (k + kk) * kBlk);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const float4 av = *reinterpret_cast<const float4*>(a + p * plane + i * kBlk + k);
-        const float ak[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[p][i][0] = fmaf(ak[kk], wv[kk].x, acc[p][i][0]);
-          acc[p][i][1] = fmaf(ak[kk], wv[kk].y, acc[p][i][1]);
-          acc[p][i][2] = fmaf(ak[kk], wv[kk].z, acc[p][i][2]);
-          acc[p][i][3] = fmaf(ak[kk], wv[kk].w, acc[p][i][3]);
-        }
+      for (int k = 0; k < 4; ++k) {
+        split_tf32(lv[k] * cr[k], puh[k], pul[k]);
+        split_tf32(lv[k] * ci[k], pwh[k], pwl[k]);
       }
     }
+    uint4* row = reinterpret_cast<uint4*>(dst + r * kRowBytes + 4 * c);
+    row[0] = uh;
+    row[kBlk / 4] = ul;
+    row[2 * kBlk / 4] = wh;
+    row[3 * kBlk / 4] = wl;
   }
 }
 
 template <bool SHARED_MOD, bool ONE_DOT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<SHARED_MOD>())
 fir_variant_kernel(const int8_t* __restrict__ field, const float* __restrict__ phasor,
                    const float* __restrict__ osc, const float* __restrict__ w2,
                    float* __restrict__ out, int rows_per_chunk) {
-  extern __shared__ float4 smem4[];
-  float* const sw = reinterpret_cast<float*>(smem4);  // [W_lo; W_hi], 256 x 128
-  float* const sop = sw + 2 * kBlk * kBlk;            // operand rows, both planes
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const raw = smem;               // symbols, osc re, osc im of a tile's rows
+  float* const s_taps = reinterpret_cast<float*>(smem + kRawBytes);  // [hi, lo][kTapLen]
+  unsigned char* const ops = smem + kRawBytes + kTapBytes;           // operand rows
   const int b = blockIdx.y;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-
-  for (int i = threadIdx.x; i < 2 * kBlk * kBlk / 4; i += kThreads)
-    smem4[i] = reinterpret_cast<const float4*>(w2)[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;        // the mma layouts: group g, thread t4 in it
+  const int rt = warp / kRowWarps;               // the warp's 16-row tile
+  const int c0 = (warp % kRowWarps) * kGroupTiles;     // its first n-tile
 
   const int8_t* f = field + static_cast<size_t>(b) * kPaddedSymbols;
   float* o = out + static_cast<size_t>(b) * 2 * kPaddedOut;
+  const int row_begin = blockIdx.x * rows_per_chunk;
+  const int row_end = row_begin + rows_per_chunk;
+  copy_raw(raw, f, osc, row_begin, min(kTile, rows_per_chunk) + 1);
+  cp_async_commit();
+  // the taps from W2 (W2[m][r] = c[m - r], so c[i] = W2[8 + i][8]), split
+  // into their tf32 hi and lo parts
+  for (int i = threadIdx.x; i < kTapLen; i += kThreads) {
+    const int t = i - kTapOff;
+    uint32_t hi = 0u, lo = 0u;
+    if (t >= 0 && t < kTaps) split_tf32(__ldg(w2 + (8 + t) * kBlk + 8), hi, lo);
+    s_taps[i] = __uint_as_float(hi);
+    s_taps[kTapLen + i] = __uint_as_float(lo);
+  }
   const float pr = phasor[2 * b];
   const float pi = phasor[2 * b + 1];
-  const int row_end = (blockIdx.x + 1) * rows_per_chunk;
+  // tap block D_d[k][n] = c[8 d + k - n]: this lane's b0 (k = t4, n = g) at
+  // tap_lane[8 d], b1 (k = t4 + 4) at tap_lane[8 d + 4]; lo a plane further
+  const float* tap_lane = s_taps + kTapOff + t4 - g;
+  // ldmatrix.x4: lane q*8 + r gives row r + 8 (q & 1), columns 4 (q >> 1) onward
+  const int q = lane >> 3;
+  const uint32_t a_base = smem_addr(ops) +
+                          (16 * rt + (lane & 7) + 8 * (q & 1)) * kRowBytes + (q >> 1) * 16;
+  // k-steps >= kSteps / 2 read the b operand: the same rows one down, or
+  // the separately modulated b rows
+  const uint32_t b_base = a_base + (SHARED_MOD ? 1 : kTile) * kRowBytes;
 
-  for (int j0 = blockIdx.x * rows_per_chunk; j0 < row_end; j0 += kTile) {
+#pragma unroll 1
+  for (int j0 = row_begin; j0 < row_end; j0 += kTile) {
     const int valid = min(kTile, row_end - j0);
-    __syncthreads();  // the last tile's readers are done with sop
-    // plane strides and the a / b operand bases of this variant
-    int plane;
-    const float* opa;
-    const float* opb;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's raw rows have landed; the last tile's readers are done
     if constexpr (SHARED_MOD) {
-      plane = (kTile + 1) * kBlk;
-      stage(sop, plane, f, osc, j0, kTile + 1, valid + 1);
-      opa = sop;
-      opb = sop + kBlk;
+      modulate(ops, raw, 0, kTile + 1, valid + 1);
     } else {
-      plane = kTile * kBlk;
-      stage(sop, plane, f, osc, j0, kTile, valid);
-      stage(sop + 2 * plane, plane, f, osc, j0 + 1, kTile, valid);
-      opa = sop;
-      opb = sop + 2 * plane;
+      modulate(ops, raw, 0, kTile, valid);
+      modulate(ops + kTile * kRowBytes, raw, 1, kTile, valid);
     }
-    __syncthreads();
-
-    float fu[4][4], fw[4][4];
-    if constexpr (ONE_DOT) {
-      float acc[2][4][4] = {};
-      mac128(acc, opa, plane, sw, ty, tx);
-      mac128(acc, opb, plane, sw + kBlk * kBlk, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) fu[i][c] = acc[0][i][c], fw[i][c] = acc[1][i][c];
-    } else {
-      float lo[2][4][4] = {}, hi[2][4][4] = {};
-      mac128(lo, opa, plane, sw, ty, tx);
-      mac128(hi, opb, plane, sw + kBlk * kBlk, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          fu[i][c] = lo[0][i][c] + hi[0][i][c], fw[i][c] = lo[1][i][c] + hi[1][i][c];
+    __syncthreads();  // the operand rows are complete and raw is free
+    if (j0 + kTile < row_end) {
+      copy_raw(raw, f, osc, j0 + kTile, min(kTile, row_end - j0 - kTile) + 1);
+      cp_async_commit();
     }
 
+    // big: the hi x hi products; small: lo x hi and hi x lo; [plane u / w]
+    // [n-tile][e], the mma C layout: rows g (e < 2) and g + 8, columns
+    // 8 (c0 + c) + 2 t4 + (e & 1). half: the K = 128 product of W_lo
+    // (ONE_DOT false), folded when the W_hi steps begin.
+    float big[2][kGroupTiles][4], small[2][kGroupTiles][4], half[2][kGroupTiles][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r >= valid) break;
-      const size_t n = static_cast<size_t>(j0 + r) * kBlk + tx * 4;
-      *reinterpret_cast<float4*>(o + n) =
-          make_float4(fu[i][0] * pr - fw[i][0] * pi, fu[i][1] * pr - fw[i][1] * pi,
-                      fu[i][2] * pr - fw[i][2] * pi, fu[i][3] * pr - fw[i][3] * pi);
-      *reinterpret_cast<float4*>(o + kPaddedOut + n) =
-          make_float4(fu[i][0] * pi + fw[i][0] * pr, fu[i][1] * pi + fw[i][1] * pr,
-                      fu[i][2] * pi + fw[i][2] * pr, fu[i][3] * pi + fw[i][3] * pr);
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int c = 0; c < kGroupTiles; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[p][c][e] = small[p][c][e] = half[p][c][e] = 0.0f;
+    // blk[c]: the tap block d = qq - c of n-tile c at step qq (hi b0, b1, lo
+    // b0, b1), a window that slides one block a step: each step moves
+    // blk[c - 1] to blk[c] and loads block qq into blk[0], so before the
+    // first step blk[c] holds block -1 - c
+    uint32_t blk[kGroupTiles][4];
+#pragma unroll
+    for (int c = 0; c + 1 < kGroupTiles; ++c) {
+      const float* tp = tap_lane + 8 * (-1 - c);
+      blk[c][0] = __float_as_uint(tp[0]), blk[c][1] = __float_as_uint(tp[4]);
+      blk[c][2] = __float_as_uint(tp[kTapLen]), blk[c][3] = __float_as_uint(tp[kTapLen + 4]);
+    }
+#pragma unroll
+    for (int qq = 0; qq < kWalk; ++qq) {
+#pragma unroll
+      for (int c = kGroupTiles - 1; c > 0; --c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) blk[c][k] = blk[c - 1][k];
+      {
+        const float* tp = tap_lane + 8 * qq;
+        blk[0][0] = __float_as_uint(tp[0]), blk[0][1] = __float_as_uint(tp[4]);
+        blk[0][2] = __float_as_uint(tp[kTapLen]), blk[0][3] = __float_as_uint(tp[kTapLen + 4]);
+      }
+      const int qs = c0 + qq;  // the k-step: rows 8 qs .. 8 qs + 7 of [W_lo; W_hi]
+      if (!ONE_DOT && qs == kSteps / 2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int c = 0; c < kGroupTiles; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              half[p][c][e] = __fadd_rn(big[p][c][e], small[p][c][e]);
+              big[p][c][e] = small[p][c][e] = 0.0f;
+            }
+      }
+      const uint32_t a =
+          (qs < kSteps / 2 ? a_base : b_base) + 4 * 8 * (qs % (kSteps / 2));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t ah[4], al[4];
+        ldmatrix_x4(ah, a + 4 * (2 * p) * kBlk);
+        ldmatrix_x4(al, a + 4 * (2 * p + 1) * kBlk);
+#pragma unroll
+        for (int c = 0; c < kGroupTiles; ++c) {
+          const int d = qq - c;  // the tap block of (step, n-tile): zero outside [0, kBlocks)
+          if (d < 0 || d >= kBlocks) continue;
+          mma_tf32(small[p][c], al, blk[c][0], blk[c][1]);
+          mma_tf32(small[p][c], ah, blk[c][2], blk[c][3]);
+          mma_tf32(big[p][c], ah, blk[c][0], blk[c][1]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * rt + g + 8 * h;
+      if (r >= valid) continue;
+#pragma unroll
+      for (int c = 0; c < kGroupTiles; ++c) {
+        float fu[2], fw[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * h + e;
+          fu[e] = __fadd_rn(big[0][c][k], small[0][c][k]);
+          fw[e] = __fadd_rn(big[1][c][k], small[1][c][k]);
+          if (!ONE_DOT) {
+            fu[e] = __fadd_rn(half[0][c][k], fu[e]);
+            fw[e] = __fadd_rn(half[1][c][k], fw[e]);
+          }
+        }
+        const size_t n = static_cast<size_t>(j0 + r) * kBlk + 8 * (c0 + c) + 2 * t4;
+        *reinterpret_cast<float2*>(o + n) =
+            make_float2(fu[0] * pr - fw[0] * pi, fu[1] * pr - fw[1] * pi);
+        *reinterpret_cast<float2*>(o + kPaddedOut + n) =
+            make_float2(fu[0] * pi + fw[0] * pr, fu[1] * pi + fw[1] * pr);
+      }
     }
   }
 }
@@ -227,11 +358,12 @@ int launch(const int8_t* field, const float* phasor, const float* osc, const flo
 
 extern "C" {
 
-// field: (batch, 261248) int8 symbol values; phasor: (batch, 2) float32;
-// osc: (2, 261248) float32 oscillator planes; w2: (256, 128) float32, W_lo
-// over W_hi; out: (batch, 2, 261120) float32; all contiguous on `device`,
-// 16-byte aligned. shared_mod / one_dot pick the variant; nchunk divides
-// 2040. Launches on `stream`, returns cudaGetLastError().
+// field: (batch, 261248) int8 symbol values, 4-byte aligned; phasor: (batch,
+// 2) float32; osc: (2, 261248) float32 oscillator planes; w2: (256, 128)
+// float32, W2 = [W_lo; W_hi]; out: (batch, 2, 261120) float32; all
+// contiguous on `device`, osc 16-byte aligned.
+// shared_mod / one_dot pick the variant; nchunk divides 2040. Launches on
+// `stream`, returns cudaGetLastError().
 int atsc_fir_variant(int device, const int8_t* field, const float* phasor, const float* osc,
                      const float* w2, float* out, int batch, int nchunk, int shared_mod,
                      int one_dot, void* stream) {
@@ -239,6 +371,8 @@ int atsc_fir_variant(int device, const int8_t* field, const float* phasor, const
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (batch < 1 || batch > 65535 || nchunk < 1 || kOutRows % nchunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(field) % 4 || reinterpret_cast<uintptr_t>(osc) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared_mod)
     return one_dot ? launch<true, true>(field, phasor, osc, w2, out, batch, nchunk, s)

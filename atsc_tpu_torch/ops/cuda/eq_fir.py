@@ -12,7 +12,8 @@ Window contract, the JAX package's: the window covers stream span
 oscillator the same span. The output is (B, 260416): the field's samples.
 (The TPU kernel's 262,144-wide output grid was Mosaic tiling and is not a
 contract.) The kernel runs the receiver's two profiles: fast (K=128, bf16
-operands, f32 sums) and exact (K=256, fp32).
+operands, f32 sums) and exact (K=256, float32 accuracy from 3 x TF32
+products on the tensor cores).
 """
 
 from __future__ import annotations
@@ -163,7 +164,8 @@ def _tier(device_index: int, eq_k: int, exact: bool) -> int:
     """The kernel tier of (eq_k, exact), its taps loaded on the device at
     first use: the fast tier's rounded to bf16 here, once, and laid out
     by the library as the tensor-core kernel's band matrices; the exact
-    tier's into constant memory. Call it with the device current."""
+    tier's split by the library into tf32 hi and lo parts for its 3 x TF32
+    products. Call it with the device current."""
     tier = TIERS[(eq_k, exact)]
     p, q = _taps_f32(eq_k)
     if not exact:

@@ -36,13 +36,17 @@ Phases, one JSON line each; any failed check exits non-zero:
    and, elsewhere, different only within 1e-4 of a decision boundary; a
    window off a 16-byte boundary gives the aligned window's levels.
 8. golden_receive: IqReceiver(batch=1, device="cuda") decodes golden IQ to
-   golden["input"][0:3] exactly, one kernel launch per equalized field.
+   golden["input"][0:3] exactly, one kernel launch per equalized field;
+   then the same through eq_profile="exact" (the 3 x TF32 exact tier).
 9. receive_full: B=384 distinct random TS encoded on the card, field
    windows cut on the card, the composed eq + decode_field + derandomize
    step over 3 warm + 10 timed fields (CUDA events) for cf32, cs16 and
    cs8 windows at the fast profile, every channel's TS byte-exact; then
    the kernel against the plain twin in turns (fast, cf32), the exact tier
-   once, and F.conv1d over the derotated planes as the yardstick.
+   once (with its fp32 bound and its tensor bound: the bytes, or 3 tf32
+   products for each of the function's multiply-adds at 494.7 TFLOP/s; its
+   bound is the lesser), and F.conv1d over the derotated planes as the
+   yardstick.
 10. noisy: B=8 AWGN loopback at 20 dB: the card's receiver returns the
    sent TS with RS firing; the card's Decoder and the CPU Decoder agree on
    codewords, n_errors and TS for the same noisy symbol fields.
@@ -87,7 +91,9 @@ Phases, one JSON line each; any failed check exits non-zero:
    counted); then each of the probe's seven (variant, nchunk) runs against
    run_variant_plain and against offset_fir_fused cf32, <= 2e-6 over the
    valid [0, 260416), on random symbols with golden field 0 in channel 0;
-   each run timed, the twin once.
+   each run timed, the twin once; the dense banded product's FLOP beside
+   the tf32 FLOP the kernel executes (zero tap blocks skipped); its bound
+   the lesser of phase 5's fp32 bound and the 3 x TF32 one.
 19. erasures: B=8 with a 3,000-sample x6 impulse burst at N + 40,000 in
    every channel: zf alone leaves uncorrectable segments; erasures="burst"
    returns every TS exactly, hard and soft (the soft run launching
@@ -188,6 +194,7 @@ import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -240,10 +247,20 @@ CHUNKED_DESIGN = {
 }
 EQ_DESIGN = ("fast: mma.sync.m16n8k16 bf16 bands of 16, B operands in registers, "
              "4096 outputs x 16 channels per block of 4 warps (4 tiles each), "
-             "float32 chunks of 2 bands; exact: CUDA cores, Kahan chunks")  # csrc/eq_fir.cu
+             "float32 chunks of 2 bands; exact: 3 x TF32 mma.sync.m16n8k8 bands of 32, "
+             "hi/lo rows by ldmatrix, tap blocks from a 1-D hi/lo array in shared memory, "
+             "4096 outputs per block of 4 warps (2 tiles each, held across the band loop), "
+             "hi*hi and cross products in two accumulators, Kahan chunks of 4 k-steps")
+# csrc/eq_fir.cu
+FIR_VARIANTS_DESIGN = ("3 x TF32 mma.sync.m16n8k8, the k-steps of zero tap blocks skipped (15 of "
+                       "32 per n-tile), a sliding window of 4 hi/lo tap blocks from shared "
+                       "memory, 4 warps of 16 rows x 4 n-tiles, raw rows of the next 16-row "
+                       "tile by cp.async, 3 blocks an SM (2 with separate modulation)")
+# csrc/fir_variants.cu
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12    # dense, the tensor cores
 
 
 def emit(phase: str, **fields) -> None:
@@ -292,6 +309,12 @@ def device_kept(dev, after: str) -> None:
 
     check(torch.cuda.current_device() == dev.index,
           f"the current CUDA device moved to {torch.cuda.current_device()} after {after}")
+
+
+def csrc_constant(source: str, name: str) -> int:
+    """constexpr int `name` of atsc_tpu_torch/csrc/`source`."""
+    with open(os.path.join(REPO, "atsc_tpu_torch", "csrc", source)) as fh:
+        return int(re.search(rf"constexpr int {name} = (\d+);", fh.read()).group(1))
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float) -> tuple[float, str]:
@@ -527,9 +550,9 @@ def main() -> int:
     # the valid work only: 260,416 outputs per channel, each reading 111
     # symbols (padding is neither read nor computed in the bound)
     fir_span = n_valid + P.RRC_NTAPS - 1
-    fir_bound, fir_bound_by = bound_ms(
-        B_FULL * fir_span + 2 * 4 * fir_span + B_FULL * 2 * 4 + B_FULL * 2 * n_valid * 4,
-        B_FULL * n_valid * 2 * P.RRC_NTAPS * 2, FP32_FLOP_PER_S)
+    fir_bytes = B_FULL * fir_span + 2 * 4 * fir_span + B_FULL * 2 * 4 + B_FULL * 2 * n_valid * 4
+    fir_flop = B_FULL * n_valid * 2 * P.RRC_NTAPS * 2
+    fir_bound, fir_bound_by = bound_ms(fir_bytes, fir_flop, FP32_FLOP_PER_S)
     emit("kernel_vs_plain", batch=B_FULL, format="cf32", kernel_ms=[k1, k2],
          plain_ms=[p1, p2], library_ms=fir_conv_ms, library="F.conv1d fp32",
          bound_ms=fir_bound, bound_by=fir_bound_by, max_abs_err=err_full)
@@ -597,7 +620,7 @@ def main() -> int:
     # -- 7-10. the receive path -------------------------------------------------
     eq_err = receive_kernel_vs_plain(golden, dev)
     device_kept(dev, "eq_fir_fused")
-    receive_golden(golden, dev)
+    exact_launches = receive_golden(golden, dev)
     rx = receive_full_size(dev)
     receive_noisy(dev)
     receive_host_path(dev)
@@ -616,7 +639,8 @@ def main() -> int:
     device_kept(dev, "trellis_fused")
     variants = fir_variants_kernel(
         golden, dev, {"bound_ms": fir_bound, "bound_by": fir_bound_by,
-                      "library_ms": fir_conv_ms, "library": "F.conv1d fp32"})
+                      "library_ms": fir_conv_ms, "library": "F.conv1d fp32"},
+        fir_bytes, fir_flop)
     device_kept(dev, "run_variant")
 
     # -- 19-22. the erasure tier and the trained equalizers --------------------
@@ -668,6 +692,7 @@ def main() -> int:
             "bound_ms": rx["bound_ms"],
             "bound_by": rx["bound_by"],
             "library_ms": rx["library_ms"],
+            "exact": {"launches": exact_launches, **rx["exact"]},
         },
         *({"name": k, "route": "cuda", "source": "atsc_tpu_torch/csrc/viterbi_acs.cu",
            "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
@@ -682,7 +707,7 @@ def main() -> int:
          "main_path_launches": main_path["trellis_fused"], **trellis},
         {"name": "fir_variants", "route": "cuda",
          "source": "atsc_tpu_torch/csrc/fir_variants.cu",
-         "replaces": "tools/fir_probe.py:132",
+         "replaces": "tools/fir_probe.py:132", "design": FIR_VARIANTS_DESIGN,
          "main_path_launches": main_path["fir_variants"], **variants},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -843,8 +868,9 @@ def receive_kernel_vs_plain(golden, dev) -> float:
     return worst["fast"]
 
 
-def receive_golden(golden, dev) -> None:
-    """Phase 8: IqReceiver on the card decodes golden IQ exactly."""
+def receive_golden(golden, dev) -> int:
+    """Phase 8: IqReceiver on the card decodes golden IQ exactly, through
+    the fast and the exact profile. Returns the exact tier's launches."""
     import numpy as np
 
     from atsc_tpu_torch.models.receiver import IqReceiver
@@ -861,6 +887,18 @@ def receive_golden(golden, dev) -> None:
          launches=launches, segments_corrected=rx.decoder.segments_corrected)
     check(exact, "golden IQ did not decode to golden input[0:3] on the card")
     check(launches == 4, f"{launches} eq launches for 4 equalized fields")
+    # the exact profile (the golden-regression tier) through the same entry point
+    eqk.LAUNCHES = 0
+    rx = IqReceiver(batch=1, device=dev, eq_profile="exact")
+    out = rx.push(iq[:, :400_000]) + rx.push(iq[:, 400_000:]) + rx.flush()
+    launches_x = eqk.LAUNCHES
+    exact_x = len(out) == 3 and all(
+        np.array_equal(ts[0], golden["input"][k]) for k, (ts, _) in enumerate(out))
+    emit("golden_receive_exact", fields_in=4, fields_out=len(out), ts_exact=exact_x,
+         launches=launches_x, segments_corrected=rx.decoder.segments_corrected)
+    check(exact_x, "golden IQ did not decode to golden input[0:3] through the exact profile")
+    check(launches_x == 4, f"{launches_x} exact-tier eq launches for 4 equalized fields")
+    return launches_x
 
 
 def receive_full_size(dev) -> dict:
@@ -985,8 +1023,16 @@ def receive_full_size(dev) -> dict:
 
     fast_bound, fast_by = bound_ms(eq_bytes(eq_k),
                                    B_FULL * n * 2 * (2 * eq_k + 1) * 2, BF16_FLOP_PER_S)
-    exact_bound, exact_by = bound_ms(eq_bytes(ek),
-                                     B_FULL * n * 2 * (2 * ek + 1) * 2, FP32_FLOP_PER_S)
+    exact_flop = B_FULL * n * 2 * (2 * ek + 1) * 2
+    exact_fp32_bound, exact_fp32_by = bound_ms(eq_bytes(ek), exact_flop, FP32_FLOP_PER_S)
+    # or each multiply-add as 3 tf32 products on the tensor cores; the
+    # bound is the lesser of the two floors
+    exact_tc_bound, exact_tc_by = bound_ms(eq_bytes(ek), 3 * exact_flop, TF32_FLOP_PER_S)
+    exact_bound, exact_by = min((exact_fp32_bound, exact_fp32_by), (exact_tc_bound, exact_tc_by))
+    # what the kernel executes: kXBands bands of kXBand taps a plane (csrc/eq_fir.cu)
+    x_band = csrc_constant("eq_fir.cu", "kXBand")
+    x_bands = (2 * ek + x_band - 1) // x_band + 1
+    exact_executed = B_FULL * n * 2 * x_bands * x_band * 2 * 3
     emit("eq_kernel_vs_plain", batch=B_FULL, format="cf32", profile="fast",
          kernel_ms=[k1, k2], plain_ms=[p1, p2], hard_identical=hard_same,
          max_abs_err_soft=soft_err, library_ms=conv_ms, library="F.conv1d bf16",
@@ -994,13 +1040,18 @@ def receive_full_size(dev) -> dict:
     emit("eq_kernel_exact", batch=B_FULL, format="cf32", profile="exact",
          kernel_ms=exact_ms, plain_ms=exact_plain_ms, max_abs_err_soft=exact_err,
          library_ms=conv_exact_ms, library="F.conv1d fp32", bound_ms=exact_bound,
-         bound_by=exact_by)
+         bound_by=exact_by, fp32_bound_ms=exact_fp32_bound, fp32_bound_by=exact_fp32_by,
+         tensor_bound_ms=exact_tc_bound, tensor_bound_by=exact_tc_by, flop=exact_flop,
+         executed_tf32_flop=exact_executed)
     check(hard_same, f"B={B_FULL}: kernel hard symbols differ from the plain twin")
     check(soft_err <= 1e-4, f"B={B_FULL}: fast soft error {soft_err} > 1e-4")
     check(exact_err <= 1e-5, f"B={B_FULL}: exact soft error {exact_err} > 1e-5")
     return {"launches": launches, "max_abs_err": soft_err,
             "kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": fast_bound, "bound_by": fast_by, "library_ms": conv_ms}
+            "bound_ms": fast_bound, "bound_by": fast_by, "library_ms": conv_ms,
+            "exact": {"ms": exact_ms, "plain_ms": exact_plain_ms, "max_abs_err": exact_err,
+                      "bound_ms": exact_bound, "bound_by": exact_by,
+                      "library_ms": conv_exact_ms}}
 
 
 def receive_noisy(dev) -> None:
@@ -1643,11 +1694,12 @@ def trellis_fused_kernel(dev) -> dict:
             "library_ms": None}
 
 
-def fir_variants_kernel(golden, dev, kernel1: dict) -> dict:
+def fir_variants_kernel(golden, dev, kernel1: dict, nbytes: int, flop: int) -> dict:
     """Phase 18: the offset+FIR design probe's path, then every probe run of
     the banded-matmul kernel against its plain twin and offset_fir_fused at
-    B=384. kernel1 carries phase 5's bound and F.conv1d yardstick (the same
-    function). Returns its kernels-line fields."""
+    B=384. kernel1 carries phase 5's fp32 bound and F.conv1d yardstick (the
+    same function); nbytes and flop are that function's bytes and fp32
+    FLOP. Returns its kernels-line fields."""
     import numpy as np
     import torch
 
@@ -1686,19 +1738,30 @@ def fir_variants_kernel(golden, dev, kernel1: dict) -> dict:
         ms[name] = timed(lambda v=variant, c=nchunk: fvk.run_variant(field, phasor, v, c))
         del got, want
     plain_ms = timed(lambda: fvk.run_variant_plain(field, phasor, "base", 5), reps=3)
-    # the banded products run dense: 2 planes x 256 MACs per output sample
-    executed = B_FULL * P.PADDED_OUT * 2 * 256 * 2
+    # the dense banded product: 2 planes x 256 multiply-adds per output
+    # sample; the kernel executes, per n-tile, only the k-steps of the
+    # nonzero 8 x 8 tap blocks (csrc/fir_variants.cu kBlocks), each as 3
+    # tf32 products
+    dense = B_FULL * P.PADDED_OUT * 2 * 256 * 2
+    steps = (P.RRC_TAPS - 1 + 7) // 8 + 1
+    executed = B_FULL * P.PADDED_OUT * 2 * 8 * steps * 2 * 3
     rate = {k: executed / (v * 1e-3) for k, v in ms.items()}
+    # the function's floor as 3 x TF32, beside phase 5's fp32 one; the
+    # bound is the lesser
+    tc_bound, tc_by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+    bound, by = min((kernel1["bound_ms"], kernel1["bound_by"]), (tc_bound, tc_by))
     emit("fir_variants", batch=B_FULL, kernel_ms=ms, plain_ms=plain_ms,
          max_abs_err_vs_plain=err_plain, max_abs_err_vs_offset_fir=err_base, tolerance=tol,
-         executed_flop=executed, executed_flop_per_s=rate, **kernel1)
+         dense_flop=dense, executed_tf32_flop=executed, executed_tf32_flop_per_s=rate,
+         fp32_bound_ms=kernel1["bound_ms"], tensor_bound_ms=tc_bound, tensor_bound_by=tc_by,
+         bound_ms=bound, bound_by=by, library_ms=kernel1["library_ms"],
+         library=kernel1["library"])
     for k in ms:
         check(err_plain[k] <= tol, f"fir_variants {k} vs plain {err_plain[k]} > {tol}")
         check(err_base[k] <= tol, f"fir_variants {k} vs offset_fir {err_base[k]} > {tol}")
     return {"launches": launches, "max_abs_err": max(err_plain.values()),
             "max_abs_err_vs_offset_fir": max(err_base.values()), "ms": ms["base_chunks5"],
-            "ms_by_run": ms, "plain_ms": plain_ms, "bound_ms": kernel1["bound_ms"],
-            "bound_by": kernel1["bound_by"], "executed_flop_per_s": rate,
+            "ms_by_run": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": kernel1["library_ms"]}
 
 

@@ -609,6 +609,545 @@ def test_eq_chunked_float32_accumulation_within_the_fast_tier_limit():
     assert np.abs(got - want).max() < 1e-4
 
 
+# -- the exact equalizer tier: 3 x TF32 on the tensor cores ------------------
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """x rounded to tf32 as the kernels' tf32_bits does: + 0x1000, low 13
+    bits cleared (to nearest, ties away from zero)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    hi = _tf32(x)
+    return hi, _tf32((np.asarray(x, np.float32) - hi).astype(np.float32))
+
+
+def _rz(v: np.ndarray) -> np.ndarray:
+    """float64 -> float32 rounded toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _mma(acc: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """acc + sum_k a[..., k] b[..., k] over one 8-term k-step, worse than the
+    tensor cores: the products exact, the step's sum rounded toward zero to
+    float32, then the accumulation rounded toward zero."""
+    step = _rz((a.astype(np.float64) * b.astype(np.float64)).sum(-1))
+    return _rz(acc.astype(np.float64) + step.astype(np.float64))
+
+
+def _kahan(s: np.ndarray, c: np.ndarray, x: np.ndarray):
+    y = (x - c).astype(np.float32)
+    t = (s + y).astype(np.float32)
+    return t, ((t - s).astype(np.float32) - y).astype(np.float32)
+
+
+def _xl_layout() -> dict:
+    """The exact tier's constants, from csrc/eq_fir.cu."""
+    k = {n: _constant("eq_fir.cu", n) for n in (
+        "kWinLen", "kNOut", "kExactK", "kXBand", "kXWarps", "kXTilesPerWarp", "kXChunkSteps")}
+    k["kTaps"] = 2 * k["kExactK"] + 1
+    k["kXNt"] = k["kXBand"] // 8
+    k["kXBands"] = (k["kTaps"] - 1 + k["kXBand"] - 1) // k["kXBand"] + 1
+    k["kXRows"] = k["kXWarps"] * k["kXTilesPerWarp"] * 16
+    k["kXCols"] = k["kXRows"] * k["kXBand"]
+    k["kXGrid"] = -(-k["kNOut"] // k["kXCols"])
+    k["kXStaged"] = k["kXRows"] + k["kXBands"] - 1
+    k["kXRowBytes"] = 4 * (4 * k["kXBand"] + 4)
+    k["kXTapLen"] = k["kXBand"] * (k["kXBands"] + 1)
+    return k
+
+
+XL = _xl_layout()
+
+
+def _x_tap_image(p: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """atsc_eq_fir_set_taps' tier-1 image: (4, kXTapLen) planes p hi, p lo,
+    q hi, q lo, tap t at kXBand + t."""
+    img = np.zeros((4, XL["kXTapLen"]), np.float32)
+    for pl, taps in enumerate((p, q)):
+        img[2 * pl:2 * pl + 2, XL["kXBand"]:XL["kXBand"] + taps.size] = _split(taps)
+    return img
+
+
+def _x_lane_taps(img: np.ndarray, sb: int, kh: int, nt: int, plane: int, half: int):
+    """(32, 2) the b0, b1 words lane (g, t4) loads for band sb, k-step kh,
+    n-tile nt: image[2 plane + half][kXBand + 8 m + t4 - g (+ 4)], m = kXNt
+    sb + kh - nt (tap_lane + 8 m in the kernel)."""
+    lane = np.arange(32)
+    m = XL["kXNt"] * sb + kh - nt
+    at = XL["kXBand"] + 8 * m + (lane & 3) - (lane >> 2)
+    idx = np.stack([at, at + 4], 1)
+    assert idx.min() >= 0 and idx.max() < XL["kXTapLen"]
+    return img[2 * plane + half][idx]
+
+
+def _x_taps():
+    from atsc_tpu_torch.models.receiver import _wl_eq_taps
+
+    return _wl_eq_taps(XL["kExactK"])
+
+
+def _x_golden_planes():
+    """The derotated planes of the golden window (stream span from 256
+    samples before field 1) as the plain twin makes them, and that twin's
+    exact soft levels."""
+    from atsc_tpu_torch.models.receiver import field_window
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                                  "golden.npz"))
+    n = P.SYMBOLS_PER_FIELD
+    win, osc = field_window(golden["iq"].reshape(1, -1), n, margin=XL["kExactK"],
+                            length=teq.WIN_LEN)
+    win, osc = torch.tensor(win), torch.tensor(osc)
+    s = torch.tensor(teq._scale(1.0))
+    wr, wi, cr, ci = win[0, 0], win[0, 1], osc[0], osc[1]
+    ur = ((wr * cr + wi * ci) * s).numpy()
+    ui = ((wi * cr - wr * ci) * s).numpy()
+    want = teq.eq_fir_plain(win, osc, eq_k=XL["kExactK"], exact=True, soft=True)[0].numpy()
+    return ur, ui, want
+
+
+def _x_model(ur, ui, img, outputs: np.ndarray) -> np.ndarray:
+    """The exact tier's levels at `outputs`, as the kernel takes them: per
+    band, plane and k-step, lo*hi and hi*lo into one accumulator and hi*hi
+    into another (_mma), the two added every kXChunkSteps k-steps and the
+    chunks summed with Kahan compensation; the taps from the image through
+    each lane's tap-block map."""
+    band, nt_ = XL["kXBand"], XL["kXNt"]
+    planes = [_split(ur), _split(ui)]
+    n = outputs % band
+    nt, col = n // 8, n % 8              # output column n' of the tile: B's column g
+    s_ = np.zeros(outputs.size, np.float32)
+    c_ = s_.copy()
+    big, small = s_.copy(), s_.copy()
+    steps = 0
+    for sb in range(XL["kXBands"]):
+        for pl in range(2):
+            for kh in range(nt_):
+                # B[k'][n'] of block m = kXNt sb + kh - nt through lane (g = n', t4)
+                bh = np.empty((outputs.size, 8), np.float32)
+                bl = np.empty_like(bh)
+                for t in range(nt_):
+                    sel = nt == t
+                    for half, dst in ((0, bh), (1, bl)):
+                        words = _x_lane_taps(img, sb, kh, t, pl, half)       # (32, 2)
+                        blk = np.empty((8, 8), np.float32)                   # [k'][n']
+                        for lane in range(32):
+                            blk[lane & 3, lane >> 2] = words[lane, 0]
+                            blk[(lane & 3) + 4, lane >> 2] = words[lane, 1]
+                        dst[sel] = blk[:, col[sel]].T
+                k = band * sb + 8 * kh + np.arange(8)      # A[row][k]: u[band (a + sb) + k]
+                idx = (outputs - n)[:, None] + k[None, :]
+                ah, al = planes[pl][0][idx], planes[pl][1][idx]
+                small = _mma(small, al, bh)
+                small = _mma(small, ah, bl)
+                big = _mma(big, ah, bh)
+                steps += 1
+                if steps % XL["kXChunkSteps"] == 0:
+                    s_, c_ = _kahan(s_, c_, (big + small).astype(np.float32))
+                    big, small = np.zeros_like(big), np.zeros_like(small)
+    assert steps % XL["kXChunkSteps"] == 0
+    return (s_ - c_).astype(np.float32)
+
+
+def test_eq_exact_constants_and_source_maps():
+    """The exact tier's tile constants, the wrapper's contract, and the
+    kernel's lane maps the models below replay (parsed from the source)."""
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+
+    src = _source("eq_fir.cu")
+    assert (XL["kWinLen"], XL["kNOut"]) == (teq.WIN_LEN, teq.N_OUT)
+    assert teq.TIERS[(XL["kExactK"], True)] == 1
+    assert XL["kXBand"] % 8 == 0 and XL["kNOut"] % XL["kXBand"] == 0
+    assert (2 * XL["kXNt"]) % XL["kXChunkSteps"] == 0
+    assert XL["kXRowBytes"] % 128 == 16
+    for expr in ("s_taps + kXBand + t4 - g",
+                 "8 * (kXNt * sb + d - (kXNt - 1)) + 2 * pl * kXTapLen",
+                 "const int d = kh - nt + kXNt - 1;",
+                 "(row0 + (lane & 7) + 8 * (q & 1)) * kXRowBytes + (q >> 1) * 16",
+                 "(16 * tile + sb) * kXRowBytes + 4 * (2 * pl * kXBand + 8 * kh)",
+                 "ldmatrix_x4(al, a + 4 * kXBand);",
+                 "mma_tf32(small[tile][nt], al, bh[d][0], bh[d][1]);",
+                 "mma_tf32(small[tile][nt], ah, bl[d][0], bl[d][1]);",
+                 "mma_tf32(big[tile][nt], ah, bh[d][0], bh[d][1]);",
+                 "(pl * kXNt + kh + 1) % kXChunkSteps == 0",
+                 '#include "tensor_core.cuh"'):
+        assert expr in src, expr
+    assert "return (x + 0x1000u) & 0xFFFFE000u;" in _source("tensor_core.cuh")
+
+
+def test_eq_exact_tiles_own_every_output_once_and_read_inside_the_window():
+    """Blocks x warps x tiles x rows g + 8h x n-tiles x columns 2 t4 + e:
+    every output of [0, 260416) stored once; each block stages [base, base
+    + kXStaged kXBand) inside the window; every A row a tile's bands read
+    lies in the staged rows."""
+    band = XL["kXBand"]
+    blocks = np.arange(XL["kXGrid"])[:, None, None]
+    rows = (np.arange(XL["kXWarps"] * XL["kXTilesPerWarp"])[None, :, None] * 16
+            + np.arange(16)[None, None, :])                        # the rows g + 8 h of a tile
+    j_row = blocks * XL["kXCols"] + rows * band
+    j = j_row[..., None] + np.arange(band)                          # 8 nt + 2 t4 + e
+    stored = j[j_row < XL["kNOut"]]
+    owned = np.bincount(stored.reshape(-1), minlength=XL["kNOut"])
+    assert owned.size == XL["kNOut"] and (owned == 1).all()
+    span = XL["kXStaged"] * band
+    base = np.arange(XL["kXGrid"]) * XL["kXCols"]
+    assert base.min() >= 0 and (base + span).max() <= XL["kWinLen"]
+    assert rows.max() + XL["kXBands"] - 1 < XL["kXStaged"]
+    # the last output reads sample 260415 + 512, inside the last block's span
+    assert XL["kNOut"] - 1 + 2 * XL["kExactK"] < base.max() + span
+    assert span % 4 == 0 and XL["kXCols"] % 16 == 0   # float4 / short4 / char4 staging
+
+
+def test_eq_exact_ldmatrix_rows_are_the_band_operands():
+    """Lane t, register j of ldmatrix.x4 at the kernel's addresses holds
+    A[row][k] = u[kXBand (a0 + sb + row) + 8 kh + k] of the plane and half
+    in the mma tf32 A layout: row = t // 4 + 8 (j & 1), k = t % 4 + 4 (j >> 1);
+    the 8 row addresses of a phase fall in distinct 16-byte bank groups."""
+    lane = np.arange(32)
+    q = lane >> 3
+    rb, band = XL["kXRowBytes"], XL["kXBand"]
+    for a0 in (0, 16, 16 * (XL["kXWarps"] * XL["kXTilesPerWarp"] - 1)):
+        for sb in (0, 1, XL["kXBands"] - 1):
+            for pl in range(2):
+                for half in range(2):
+                    for kh in range(XL["kXNt"]):
+                        addr = ((a0 + (lane & 7) + 8 * (q & 1)) * rb + (q >> 1) * 16
+                                + sb * rb + 4 * ((2 * pl + half) * band + 8 * kh))
+                        for j in range(4):
+                            byte = addr[8 * j + lane // 4] + 4 * (lane % 4)
+                            row, off = byte // rb, byte % rb // 4
+                            assert ((off // band) == 2 * pl + half).all()
+                            got = row * band + off % band
+                            want = (band * (a0 + sb + lane // 4 + 8 * (j & 1)) + 8 * kh
+                                    + lane % 4 + 4 * (j >> 1))
+                            np.testing.assert_array_equal(got, want)
+                            slots = addr[8 * j:8 * j + 8] % 128 // 16
+                            assert len(set(slots.tolist())) == 8
+
+
+def test_eq_exact_tap_image_gives_the_band_product():
+    """The host's hi/lo tap image, read through each lane's tap-block map,
+    is B_sb[k][n] = taps[kXBand sb + k - n] split into tf32 parts (hi =
+    tf32(tap), hi + lo within 2^-22 of it); summed in float64, the band
+    products over the golden planes equal banded_fir_wl over
+    _band_weights(256, float32) within the split's residual."""
+    from atsc_tpu_torch.ops.cuda import eq_fir as teq
+    from atsc_tpu_torch.ops.rrc_filter import banded_fir_wl
+
+    p, q = _x_taps()
+    img = _x_tap_image(p, q)
+    band, nt_ = XL["kXBand"], XL["kXNt"]
+    mats = np.zeros((XL["kXBands"], 2, 2, band, band), np.float64)  # [sb][plane][half][k][n]
+    for sb in range(XL["kXBands"]):
+        for pl in range(2):
+            for half in range(2):
+                for kh in range(nt_):
+                    for nt in range(nt_):
+                        words = _x_lane_taps(img, sb, kh, nt, pl, half)
+                        for lane in range(32):
+                            k, n = 8 * kh + (lane & 3), 8 * nt + (lane >> 2)
+                            mats[sb, pl, half, k, n] = words[lane, 0]
+                            mats[sb, pl, half, k + 4, n] = words[lane, 1]
+            taps = (p, q)[pl]
+            k, n = np.arange(band)[:, None], np.arange(band)[None, :]
+            t = band * sb + k - n
+            want = np.where((t >= 0) & (t < taps.size), taps[np.clip(t, 0, taps.size - 1)], 0)
+            np.testing.assert_array_equal(mats[sb, pl, 0], _tf32(want.astype(np.float32)))
+            full = mats[sb, pl, 0] + mats[sb, pl, 1]
+            assert (np.abs(full - want) <= 2.0 ** -22 * np.abs(want)).all()
+    ur, ui, _ = _x_golden_planes()
+    rows = XL["kNOut"] // band
+    need = (rows + XL["kXBands"] - 1) * band
+    planes = [x[:need].astype(np.float64).reshape(-1, band) for x in (ur, ui)]
+    got = np.zeros((rows, band))
+    for sb in range(XL["kXBands"]):
+        for pl in range(2):
+            got += planes[pl][sb:sb + rows] @ (mats[sb, pl, 0] + mats[sb, pl, 1])
+    w = teq._band_weights(XL["kExactK"], "float32").to(torch.float64)
+    want = banded_fir_wl(torch.tensor(ur, dtype=torch.float64),
+                         torch.tensor(ui, dtype=torch.float64), w, teq.N_OUT).numpy()
+    assert np.abs(got.reshape(-1) - want).max() < 1e-6
+
+
+def test_eq_exact_split_arithmetic_within_the_exact_tier_limit():
+    """The kernel's 3 x TF32 arithmetic, every k-step and accumulation
+    rounded toward zero, with Kahan chunk sums, stays within the exact
+    tier's 1e-5 of eq_fir_plain (exact, soft) on 4,096 outputs of the
+    golden window (the first and last block's and random ones), and its
+    hard symbols equal the twin's away from decision boundaries."""
+    ur, ui, want = _x_golden_planes()
+    img = _x_tap_image(*_x_taps())
+    rng = np.random.default_rng(13)
+    n = XL["kNOut"]
+    outputs = np.unique(np.concatenate([np.arange(1024), np.arange(n - 1024, n),
+                                        rng.choice(n, 2048, replace=False)]))
+    got = _x_model(ur, ui, img, outputs)
+    err = np.abs(got - want[outputs])
+    assert err.max() <= 1e-5, err.max()
+
+    def hard(lev):
+        return np.clip(np.round((lev - (P.PILOT_OFFSET - 7.0)) * 0.5), 0, 7)
+
+    x = (want[outputs] + 5.75) * 0.5
+    near = np.abs(x - np.floor(x) - 0.5) < 1e-4 * 0.5
+    assert ((hard(got) == hard(want[outputs])) | near).all()
+
+
+# -- the banded-matmul probe: 3 x TF32 on the tensor cores -------------------
+
+def _fv_layout() -> dict:
+    """csrc/fir_variants.cu's constants."""
+    k = {n: _constant("fir_variants.cu", n) for n in (
+        "kBlk", "kInRows", "kOutRows", "kTaps", "kTile", "kGroupTiles", "kTapOff")}
+    k["kSteps"] = 2 * k["kBlk"] // 8
+    k["kNTiles"] = k["kBlk"] // 8
+    k["kBlocks"] = (k["kTaps"] - 1 + 7) // 8 + 1
+    k["kRowWarps"] = k["kNTiles"] // k["kGroupTiles"]
+    k["kWarps"] = k["kTile"] // 16 * k["kRowWarps"]
+    k["kWalk"] = k["kGroupTiles"] + k["kBlocks"] - 1
+    k["kTapLen"] = k["kTapOff"] + 8 * k["kWalk"]
+    return k
+
+
+FV = _fv_layout()
+FV_CASES = [("base", 5), ("base", 15), ("base", 17), ("onedot", 5), ("sharedmod", 5),
+            ("combo", 5), ("combo", 15)]
+
+
+def _fv_steps(c0: int):
+    """The (k-step qs, n-tile c, tap block d) a warp with first n-tile c0
+    runs, in order, as the kernel's loops: qq over [0, kWalk), c over its
+    n-tiles, d = qq - c, the zero blocks (d outside [0, kBlocks)) skipped.
+    Also replays the sliding window of tap blocks (blk[c]: prefilled with
+    blocks -1 - c, each step shifting blk[c - 1] into blk[c] and loading
+    block qq into blk[0]) and asserts each product reads the block it
+    needs and each A fragment lies in K = 256."""
+    window = [-1 - c if c + 1 < FV["kGroupTiles"] else None for c in range(FV["kGroupTiles"])]
+    out = []
+    for qq in range(FV["kWalk"]):
+        window = [qq] + window[:-1]
+        qs = c0 + qq
+        assert 0 <= qs < FV["kSteps"]
+        for c in range(FV["kGroupTiles"]):
+            d = qq - c
+            if d < 0 or d >= FV["kBlocks"]:
+                continue
+            assert window[c] == d, (c0, qq, c, window)
+            out.append((qs, c, d))
+    return out
+
+
+def _fv_lane_blocks(w2_part: np.ndarray) -> np.ndarray:
+    """(kWalk + 3, 8, 8) D_d[k][n] as the lanes load them (d = -3 ..
+    kWalk - 1 at index d + 3, every block the window loads): the block's
+    tap plane holds c[t] = W2[8 + t][8] at kTapOff + t (zeros around), and
+    lane (g, t4) loads b0 (k = t4, n = g) at kTapOff + 8 d + t4 - g and b1
+    (k = t4 + 4) 4 on."""
+    plane = np.zeros(FV["kTapLen"], np.float32)
+    t = np.arange(FV["kTaps"])
+    plane[FV["kTapOff"] + t] = w2_part[8 + t, 8]
+    out = np.full((FV["kWalk"] + 3, 8, 8), np.nan, np.float32)
+    for d in range(1 - FV["kGroupTiles"], FV["kWalk"]):
+        for lane in range(32):
+            g, t4 = lane >> 2, lane & 3
+            for e in range(2):
+                at = FV["kTapOff"] + 8 * d + t4 + 4 * e - g
+                assert 0 <= at < FV["kTapLen"]
+                out[d + 3, t4 + 4 * e, g] = plane[at]
+    assert not np.isnan(out).any()
+    return out
+
+
+def test_fir_variant_constants_and_source_maps():
+    from atsc_tpu_torch.ops.cuda import fir_variants as tfv
+
+    src = _source("fir_variants.cu")
+    assert FV["kOutRows"] == P.PADDED_OUT // FV["kBlk"] == tfv._OUT_ROWS
+    assert FV["kInRows"] * FV["kBlk"] == P.PADDED_SYMBOLS
+    assert FV["kTaps"] == P.RRC_TAPS
+    assert FV["kTile"] % 16 == 0 and FV["kNTiles"] % FV["kGroupTiles"] == 0
+    for expr in ("const int rt = warp / kRowWarps;",
+                 "const int c0 = (warp % kRowWarps) * kGroupTiles;",
+                 "constexpr int kWalk = kGroupTiles + kBlocks - 1;",
+                 "constexpr int kTapLen = kTapOff + 8 * kWalk;",
+                 "split_tf32(__ldg(w2 + (8 + t) * kBlk + 8), hi, lo);",
+                 "s_taps[i] = __uint_as_float(hi);",
+                 "s_taps[kTapLen + i] = __uint_as_float(lo);",
+                 "s_taps + kTapOff + t4 - g",
+                 "const float* tp = tap_lane + 8 * qq;",
+                 "const float* tp = tap_lane + 8 * (-1 - c);",
+                 "for (int qq = 0; qq < kWalk; ++qq) {",
+                 "if (d < 0 || d >= kBlocks) continue;",
+                 "for (int c = 0; c + 1 < kGroupTiles; ++c) {",
+                 "for (int c = kGroupTiles - 1; c > 0; --c)",
+                 "for (int k = 0; k < 4; ++k) blk[c][k] = blk[c - 1][k];",
+                 "blk[0][2] = __float_as_uint(tp[kTapLen]), "
+                 "blk[0][3] = __float_as_uint(tp[kTapLen + 4]);",
+                 "(16 * rt + (lane & 7) + 8 * (q & 1)) * kRowBytes + (q >> 1) * 16",
+                 "a_base + (SHARED_MOD ? 1 : kTile) * kRowBytes",
+                 "(qs < kSteps / 2 ? a_base : b_base) + 4 * 8 * (qs % (kSteps / 2))",
+                 "const int d = qq - c;",
+                 "mma_tf32(small[p][c], al, blk[c][0], blk[c][1]);",
+                 "mma_tf32(small[p][c], ah, blk[c][2], blk[c][3]);",
+                 "mma_tf32(big[p][c], ah, blk[c][0], blk[c][1]);",
+                 '#include "tensor_core.cuh"'):
+        assert expr in src, expr
+    header = _source("tensor_core.cuh")
+    for expr in ("hi = tf32_bits(__float_as_uint(x));",
+                 "lo = tf32_bits(__float_as_uint(__fsub_rn(x, __uint_as_float(hi))));"):
+        assert expr in header, expr
+
+
+@pytest.mark.parametrize("variant,nchunk", FV_CASES, ids=[f"{v}-{n}" for v, n in FV_CASES])
+def test_fir_variant_tiles_own_every_output_once(variant, nchunk):
+    """Blocks (nchunk per channel) x tiles of kTile rows x warps (row tile
+    rt, n-tiles from c0) x rows g + 8h x columns: every output (row, column)
+    of [0, 2040) x [0, 128) stored once; every tile's raw rows lie in the
+    field; every A row (a row, or b row one down) lies in the staged rows."""
+    shared = variant in ("sharedmod", "combo")
+    per = FV["kOutRows"] // nchunk
+    owned = np.zeros((FV["kOutRows"], FV["kBlk"]), np.int64)
+    for blk in range(nchunk):
+        begin, end = blk * per, (blk + 1) * per
+        for j0 in range(begin, end, FV["kTile"]):
+            valid = min(FV["kTile"], end - j0)
+            assert j0 + valid + 1 <= FV["kInRows"]          # the raw rows copied
+            for w in range(FV["kWarps"]):
+                rt, c0 = w // FV["kRowWarps"], (w % FV["kRowWarps"]) * FV["kGroupTiles"]
+                rows = 16 * rt + np.arange(16)
+                # a rows 16 rt + r; b rows one down (shared) or the b array's same row
+                top = rows.max() + (1 if shared else 0)
+                assert top < (FV["kTile"] + 1 if shared else FV["kTile"])
+                rows = rows[rows < valid]
+                cols = 8 * (c0 + np.arange(FV["kGroupTiles"]))[:, None] + np.arange(8)
+                np.add.at(owned, ((j0 + rows)[:, None], cols.reshape(-1)[None, :]), 1)
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("c0", range(0, FV["kNTiles"], FV["kGroupTiles"]))
+def test_fir_variant_tap_window_holds_each_steps_block(c0):
+    """The warp whose first n-tile is c0: its products read the tap block
+    of their step from the sliding window, and each of its n-tiles runs
+    each of its kBlocks nonzero k-steps once."""
+    steps = _fv_steps(c0)
+    pairs = [(qs, c) for qs, c, _ in steps]
+    assert len(pairs) == len(set(pairs)) == FV["kBlocks"] * FV["kGroupTiles"]
+
+
+def test_fir_variant_skipped_steps_are_zero_and_the_taps_the_image():
+    """Each warp runs, per n-tile, exactly the k-steps whose tap block of
+    [W_lo; W_hi] is nonzero, and the block it uses is D_{qs - nt} as the
+    lanes load it from the taps the block split from W2 (hi = tf32(W2),
+    hi + lo within 2^-22 of W2); every block the window loads outside
+    [0, kBlocks) is zero."""
+    from atsc_tpu_torch.ops.cuda import fir_variants as tfv
+
+    w2 = tfv._w2().astype(np.float64)
+    assert tfv._w2().shape == (256, FV["kBlk"])
+    parts = _split(tfv._w2())
+    assert (np.abs(parts[0].astype(np.float64) + parts[1] - w2) <= 2.0 ** -22 * np.abs(w2)).all()
+    hi, lo = _fv_lane_blocks(parts[0]), _fv_lane_blocks(parts[1])
+    outside = [d + 3 for d in range(1 - FV["kGroupTiles"], FV["kWalk"])
+               if not 0 <= d < FV["kBlocks"]]
+    assert not hi[outside].any() and not lo[outside].any()
+    for c0 in range(0, FV["kNTiles"], FV["kGroupTiles"]):
+        seen = set()
+        for qs, c, d in _fv_steps(c0):
+            nt = c0 + c
+            assert d == qs - nt
+            np.testing.assert_array_equal(hi[d + 3], parts[0][8 * qs:8 * qs + 8, 8 * nt:8 * nt + 8])
+            np.testing.assert_array_equal(lo[d + 3], parts[1][8 * qs:8 * qs + 8, 8 * nt:8 * nt + 8])
+            seen.add((qs, nt))
+        for c in range(FV["kGroupTiles"]):
+            nt = c0 + c
+            nonzero = {qs for qs in range(FV["kSteps"])
+                       if w2[8 * qs:8 * qs + 8, 8 * nt:8 * nt + 8].any()}
+            assert {qs for qs, t in seen if t == nt} == nonzero
+
+
+def _fv_model(field: torch.Tensor, phasor: torch.Tensor, variant: str, rows: np.ndarray):
+    """The kernel's (I, Q) at output rows `rows` of channel 0: modulate, split,
+    per warp step (qs, c, d) lo*hi and hi*lo into one accumulator and hi*hi
+    into another (_mma); ONE_DOT false folds the W_lo pair at qs = 16 and
+    adds the W_hi pair at the end; then the phasor rotation."""
+    from atsc_tpu_torch.ops.cuda import fir_variants as tfv
+    from atsc_tpu_torch.ops.offset import _osc_planar
+
+    one_dot = variant in ("onedot", "combo")
+    osc = _osc_planar()
+    lvl = (field[0].numpy().astype(np.float32) * np.float32(2.0)
+           + np.float32(P.PILOT_OFFSET - 7.0)).astype(np.float32)
+    ops = [_split((lvl * osc[0]).astype(np.float32)), _split((lvl * osc[1]).astype(np.float32))]
+    parts = _split(tfv._w2())
+    hi, lo = _fv_lane_blocks(parts[0]), _fv_lane_blocks(parts[1])
+    blk = FV["kBlk"]
+    out = np.zeros((2, rows.size, blk), np.float32)
+    for c0 in range(0, FV["kNTiles"], FV["kGroupTiles"]):
+        acc = {}
+        for p in range(2):
+            for c in range(FV["kGroupTiles"]):
+                z = np.zeros((rows.size, 8), np.float32)
+                acc[p, c] = [z.copy(), z.copy(), z.copy()]       # big, small, half
+        for qs, c, d in _fv_steps(c0):
+            if not one_dot and qs == FV["kSteps"] // 2 and c == 0:
+                for a in acc.values():
+                    a[2] = (a[0] + a[1]).astype(np.float32)
+                    a[0], a[1] = np.zeros_like(a[0]), np.zeros_like(a[1])
+            idx = (rows * blk + 8 * qs)[:, None] + np.arange(8)   # A[j][8 qs + k]
+            for p in range(2):
+                ah, al = ops[p][0][idx], ops[p][1][idx]
+                bh, bl = hi[d + 3], lo[d + 3]
+                a = acc[p, c]
+                for n in range(8):      # output column 8 (c0 + c) + n
+                    a[1][:, n] = _mma(a[1][:, n], al, np.broadcast_to(bh[:, n], al.shape))
+                    a[1][:, n] = _mma(a[1][:, n], ah, np.broadcast_to(bl[:, n], ah.shape))
+                    a[0][:, n] = _mma(a[0][:, n], ah, np.broadcast_to(bh[:, n], ah.shape))
+        for c in range(FV["kGroupTiles"]):
+            for p in range(2):
+                big, small, half = acc[p, c]
+                f = (big + small).astype(np.float32)
+                if not one_dot:
+                    f = (half + f).astype(np.float32)
+                out[p, :, 8 * (c0 + c):8 * (c0 + c) + 8] = f
+    pr, pi = phasor[0].numpy()
+    fu, fw = out
+    return np.stack([(fu * pr - fw * pi).astype(np.float32),
+                     (fu * pi + fw * pr).astype(np.float32)])
+
+
+@pytest.mark.parametrize("variant", ["base", "sharedmod", "onedot", "combo"])
+def test_fir_variant_split_arithmetic_within_the_probe_limit(variant):
+    """The kernel's 3 x TF32 arithmetic, every k-step and accumulation
+    rounded toward zero, stays within the probe's 2e-6 of run_variant_plain
+    and of offset_fir_plain on 64 output rows (the field's first and last
+    32, golden field 0's symbols) of channel 0."""
+    from atsc_tpu_torch.ops.cuda import fir_variants as tfv
+    from atsc_tpu_torch.ops.cuda import offset_fir as tof
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                                  "golden.npz"))
+    levels0 = golden["sync"][0].real.astype(np.float32)
+    sym = np.rint((levels0 - P.PILOT_OFFSET + 7.0) / 2.0).astype(np.int8)
+    sym[P.PADDED_SYMBOLS - P.RESERVED_SYMBOLS:] = 0
+    field = torch.tensor(sym[None])
+    phasor = torch.tensor([[0.8, 0.6]], dtype=torch.float32)
+    rows = np.concatenate([np.arange(32), np.arange(FV["kOutRows"] - 32, FV["kOutRows"])])
+    got = _fv_model(field, phasor, variant, rows)
+    cols = (rows[:, None] * FV["kBlk"] + np.arange(FV["kBlk"])).reshape(-1)
+    got = got.reshape(2, -1)
+    keep = cols < P.SYMBOLS_PER_FIELD
+    plain = tfv.run_variant_plain(field, phasor, variant)[0].numpy()[:, cols]
+    direct = tof.offset_fir_plain(field, phasor)[0].numpy()[:, cols]
+    assert np.abs(got - plain)[:, keep].max() <= 2e-6
+    assert np.abs(got - direct)[:, keep].max() <= 2e-6
+
+
 # -- the chunk-parallel tracebacks -------------------------------------------
 
 TB_CHUNKS = _constant("viterbi_acs.cu", "kTbChunks")       # 4-state

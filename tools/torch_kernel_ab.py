@@ -27,6 +27,28 @@ trees' kernels, on one CUDA device at B=384:
               per block, kTcChannels = 16 against 8; cf32,
               cs16 and cs8 windows (random IQ and its codes), hard, soft and
               soft-code outputs
+  eq_exact    eq_fir_fused, exact tier (csrc/eq_fir.cu, 3 x TF32 on the
+              tensor cores): 16-row tiles a warp holds across the band loop,
+              kXTilesPerWarp = 2 (this tree) against 1; outputs a row and
+              taps a band row, kXBand = 32 against 16; k-steps per Kahan
+              chunk, kXChunkSteps = 4 against 2 and 8; the same windows and
+              outputs as eq_fir (the random window at phase 7's 0.2 sigma),
+              every build held to the exact tier's limits against
+              eq_fir_plain (soft within 1e-5)
+  fir_variants  run_variant (csrc/fir_variants.cu, 3 x TF32): the seven
+              probe runs of tools/torch_fir_probe.py at B=384; the register
+              floor that sets the blocks an SM, kRegsFloor = 168 (this tree:
+              3 blocks with shared modulation) against 128 (4 blocks);
+              n-tiles a warp, kGroupTiles = 4 against 2 (twice the warps);
+              output rows a tile, kTile = 16 against 32 (twice the warps and
+              the shared memory a block);
+              offset_fir_fused timed beside them; every build held to 2e-6
+              against run_variant_plain
+  mma_peak    no source of the package: the card's mma.sync rate, a kernel
+              of independent mma.sync.m16n8k8 tf32 products in registers on
+              every SM, in TFLOP/s and products per SM and clock at the
+              highest SM clock (the issue floor of the two tf32 kernels
+              above)
   chunked     acs_forward_chunked (float32 and int8) and traceback_chunked
               (csrc/viterbi_acs.cu, the chunked 4-state passes) at B=384
               and B=1 for C = 2 and 24 chunks (--chunks): words a
@@ -60,7 +82,11 @@ kernel's limit: pr_acs, acs and chunked
 in any bit (decisions and final metrics); tb in any bit; offset_fir by more
 than 2e-6 (cf32) or 1 LSB (codes); eq_fir by more than 1e-4 in a soft
 level, or in a hard symbol or soft code other than by 1 within 1e-4 of a
-decision boundary (chip_smoke phase 7's limits).
+decision boundary (chip_smoke phase 7's limits); eq_exact likewise with
+1e-5, each build against the plain twin; fir_variants by more than 2e-6
+from the plain twin. The ptxas lines of each build (registers, spills,
+shared memory) are printed with it, and for eq_exact and fir_variants the
+instructions of each instantiation's largest loop by opcode (cuobjdump).
 
 For `chunked` it also disassembles each build's library (cuobjdump -sass
 beside nvcc) and prints, per chunked kernel (each instantiation), the
@@ -84,6 +110,7 @@ archive` of the parent commit unpacked into the git-ignored .archive_check/)
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -102,6 +129,7 @@ from atsc_tpu_torch import params as P  # noqa: E402
 from atsc_tpu_torch import resolve_device  # noqa: E402
 from atsc_tpu_torch.ops.cuda import _build  # noqa: E402
 from atsc_tpu_torch.ops.cuda import eq_fir as eqk  # noqa: E402
+from atsc_tpu_torch.ops.cuda import fir_variants as fvk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import offset_fir as fir  # noqa: E402
 from atsc_tpu_torch.ops.cuda import viterbi_acs as vk  # noqa: E402
 from atsc_tpu_torch.ops.ntsc import _pr_tables  # noqa: E402
@@ -124,12 +152,19 @@ KERNELS = {
     "tb": ("viterbi_acs", vk, (("kTbChunks", 16, (8, 32)), ("kPrTbChunks", 8, (16, 32)),
                                 ("kTbLanes", 32, (16, 8)))),
     "eq_fir": ("eq_fir", eqk, (("kTilesPerWarp", 4, (2,)), ("kTcChannels", 16, (8,)))),
+    "eq_exact": ("eq_fir", eqk, (("kXTilesPerWarp", 2, (1,)), ("kXBand", 32, (16,)),
+                                 ("kXChunkSteps", 4, (2, 8)))),
+    "fir_variants": ("fir_variants", fvk, (("kRegsFloor", 168, (128,)), ("kGroupTiles", 4, (2,)),
+                                           ("kTile", 16, (32,)))),
+    "mma_peak": (None, None, ()),
     "chunked": ("viterbi_acs", vk, (("kAcsChunkWords", 4, (2,)), ("kTbChunkWords", 8, (4, 16)),
                                     ("kChunk4Threads", 32, (64,)),
                                     ("kPrLaneThreads", 0, (1, 2, 4)), ("kPrGroupSteps", 2, (1, 4)),
                                     ("kPrTbAhead", 32, (16, 64)), ("kChunkThreads", 64, (32,)))),
 }
 CHUNKS = (2, 24)     # chunked: the chunk counts
+# eq_exact, fir_variants: the kernel whose largest loop's opcodes are counted
+LOOP_MIX = {"eq_exact": "eq_fir_exact_kernel", "fir_variants": "fir_variant_kernel"}
 # chunked: the kernels (longest names first) and the constants that shape each
 CHUNKED_SASS = {
     "pr_acs_forward_chunked_kernel": ("kPrLaneThreads", "kPrGroupSteps", "kChunkThreads"),
@@ -140,8 +175,12 @@ CHUNKED_SASS = {
 FIR_FORMATS = (("cf32", False), ("cs16", False), ("cs8", False), ("cs16", True),
                ("cs8", True))
 FIR_TIMED = (("cf32", False), ("cs16", False), ("cs8", True))
+# fir_variants: tools/torch_fir_probe.py's banded runs, and the variant's default
+FIR_RUNS = (("base", 5), ("base", 15), ("base", 17), ("onedot", 5), ("sharedmod", 5),
+            ("combo", 5), ("combo", 15))
 TOL_CF32, TOL_LSB = 2e-6, 1
 TOL_EQ_SOFT = 1e-4
+TOL_EQ_EXACT = 1e-5
 STEPS = 21528        # trellis steps of a field
 
 
@@ -163,6 +202,9 @@ def sources(kernels: list[str], earlier: list[str]) -> dict:
     out = {}
     for kernel in kernels:
         src, _, consts = KERNELS[kernel]
+        if src is None:
+            out[(kernel, "this tree")] = MMA_PEAK_CU
+            continue
         with open(os.path.join(_build.CSRC, src + ".cu")) as fh:
             text = fh.read()
         out[(kernel, "this tree")] = text
@@ -199,8 +241,10 @@ def ptxas_usage(log: str) -> list[str]:
     for ln in log.splitlines():
         fn = re.search(r"Compiling entry function '(\S+)'", ln)
         if fn:
-            m = re.search(r"\d+((?:[a-z]+_)+kernel)(?:I(Li(\d+)E|[a-z])E)?", fn.group(1))
-            name = (m.group(1) + (f"<{m.group(3) or m.group(2)}>" if m.group(2) else "")
+            m = re.search(r"\d+((?:[a-z0-9]+_)+(?:kernel|peak))(I(?:L[a-z]\d+E|[a-z])+E)?",
+                          fn.group(1))
+            args = re.findall(r"L[a-z](\d+)E|([a-z])", m.group(2)[1:-1]) if m and m.group(2) else []
+            name = (m.group(1) + (f"<{','.join(a or b for a, b in args)}>" if args else "")
                     if m else fn.group(1))
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
             out.append(f"{name}: {ln.strip()}")
@@ -238,17 +282,20 @@ class _AnyTree(ctypes.CDLL):
 
 def bound(module, path: str, device_index: int) -> ctypes.CDLL:
     """The library at path, set up as the module's wrapper sets up its own
-    (entry points declared, the FIR's and the equalizer's fast-tier taps
+    (entry points declared, the FIR's and both equalizer tiers' taps
     loaded on the device)."""
+    if module is None:
+        return ctypes.CDLL(path)
     real = _build.load
     module._kernel_lib.cache_clear()
     _build.load = lambda name: _AnyTree(path)
     try:
-        lib = module._kernel_lib(device_index)
+        lib = module._kernel_lib() if module is fvk else module._kernel_lib(device_index)
         if module is eqk:
             eqk._tier.cache_clear()
             with torch.cuda.device(device_index):
                 eqk._tier(device_index, 128, False)
+                eqk._tier(device_index, 256, True)
         return lib
     finally:
         _build.load = real
@@ -262,7 +309,7 @@ def routed(module, lib: ctypes.CDLL):
     """The module's wrapper launches lib's kernel inside the block (its
     taps were loaded by `bound`)."""
     real = module._kernel_lib
-    module._kernel_lib = lambda device_index: lib
+    module._kernel_lib = lambda *device_index: lib
     if module is eqk:
         real_tier = eqk._tier
         eqk._tier = lambda device_index, eq_k, exact: eqk.TIERS[(eq_k, exact)]
@@ -628,6 +675,39 @@ def main_path(ins: list[str], labels: dict, head: int, back: int) -> int:
     return best[head] or back - head + 1
 
 
+def loop_mix(listing: str, kernel: str) -> list[dict]:
+    """Per instantiation of `kernel` in a cuobjdump -sass listing: its
+    largest loop (a label to a branch back to it, nested loops included) as
+    instructions by opcode (HMMA, LDSM, LDS, FADD, ...)."""
+    out = []
+    for part in listing.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        ins, labels, spans = [], {}, []
+        for line in part.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(ins)
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                labels["0x" + m.group(1).lstrip("0").lower()] = len(ins)
+                br = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", m.group(2))
+                if br:
+                    t = br.group(1).lower() if br.group(1).startswith("0x") else br.group(1)
+                    if t in labels:
+                        spans.append((len(ins) - labels[t] + 1, labels[t], len(ins)))
+                ins.append(m.group(2))
+        if spans:
+            size, a, b = max(spans)
+            ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", s).split()[0].split(".")[0]
+                                      for s in ins[a:b + 1])
+            out.append({"function": name, "loop_instructions": size,
+                        "opcodes": dict(ops.most_common())})
+    return out
+
+
 def _sass_kernel(function: str) -> str | None:
     """The chunked kernel a mangled function name instantiates."""
     return next((k for k in CHUNKED_SASS if k in function), None)
@@ -666,14 +746,21 @@ def sass(libs: dict, plan: dict) -> None:
                           if _sass_kernel(part.split(None, 1)[0]))
 
 
-def ab_eq_fir(libs, names, dev, gen, args) -> bool:
-    """The fast tier on a random cf32 window and its cs16/cs8 codes."""
+def ab_eq_fir(libs, names, dev, gen, args, exact: bool = False) -> bool:
+    """The fast tier (exact: the exact tier) on a random cf32 window and its
+    cs16/cs8 codes. The fast tier's builds are held to this tree's build,
+    the exact tier's each to the plain twin."""
     from atsc_tpu_torch.models.receiver import _osc_planar
 
     n_out = P.SYMBOLS_PER_FIELD
     b = args.batch
-    win = 0.5 * torch.randn((b, 2, eqk.WIN_LEN), device=dev, generator=gen)
-    osc = torch.tensor(_osc_planar(n_out - 128, n_out - 128 + eqk.WIN_LEN, 0), device=dev)
+    eq_k = 256 if exact else 128
+    tol = TOL_EQ_EXACT if exact else TOL_EQ_SOFT
+    # the exact tier's 1e-5 holds for chip_smoke phase 7's random windows
+    # (0.2 sigma); at 0.5 sigma the levels grow and the CUDA-core form
+    # itself strays 1.5e-5 from the twin
+    win = (0.2 if exact else 0.5) * torch.randn((b, 2, eqk.WIN_LEN), device=dev, generator=gen)
+    osc = torch.tensor(_osc_planar(n_out - eq_k, n_out - eq_k + eqk.WIN_LEN, 0), device=dev)
     ok = True
     for fmt in ("cf32", "cs16", "cs8"):
         if fmt == "cf32":
@@ -683,9 +770,10 @@ def ab_eq_fir(libs, names, dev, gen, args) -> bool:
             w = torch.clamp(torch.round(win * quantize_scale(fmt)), -q, q).to(
                 torch.int16 if fmt == "cs16" else torch.int8)
             dq = 1.0 / quantize_scale(fmt)
-        soft_p = eqk.eq_fir_plain(w, osc, soft=True, dequant=dq)
+        tier = dict(eq_k=eq_k, exact=exact, dequant=dq)
+        soft_p = eqk.eq_fir_plain(w, osc, soft=True, **tier)
         for mode in ("hard", "soft", "codes"):
-            kw = dict(soft=mode != "hard", soft_q=mode == "codes", dequant=dq)
+            kw = dict(soft=mode != "hard", soft_q=mode == "codes", **tier)
 
             def run(n, w=w, kw=kw):
                 with routed(eqk, libs[n]):
@@ -693,25 +781,120 @@ def ab_eq_fir(libs, names, dev, gen, args) -> bool:
 
             outs = {n: run(n) for n in names}
             times = in_turns(names, run, args.iters)
-            want = outs["this tree"]
+            ref = eqk.eq_fir_plain(w, osc, **kw) if exact else outs["this tree"]
             for n in names:
                 got = outs[n]
                 if mode == "soft":
-                    err = float((got - want).abs().max())
-                    within = err <= TOL_EQ_SOFT
+                    err = float((got - ref).abs().max())
+                    within = err <= tol
                 else:
                     scale, bias = (0.5, 5.75) if mode == "hard" else (SOFT_LEVEL_SCALE, 0.0)
                     x = (soft_p + bias) * scale
-                    near = (x - x.floor() - 0.5).abs() < TOL_EQ_SOFT * scale
-                    diff = got != want
-                    err = float((got.int() - want.int()).abs().max())
+                    near = (x - x.floor() - 0.5).abs() < tol * scale
+                    diff = got != ref
+                    err = float((got.int() - ref.int()).abs().max())
                     within = err <= 1 and not bool((diff & ~near).any())
                 ok &= within
-                emit(kernel="eq_fir_fused", build=n, tier="fast", format=fmt, output=mode,
-                     batch=b, ms=times[n], identical=bool(torch.equal(got, want)),
-                     max_abs_err=err, within_limits=within)
-            del outs
+                emit(kernel="eq_fir_fused", build=n, tier="exact" if exact else "fast",
+                     format=fmt, output=mode, batch=b, ms=times[n],
+                     identical=bool(torch.equal(got, outs["this tree"])),
+                     max_abs_err=err, against="plain" if exact else "this tree",
+                     within_limits=within)
+            del outs, ref
         del soft_p
+    return ok
+
+
+def ab_fir_variants(libs, names, dev, gen, args) -> bool:
+    """The seven probe runs (tools/torch_fir_probe.py's RUNS) on random
+    symbols, each build against run_variant_plain; offset_fir_fused timed
+    once beside them."""
+    b = args.batch
+    n_out = P.SYMBOLS_PER_FIELD
+    field = torch.randint(0, 8, (b, P.PADDED_SYMBOLS), dtype=torch.int8, device=dev,
+                          generator=gen)
+    ang = torch.rand(b, device=dev, generator=gen) * 6.2831855
+    phasor = torch.stack([torch.cos(ang), torch.sin(ang)], 1).contiguous()
+    ok = True
+    for variant, nchunk in FIR_RUNS:
+        want = fvk.run_variant_plain(field, phasor, variant, nchunk)[..., :n_out]
+
+        def run(n, variant=variant, nchunk=nchunk):
+            with routed(fvk, libs[n]):
+                return fvk.run_variant(field, phasor, variant, nchunk)
+
+        outs = {n: run(n)[..., :n_out] for n in names}
+        times = in_turns(names, run, args.iters)
+        for n in names:
+            err = float((outs[n] - want).abs().max())
+            ok &= err <= TOL_CF32
+            emit(kernel="fir_variants", build=n, variant=variant, nchunk=nchunk, batch=b,
+                 ms=times[n], identical=bool(torch.equal(outs[n], outs["this tree"])),
+                 max_abs_err=err, against="plain", within_limits=err <= TOL_CF32)
+        del outs, want
+    emit(kernel="offset_fir_fused", build="package", batch=b,
+         ms=[mean_ms(lambda: fir.offset_fir_fused(field, phasor), args.iters)
+             for _ in range(2)])
+    return ok
+
+
+MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// kChains independent accumulators a warp, kIters rounds of one product
+// each: the products never wait on each other or on memory
+constexpr int kChains = 8, kIters = 4096;
+__global__ void tf32_peak(float* out) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = 0x3F800000u + threadIdx.x;
+  b[0] = b[1] = 0x3F800000u;
+  float d[kChains][4] = {};
+  for (int it = 0; it < kIters; ++it)
+#pragma unroll
+    for (int c = 0; c < kChains; ++c)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+                   "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                   : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]), "+f"(d[c][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  float s = 0.f;
+  for (int c = 0; c < kChains; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_peak(int blocks, int threads, float* out, void* stream) {
+  tf32_peak<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def ab_mma_peak(lib, dev, args) -> bool:
+    """mma.sync.m16n8k8 tf32's rate on this card: 8 independent accumulators
+    a warp, 4096 rounds, 4 / 8 / 16 warps on each SM (two blocks an SM);
+    TFLOP/s and products per SM and clock at the highest SM clock
+    (nvidia-smi)."""
+    lib.mma_peak.restype = ctypes.c_int
+    lib.mma_peak.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]) * 1e6
+    ok = True
+    for warps in (4, 8, 16):
+        blocks, threads = 2 * sms, 32 * warps // 2
+        out = torch.empty(blocks * threads, device=dev)
+
+        def run():
+            err = lib.mma_peak(blocks, threads, out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_peak launch failed: CUDA error {err}")
+
+        ms = mean_ms(run, args.iters)
+        products = blocks * threads // 32 * 8 * 4096
+        ok &= bool(torch.isfinite(out).all())
+        emit(kernel="mma_peak", build="probe", shape="m16n8k8 tf32", warps_per_sm=warps,
+             ms=ms, tflop_per_s=products * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12,
+             per_sm_clock=products / sms / (ms * 1e-3 * clock))
     return ok
 
 
@@ -743,6 +926,12 @@ def main(argv=None) -> int:
     for (kernel, name), (path, ptxas) in built.items():
         libs.setdefault(kernel, {})[name] = bound(KERNELS[kernel][1], path, dev.index)
         emit(kernel=kernel, build=name, library=os.path.relpath(path, ROOT), ptxas=ptxas)
+        if kernel in LOOP_MIX:   # the tensor-core kernels' instruction mix
+            tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+            listing = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                                     check=True).stdout
+            for mix in loop_mix(listing, LOOP_MIX[kernel]):
+                emit(kernel=kernel, build=name, **mix)
 
     ok = True
     gen = torch.Generator(dev).manual_seed(5)
@@ -752,6 +941,12 @@ def main(argv=None) -> int:
             ok &= ab_offset_fir(libs[kernel], names, dev, gen, args)
         elif kernel == "eq_fir":
             ok &= ab_eq_fir(libs[kernel], names, dev, gen, args)
+        elif kernel == "eq_exact":
+            ok &= ab_eq_fir(libs[kernel], names, dev, gen, args, exact=True)
+        elif kernel == "fir_variants":
+            ok &= ab_fir_variants(libs[kernel], names, dev, gen, args)
+        elif kernel == "mma_peak":
+            ok &= ab_mma_peak(libs[kernel]["this tree"], dev, args)
         elif kernel == "tb":
             ok &= ab_tb(libs[kernel], names, dev, gen, args)
         elif kernel == "chunked":
