@@ -12,25 +12,47 @@
 //   sym_p = z2_p << 2 | x(6-2p) << 1 | z0_p         (stream position 4t + p)
 //
 // d pairs with the precoder chain S2, d2 with the even-step chain Su and d1
-// with the odd-step chain Sv. The three parities pack into one 3-bit word
-// S = S2 | Su<<1 | Sv<<2, so the three prefixes are a single XOR scan: no
-// cumsum and no triangular matmul (the TPU kernel's bf16 TRIU dots). The
-// whole row is computed, the 122 pad bytes past 5,382 included, so the
-// output equals the TPU kernel's over the full array.
+// with the odd-step chain Sv. S is linear in the byte, so E[t] is S of
+// P[t], the XOR of the raw bytes before t: the kernel scans bytes, not
+// parities, with the carries as one byte c (bit 1 = d, bit 2 = d2, bit 0 =
+// d1, whose S is (d, d2, d1)). The whole row is computed, the 122 pad
+// bytes past 5,382 included, so the output equals the TPU kernel's over the
+// full array.
 //
-// Design: one warp per row, 4 rows per block (4,608 warps at B = 384, all
-// resident in one wave). A warp walks its row in 11 rounds of 512 bytes:
-// each lane loads 16 bytes with one 16-byte load (rows are 344 x 16 bytes,
-// so every load is aligned), folds their 16 parities into its XOR total,
-// takes an exclusive warp-shuffle XOR scan of the totals, adds the carry of
-// the earlier rounds, and walks its 16 bytes serially. Output, by layout:
-// interleaved (12, 22016): the 4 symbols of a byte are one 32-bit word, 16
-// bytes four 16-byte stores; plane-major (12, 4, 5504): 16 bytes of each
-// plane one 16-byte store.
+// Design: four bytes per instruction (SWAR on 32-bit words, byte 0 first).
+// A warp owns a row and walks it in 11 rounds of 512 bytes, 4 words a lane:
+// interleaved, word 128 r + 32 s + lane of step s (each warp load one
+// 128-byte line, each warp store of the 16 symbols of a word one 512-byte
+// run); plane-major, words 128 r + 4 lane + s (one 16-byte load, and per
+// plane one 16-byte store, 512 bytes a warp). A round:
+//   - pre_s: the XOR of bytes 0..i of word s in byte i (two shift-XORs);
+//     byte s of t is word s's total (byte 3 of pre_s);
+//   - one warp XOR scan (5 shuffles) for all four words: interleaved, a
+//     bytewise scan of t over the lanes (byte s scans step s), then the
+//     steps' totals prefixed in the word; plane-major, the lane's words
+//     prefixed in t, the lane total scanned. `base` byte s is the XOR of
+//     every byte of the row before word s, c included; c moves on by the
+//     round's total;
+//   - per word, P = pre << 8 ^ base's byte s in every byte, and the four
+//     planes in 4 x 8 bit lanes: v = P ^ P >> 4 holds Ev, E2 ^ .., Eu in
+//     bits 0-3; the z2 chain shifts x7, x5, x3, x1 to bit 2, which brings
+//     x6, x4, x2, x0 to bit 1; plane p byte i is symbol p of byte i, which
+//     is plane-major's output word; interleaved transposes the 4 x 4 bytes
+//     with 8 byte permutes.
+// The grid is persistent (as many blocks as fit on the card, rows strided
+// over its warps); each warp loads its next round (after a row's last, the
+// next row's first) before it computes this one, and writes with streaming
+// stores (st.global.cs: the symbols are not read again here).
 //
 // What bounds it on an H100: bytes. At B = 384 it reads 25.4 MB and writes
-// 101.4 MB (0.038 ms at 3.35 TB/s); the work is ~40 integer operations per
-// byte, 1.0e9 in all, well under the card's integer rate in that time.
+// 101.4 MB (0.038 ms at 3.35 TB/s). On an H100 80GB HBM3 at 700 W it takes
+// 0.053 ms in either layout, within 5 % of a copy kernel with the same loads
+// and stores and no arithmetic (0.051 ms; PyTorch's fill_ of the 101.4 MB
+// alone takes 0.034): the mix of reads and writes, not the instructions,
+// holds it (tools/torch_kernel_ab.py --kernels trellis_fused). The round
+// loop issues 14.4 (interleaved) / 12.4 (plane-major) instructions an input
+// byte, an issue floor of ~0.011 ms; 46 / 40 registers, no spills, 40 / 48
+// warps an SM, so B = 384's 4,608 rows run as one wave.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,33 +62,129 @@
 namespace {
 
 constexpr int kRowBytes = 5504;                 // padded bytes per row (43 x 128)
-constexpr int kVec = 16;                        // bytes per lane per round
-constexpr int kVecs = kRowBytes / kVec;         // 344
-constexpr int kRounds = (kVecs + 31) / 32;      // 11
-constexpr int kWarps = 4;                       // rows per block
+constexpr int kRowWords = kRowBytes / 4;        // 1,376
+constexpr int kLaneBytes = 16;                  // input bytes a lane takes a round
+constexpr int kRoundBytes = 32 * kLaneBytes;    // 512
+constexpr int kRounds = (kRowBytes + kRoundBytes - 1) / kRoundBytes;   // 11
+constexpr int kWarps = 4;                       // warps (rows at a time) a block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kB0 = 0x01010101u;           // bit 0 of every byte
 
-static_assert(kRowBytes % kVec == 0, "rows are whole 16-byte vectors");
+constexpr int kLastSteps = (kRowWords - 128 * (kRounds - 1)) / 32;   // 3 of the last round's 4
+constexpr int kLastLanes = (kRowWords - 128 * (kRounds - 1)) / 4;    // 24 of its 32
 
-// S2 | Su<<1 | Sv<<2 of one byte: y = x ^ (x >> 4) pairs bit k with bit k+4.
-__device__ __forceinline__ uint32_t parity3(uint32_t x) {
-  const uint32_t y = x ^ (x >> 4);
-  return (((y >> 3) ^ (y >> 1)) & 1u) | (y & 4u) >> 1 | (y & 1u) << 2;
+static_assert(kRowWords % 32 == 0, "a step of 32 words ends inside the row or at its end");
+static_assert(kRowBytes % 16 == 0, "rows are whole 16-byte vectors");
+
+__device__ __forceinline__ uint32_t prefix_bytes(uint32_t x) {   // byte i: XOR of bytes 0..i
+  const uint32_t y = x ^ (x << 8);
+  return y ^ (y << 16);
 }
 
-// The four symbols of byte x, given E (carries folded in): symbol p in
-// byte p of the result.
-__device__ __forceinline__ uint32_t symbols4(uint32_t x, uint32_t e) {
-  const uint32_t e2 = e & 1u, eu = (e >> 1) & 1u, ev = (e >> 2) & 1u;
-  const uint32_t x7 = (x >> 7) & 1u, x6 = (x >> 6) & 1u, x5 = (x >> 5) & 1u;
-  const uint32_t x4 = (x >> 4) & 1u, x3 = (x >> 3) & 1u, x2 = (x >> 2) & 1u;
-  const uint32_t x1 = (x >> 1) & 1u, x0 = x & 1u;
-  const uint32_t z20 = e2 ^ x7, z21 = z20 ^ x5, z22 = z21 ^ x3, z23 = z22 ^ x1;
-  const uint32_t s0 = z20 << 2 | x6 << 1 | ev;
-  const uint32_t s1 = z21 << 2 | x4 << 1 | (eu ^ x6);
-  const uint32_t s2 = z22 << 2 | x2 << 1 | (ev ^ x4);
-  const uint32_t s3 = z23 << 2 | x0 << 1 | (eu ^ x6 ^ x2);
-  return s0 | s1 << 8 | s2 << 16 | s3 << 24;
+__device__ __forceinline__ uint32_t byte_bcast(uint32_t x, int s) {   // byte s in every byte
+  return __byte_perm(x, 0u, 0x1111u * s);
+}
+
+// The carry byte c of a row, in every byte.
+__device__ __forceinline__ uint32_t carry_bytes(const int32_t* d, const int32_t* d1,
+                                                const int32_t* d2, int row) {
+  return ((d[row] & 1) << 1 | (d2[row] & 1) << 2 | (d1[row] & 1)) * kB0;
+}
+
+// Word s of the lane in round r is live inside the row: every word but the
+// last round's, there the first kLastSteps steps (interleaved) or the
+// first kLastLanes lanes (plane-major).
+template <bool kInterleaved>
+__device__ __forceinline__ bool live_word(int r, int s, int lane) {
+  return r + 1 < kRounds || (kInterleaved ? s < kLastSteps : lane < kLastLanes);
+}
+
+// The lane's 4 words of round r of the row at src (zeros past its end).
+template <bool kInterleaved>
+__device__ __forceinline__ uint4 load_round(const uint8_t* src, int r, int lane) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(src) + 128 * r;
+  if constexpr (kInterleaved) {
+    uint32_t q[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) q[s] = live_word<true>(r, s, lane) ? __ldg(w + 32 * s + lane) : 0u;
+    return make_uint4(q[0], q[1], q[2], q[3]);
+  } else {
+    return live_word<false>(r, 0, lane) ? __ldg(reinterpret_cast<const uint4*>(w) + lane)
+                                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Inclusive XOR scan of x over the warp's lanes.
+__device__ __forceinline__ uint32_t warp_scan(uint32_t x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x ^= y;
+  }
+  return x;
+}
+
+// The symbol planes of the 4 bytes of w, given pe (byte i: the XOR of every
+// row byte before byte i, c included): byte i of pl[p] is symbol p of byte i.
+__device__ __forceinline__ void planes4(uint32_t w, uint32_t pe, uint32_t (&pl)[4]) {
+  const uint32_t v = pe ^ (pe >> 4);                    // bit 0 Ev, bit 2 Eu, bits 1^3 E2
+  const uint32_t g = v ^ (w >> 4);                      // bit 0 Ev^x4, bit 2 Eu^x6
+  const uint32_t x0 = (v << 1) ^ (v >> 1) ^ (w >> 5);   // bit 2: z2_0 = E2^x7
+  const uint32_t x1 = x0 ^ (w >> 3);                    // bit 2: z2_1
+  const uint32_t x2 = x1 ^ (w >> 1);                    // bit 2: z2_2
+  const uint32_t x3 = x2 ^ (w << 1);                    // bit 2: z2_3
+  pl[0] = (x0 & 4 * kB0) | ((w >> 5) & 2 * kB0) | (v & kB0);
+  pl[1] = (x1 & 4 * kB0) | ((w >> 3) & 2 * kB0) | ((g >> 2) & kB0);
+  pl[2] = (x2 & 4 * kB0) | ((w >> 1) & 2 * kB0) | (g & kB0);
+  pl[3] = (x3 & 4 * kB0) | ((w << 1) & 2 * kB0) | (((g ^ w) >> 2) & kB0);
+}
+
+// One round of a row (kLast: its last, partly past the row's end): the
+// lane's words q, the row's running carry bytes cb (moved on by the round),
+// its symbols written to dst (the row's output) with streaming stores.
+template <bool kInterleaved, bool kLast>
+__device__ __forceinline__ void encode_round(uint4 q, int r, int lane, uint32_t& cb,
+                                             uint8_t* dst) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  uint32_t pre[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) pre[s] = prefix_bytes(w[s]);
+  const uint32_t t = __byte_perm(__byte_perm(pre[0], pre[1], 0x0073),
+                                 __byte_perm(pre[2], pre[3], 0x0073), 0x5410);
+  uint32_t base;
+  if constexpr (kInterleaved) {
+    const uint32_t inc = warp_scan(t, lane);                 // byte s: step s's lanes 0..lane
+    const uint32_t ti = prefix_bytes(__shfl_sync(kFull, inc, 31));   // steps 0..s
+    base = inc ^ t ^ (ti << 8) ^ cb;
+    cb ^= byte_bcast(ti, 3);
+  } else {
+    const uint32_t li = prefix_bytes(t);                     // byte s: words 0..s
+    const uint32_t lt = byte_bcast(li, 3);
+    const uint32_t inc = warp_scan(lt, lane);
+    base = inc ^ lt ^ (li << 8) ^ cb;
+    cb ^= __shfl_sync(kFull, inc, 31);
+  }
+  uint32_t pl[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) planes4(w[s], (pre[s] << 8) ^ byte_bcast(base, s), pl[s]);
+  if constexpr (kInterleaved) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (kLast && s >= kLastSteps) continue;
+      const uint32_t* p = pl[s];
+      const uint32_t t0 = __byte_perm(p[0], p[1], 0x5140), t1 = __byte_perm(p[0], p[1], 0x7362);
+      const uint32_t t2 = __byte_perm(p[2], p[3], 0x5140), t3 = __byte_perm(p[2], p[3], 0x7362);
+      __stcs(reinterpret_cast<uint4*>(dst + 16 * (128 * r + 32 * s + lane)),
+             make_uint4(__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                        __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)));
+    }
+  } else {
+    if (kLast && lane >= kLastLanes) return;
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      __stcs(reinterpret_cast<uint4*>(dst + p * kRowBytes + 4 * (128 * r + 4 * lane)),
+             make_uint4(pl[0][p], pl[1][p], pl[2][p], pl[3][p]));
+  }
 }
 
 template <bool kInterleaved>
@@ -75,59 +193,54 @@ trellis_fused_kernel(const uint8_t* __restrict__ il, const int32_t* __restrict__
                      const int32_t* __restrict__ d1, const int32_t* __restrict__ d2,
                      int8_t* __restrict__ out, int rows) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + warp;
   if (row >= rows) return;  // the whole warp leaves together
-  const uint4* src = reinterpret_cast<const uint4*>(il + static_cast<size_t>(row) * kRowBytes);
-  uint8_t* dst = reinterpret_cast<uint8_t*>(out) + static_cast<size_t>(row) * 4 * kRowBytes;
-  uint32_t carry = (d[row] & 1) | (d2[row] & 1) << 1 | (d1[row] & 1) << 2;
+  uint8_t* dst0 = reinterpret_cast<uint8_t*>(out);
+  uint32_t cb = carry_bytes(d, d1, d2, row);
 
+  uint4 next = load_round<kInterleaved>(il + static_cast<size_t>(row) * kRowBytes, 0, lane);
+  for (;;) {
+    const int nrow = row + stride;
+    const uint32_t next_cb = nrow < rows ? carry_bytes(d, d1, d2, nrow) : 0u;
+    const uint8_t* src = il + static_cast<size_t>(row) * kRowBytes;
+    uint8_t* dst = dst0 + static_cast<size_t>(row) * 4 * kRowBytes;
 #pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    const int v = r * 32 + lane;
-    const bool live = v < kVecs;
-    const uint4 q = live ? src[v] : make_uint4(0u, 0u, 0u, 0u);
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-    uint32_t total = 0;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) total ^= parity3((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
-    uint32_t incl = total;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl ^= y;
+    for (int r = 0; r + 1 < kRounds; ++r) {
+      const uint4 q = next;
+      next = load_round<kInterleaved>(src, r + 1, lane);
+      encode_round<kInterleaved, false>(q, r, lane, cb, dst);
     }
-    uint32_t e = carry ^ incl ^ total;  // E at this lane's first byte
-    carry ^= __shfl_sync(kFull, incl, 31);
-    if (!live) continue;
-
-    uint32_t sym[kVec];
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const uint32_t x = (w[i >> 2] >> (8 * (i & 3))) & 0xffu;
-      sym[i] = symbols4(x, e);
-      e ^= parity3(x);
-    }
-    if constexpr (kInterleaved) {
-      uint4* o = reinterpret_cast<uint4*>(dst + static_cast<size_t>(v) * 4 * kVec);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        o[k] = make_uint4(sym[4 * k], sym[4 * k + 1], sym[4 * k + 2], sym[4 * k + 3]);
-    } else {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t word[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          word[k] = 0;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) word[k] |= ((sym[4 * k + i] >> (8 * p)) & 0xffu) << (8 * i);
-        }
-        *reinterpret_cast<uint4*>(dst + static_cast<size_t>(p) * kRowBytes +
-                                  static_cast<size_t>(v) * kVec) =
-            make_uint4(word[0], word[1], word[2], word[3]);
-      }
-    }
+    const uint4 q = next;   // the last round; the next row's first loads
+    if (nrow < rows)
+      next = load_round<kInterleaved>(il + static_cast<size_t>(nrow) * kRowBytes, 0, lane);
+    encode_round<kInterleaved, true>(q, kRounds - 1, lane, cb, dst);
+    if (nrow >= rows) break;
+    row = nrow, cb = next_cb;
   }
+}
+
+// The persistent grid: as many blocks as the card holds at once (asked once
+// a device), no more than the rows need.
+template <bool kInterleaved>
+cudaError_t grid_blocks(int device, int rows, int* blocks) {
+  static int held_on[64];   // blocks device i holds at once; 0 until asked
+  int held = device >= 0 && device < 64 ? held_on[device] : 0;
+  if (held == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, trellis_fused_kernel<kInterleaved>, kWarps * 32, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    held = sms * per_sm;
+    if (device >= 0 && device < 64) held_on[device] = held;
+  }
+  const int need = (rows + kWarps - 1) / kWarps;
+  *blocks = need < held ? need : held;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -144,7 +257,10 @@ int atsc_trellis_fused(int device, const uint8_t* il, const int32_t* d, const in
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (rows + kWarps - 1) / kWarps;
+  int blocks = 0;
+  const cudaError_t err = interleaved ? grid_blocks<true>(device, rows, &blocks)
+                                      : grid_blocks<false>(device, rows, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (interleaved)
     trellis_fused_kernel<true><<<blocks, kWarps * 32, 0, s>>>(il, d, d1, d2, out, rows);

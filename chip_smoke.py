@@ -85,8 +85,10 @@ Phases, one JSON line each; any failed check exits non-zero:
 17. trellis_fused: tools/torch_trellis_fuse_probe.py's main at B=384 (its
    own path, launches counted); then the kernel against its plain twin in
    both layouts, whole arrays bit for bit, and the stream-order cut against
-   trellis_encode_field, on random bytes (pad bytes too) and carries; the
-   kernel per layout, the twin and trellis_encode_field timed.
+   trellis_encode_field, on random bytes (pad bytes too) and carries, at
+   B=384, 1 and 23 (12 and 276 rows: the persistent grid's ragged edges);
+   at B=384 the kernel per layout timed back to back and with the L2
+   flushed before each launch, the twin and trellis_encode_field timed.
 18. fir_variants: tools/torch_fir_probe.py's main at B=384 (launches
    counted); then each of the probe's seven (variant, nchunk) runs against
    run_variant_plain and against offset_fir_fused cf32, <= 2e-6 over the
@@ -1669,7 +1671,8 @@ def trellis_fused_kernel(dev) -> dict:
     il = il_pad[..., :nb].contiguous()
     ref = trellis_encode_field(il, d, d1, d2)[0]
     ref_ms = timed(lambda: trellis_encode_field(il, d, d1, d2))
-    ms, plain_ms, same, err = {}, {}, {}, 0
+    flushed_ms = _tool("torch_kernel_ab").flushed_ms   # the L2 flushed before each launch
+    ms, cold_ms, plain_ms, same, err = {}, {}, {}, {}, 0
     for interleaved in (True, False):
         name = "interleaved" if interleaved else "planemajor"
         got = tfk.trellis_fused(il_pad, d, d1, d2, interleaved=interleaved)
@@ -1678,20 +1681,39 @@ def trellis_fused_kernel(dev) -> dict:
         same[name + "_vs_trellis_encode_field"] = bool(
             torch.equal(tfk.to_stream(got, interleaved), ref))
         err = max(err, int((got.int() - want.int()).abs().max()))
+        del got, want
         ms[name] = timed(lambda lay=interleaved: tfk.trellis_fused(il_pad, d, d1, d2,
                                                                    interleaved=lay))
+        cold_ms[name] = flushed_ms(lambda lay=interleaved: tfk.trellis_fused(
+            il_pad, d, d1, d2, interleaved=lay), 10, dev)
         plain_ms[name] = timed(lambda lay=interleaved: tfk.trellis_fused_plain(
             il_pad, d, d1, d2, interleaved=lay), reps=3)
+    # the persistent grid's ragged edges: 12 and 276 rows
+    for b, seed in ((1, 171), (23, 172)):
+        g = torch.Generator(dev).manual_seed(seed)
+        il_b = torch.randint(0, 256, (b, ne, tfk.PAD_BYTES), dtype=torch.uint8, device=dev,
+                             generator=g)
+        c_b = [torch.randint(0, 2, (b, ne), dtype=torch.int32, device=dev, generator=g)
+               for _ in range(3)]
+        ref_b = trellis_encode_field(il_b[..., :nb].contiguous(), *c_b)[0]
+        for interleaved in (True, False):
+            name = f"b{b}_" + ("interleaved" if interleaved else "planemajor")
+            got = tfk.trellis_fused(il_b, *c_b, interleaved=interleaved)
+            same[name] = bool(torch.equal(
+                got, tfk.trellis_fused_plain(il_b, *c_b, interleaved=interleaved)))
+            same[name + "_vs_trellis_encode_field"] = bool(
+                torch.equal(tfk.to_stream(got, interleaved), ref_b))
     # bytes: the padded field and the carries read once, the symbols written once
     bound = _bound(B_FULL * ne * (tfk.PAD_BYTES + 3 * 4 + tfk.PAD_SYMBOLS), 0)
-    emit("trellis_fused", batch=B_FULL, identical=same, kernel_ms=ms, plain_ms=plain_ms,
-         reference_op_ms=ref_ms, reference_op="trellis_encode_field", **bound)
+    emit("trellis_fused", batch=B_FULL, identical=same, kernel_ms=ms,
+         kernel_ms_l2_flushed=cold_ms, plain_ms=plain_ms, reference_op_ms=ref_ms,
+         reference_op="trellis_encode_field", **bound)
     for k, ok in same.items():
-        check(ok, f"trellis_fused {k}: the kernel differs at B={B_FULL}")
+        check(ok, f"trellis_fused {k}: the kernel differs from its twin or trellis_encode_field")
     return {"launches": launches, "max_abs_err": err, "ms": ms["interleaved"],
-            "ms_by_layout": ms, "plain_ms": plain_ms["interleaved"],
-            "plain_ms_by_layout": plain_ms, "reference_op_ms": ref_ms, **bound,
-            "library_ms": None}
+            "ms_by_layout": ms, "ms_l2_flushed_by_layout": cold_ms,
+            "plain_ms": plain_ms["interleaved"], "plain_ms_by_layout": plain_ms,
+            "reference_op_ms": ref_ms, **bound, "library_ms": None}
 
 
 def fir_variants_kernel(golden, dev, kernel1: dict, nbytes: int, flop: int) -> dict:

@@ -56,7 +56,14 @@ sources, so a wrong map shows here without a card:
   of words copied ahead, stream realignment by start(c), whole words
   inside a kept region and bytes on its boundary words, each written
   once), and must equal pr_acs_forward_chunked_plain /
-  pr_traceback_chunked_plain bit for bit with reset steps in every window.
+  pr_traceback_chunked_plain bit for bit with reset steps in every window;
+- the trellis model replays trellis_fused_kernel on 32-bit words (the
+  byte prefix of a word, the packed word totals, one warp scan a round
+  with the row's carry byte, the four planes by shifts and masks, the
+  4 x 4 byte transpose), the persistent grid's walk with its loads a
+  round ahead, and the store map (every output byte once, each warp store
+  one 512-byte run), and must equal trellis_fused_plain bit for bit in
+  both layouts at 12 and 36 rows, and the JAX probe once.
 """
 
 import functools
@@ -1952,3 +1959,367 @@ def test_pr_chunked_state_split_and_shuffle_sources():
         p, j = q >> 1, q & 1
         src0, src1 = (3 - 2 * p, 2 * p) if j else (2 * p, 3 - 2 * p)
         assert (runs[src0], runs[src1]) == (_pred0(g), _pred0(g) ^ 1)
+
+
+# -- the fused trellis encoder: four bytes per instruction --------------------
+
+def _tf_layout() -> dict:
+    """csrc/trellis_fused.cu's constants, and the byte-permute selectors of
+    its word totals and its 4 x 4 transpose, in source order."""
+    src = _source("trellis_fused.cu")
+    k = {n: _constant("trellis_fused.cu", n) for n in ("kRowBytes", "kLaneBytes", "kWarps")}
+    k["kRowWords"] = k["kRowBytes"] // 4
+    k["kRoundBytes"] = 32 * k["kLaneBytes"]
+    k["kRounds"] = -(-k["kRowBytes"] // k["kRoundBytes"])
+    k["kB0"] = int(re.search(r"constexpr uint32_t kB0 = (0x[0-9a-fA-F]+)u;", src).group(1), 16)
+    k["sel"] = [int(x, 16) for x in re.findall(r", (0x[0-9a-fA-F]{4})\)", src)]
+    return k
+
+
+TF = _tf_layout()
+_U = np.uint32
+
+
+def _tf_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
+    """__byte_perm(x, y, sel): byte n of the result is byte (sel >> 4n) & 7
+    of the 8 bytes x, y (x first)."""
+    b = [(x >> _U(8 * i)) & _U(0xFF) for i in range(4)] + \
+        [(y >> _U(8 * i)) & _U(0xFF) for i in range(4)]
+    out = np.zeros(np.broadcast(x, y).shape, np.uint32)
+    for n in range(4):
+        out |= b[(sel >> (4 * n)) & 7] << _U(8 * n)
+    return out
+
+
+def _tf_prefix(x: np.ndarray) -> np.ndarray:
+    y = x ^ (x << _U(8))
+    return y ^ (y << _U(16))
+
+
+def _tf_bcast(x: np.ndarray, s: int) -> np.ndarray:
+    return _tf_perm(x, _U(0), 0x1111 * s)
+
+
+def _tf_planes(w: np.ndarray, pe: np.ndarray) -> list:
+    """planes4: byte i of plane p is symbol p of byte i of w, given pe."""
+    b0 = _U(TF["kB0"])
+    v = pe ^ (pe >> _U(4))
+    g = v ^ (w >> _U(4))
+    x0 = (v << _U(1)) ^ (v >> _U(1)) ^ (w >> _U(5))
+    x1 = x0 ^ (w >> _U(3))
+    x2 = x1 ^ (w >> _U(1))
+    x3 = x2 ^ (w << _U(1))
+    return [(x0 & 4 * b0) | ((w >> _U(5)) & 2 * b0) | (v & b0),
+            (x1 & 4 * b0) | ((w >> _U(3)) & 2 * b0) | ((g >> _U(2)) & b0),
+            (x2 & 4 * b0) | ((w >> _U(1)) & 2 * b0) | (g & b0),
+            (x3 & 4 * b0) | ((w << _U(1)) & 2 * b0) | (((g ^ w) >> _U(2)) & b0)]
+
+
+def _tf_scan(x: np.ndarray) -> np.ndarray:
+    """warp_scan over the last axis (32 lanes): __shfl_up_sync(x, o) gives
+    lane l lane l - o's x (its own below o), and lanes >= o XOR it in."""
+    x = x.copy()
+    for o in (1, 2, 4, 8, 16):
+        y = np.concatenate([x[..., :o], x[..., :-o]], axis=-1)
+        x[..., o:] ^= y[..., o:]
+    return x
+
+
+def _tf_words(r: int, interleaved: bool) -> tuple[np.ndarray, np.ndarray]:
+    """(4, 32) row word index of word s of lane l in round r, and whether it
+    is live (inside the row): interleaved 128 r + 32 s + l, plane-major
+    128 r + 4 l + s (the lane's 16 bytes)."""
+    s, lane = np.arange(4)[:, None], np.arange(32)[None, :]
+    idx = 128 * r + (32 * s + lane if interleaved else 4 * lane + s)
+    live = np.broadcast_to(128 * r + (32 * s if interleaved else 4 * lane) < TF["kRowWords"],
+                           idx.shape)
+    return idx, live
+
+
+def _tf_carry_bytes(d, d1, d2) -> np.ndarray:
+    return ((d & 1) << 1 | (d2 & 1) << 2 | (d1 & 1)).astype(np.uint32) * _U(TF["kB0"])
+
+
+def _tf_round(w: np.ndarray, cb: np.ndarray, interleaved: bool):
+    """encode_round on every row at once: w (R, 4, 32) the lanes' words, cb
+    (R,) the rows' running carry bytes. Returns (planes (R, 4 s, 4 p, 32),
+    base (R, 32), the moved cb)."""
+    pre = _tf_prefix(w)
+    sel = TF["sel"]
+    t = _tf_perm(_tf_perm(pre[:, 0], pre[:, 1], sel[0]), _tf_perm(pre[:, 2], pre[:, 3], sel[1]),
+                 sel[2])
+    if interleaved:
+        inc = _tf_scan(t)
+        ti = _tf_prefix(inc[:, 31])
+        base = inc ^ t ^ (ti << _U(8))[:, None] ^ cb[:, None]
+        cb = cb ^ _tf_bcast(ti, 3)
+    else:
+        li = _tf_prefix(t)
+        lt = _tf_bcast(li, 3)
+        inc = _tf_scan(lt)
+        base = inc ^ lt ^ (li << _U(8)) ^ cb[:, None]
+        cb = cb ^ inc[:, 31]
+    planes = np.stack([np.stack(_tf_planes(w[:, s], (pre[:, s] << _U(8)) ^ _tf_bcast(base, s)), 1)
+                       for s in range(4)], 1)
+    return planes, base, cb
+
+
+def _tf_transpose(p: list) -> list:
+    """The interleaved store's 4 x 4 byte transpose of planes p[0..3]."""
+    sel = TF["sel"][3:]
+    t0, t1 = _tf_perm(p[0], p[1], sel[0]), _tf_perm(p[0], p[1], sel[1])
+    t2, t3 = _tf_perm(p[2], p[3], sel[2]), _tf_perm(p[2], p[3], sel[3])
+    return [_tf_perm(t0, t2, sel[4]), _tf_perm(t0, t2, sel[5]), _tf_perm(t1, t3, sel[6]),
+            _tf_perm(t1, t3, sel[7])]
+
+
+def _tf_emulate(il: np.ndarray, d, d1, d2, interleaved: bool):
+    """The kernel on rows il (R, kRowBytes) uint8 with carries (R,): the
+    output (R, 4 kRowBytes) int8, the stores [(row offsets of the 32 lanes'
+    16-byte stores (R, 32), live (32,)), ...] one per warp store instruction
+    of a round, and the bases (R, rounds, 32) of every round."""
+    rows = il.shape[0]
+    words = il.reshape(rows, -1).view("<u4").astype(np.uint32)
+    out = np.full((rows, 4 * TF["kRowBytes"]), 0xEE, np.uint8)     # never-written bytes show
+    stores, bases = [], []
+    cb = _tf_carry_bytes(d, d1, d2)
+    row_off = (np.arange(rows) * 4 * TF["kRowBytes"])[:, None]
+    for r in range(TF["kRounds"]):
+        idx, live = _tf_words(r, interleaved)
+        w = np.where(live[None], words[:, np.minimum(idx, TF["kRowWords"] - 1)], _U(0))
+        planes, base, cb = _tf_round(w, cb, interleaved)
+        bases.append(base)
+        if interleaved:
+            for s in range(4):
+                vec = np.stack(_tf_transpose([planes[:, s, p] for p in range(4)]), -1)
+                stores.append((16 * idx[s], live[s], vec))
+        else:
+            for p in range(4):
+                stores.append((p * TF["kRowBytes"] + 4 * idx[0], live[0], planes[:, :, p]
+                               .transpose(0, 2, 1)))
+        for off, lv, vec in stores[-4:]:
+            data = np.ascontiguousarray(vec, "<u4").view(np.uint8).reshape(rows, 32, 16)
+            for lane in np.nonzero(lv)[0]:
+                out[:, off[lane]:off[lane] + 16] = data[:, lane]
+    out_flat = out.view(np.int8)
+    return out_flat, [(row_off + off[None], lv) for off, lv, _ in stores], np.stack(bases, 1)
+
+
+def _tf_walk(rows: int, blocks: int) -> list:
+    """The persistent grid's walk: warp gw of blocks x kWarps takes rows gw,
+    gw + stride, ...; in a row's loop each round loads the next before it
+    computes, and the last round, peeled, loads the next row's first.
+    Returns every warp's computed (row, round) units, asserting each was the
+    one loaded a step before."""
+    stride = blocks * TF["kWarps"]
+    walks = []
+    for gw in range(min(stride, rows)):
+        row = gw
+        loads, done = [(row, 0)], []
+        while True:
+            nrow = row + stride
+            for r in range(TF["kRounds"] - 1):
+                loads.append((row, r + 1))
+                done.append((row, r))
+            if nrow < rows:
+                loads.append((nrow, 0))
+            done.append((row, TF["kRounds"] - 1))
+            if nrow >= rows:
+                break
+            row = nrow
+        assert loads == done
+        walks.append(done)
+    return walks
+
+
+def _tf_inputs(rows: int, seed: int):
+    rng = np.random.default_rng(seed)
+    il = rng.integers(0, 256, size=(rows, TF["kRowBytes"]), dtype=np.uint8)
+    return il, *(rng.integers(0, 2, size=rows, dtype=np.int32) for _ in range(3))
+
+
+def test_trellis_swar_constants_and_source_maps():
+    """The kernel's constants against the wrapper's shapes, and the maps the
+    model replays, parsed from the source: loads, stores, the scans, the
+    carry byte and the plane formulas."""
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
+
+    src = _source("trellis_fused.cu")
+    assert TF["kRowBytes"] == tfk.PAD_BYTES and 4 * TF["kRowBytes"] == tfk.PAD_SYMBOLS
+    assert TF["kRowWords"] % 32 == 0 and TF["kRounds"] == 11 and TF["kLaneBytes"] == 16
+    assert len(TF["sel"]) == 11
+    for expr in ("q[s] = live_word<true>(r, s, lane) ? __ldg(w + 32 * s + lane) : 0u;",
+                 "__ldg(reinterpret_cast<const uint4*>(w) + lane)",
+                 "const uint32_t* w = reinterpret_cast<const uint32_t*>(src) + 128 * r;",
+                 "return r + 1 < kRounds || (kInterleaved ? s < kLastSteps : lane < kLastLanes);",
+                 "constexpr int kLastSteps = (kRowWords - 128 * (kRounds - 1)) / 32;",
+                 "constexpr int kLastLanes = (kRowWords - 128 * (kRounds - 1)) / 4;",
+                 "__stcs(reinterpret_cast<uint4*>(dst + 16 * (128 * r + 32 * s + lane)),",
+                 "__stcs(reinterpret_cast<uint4*>(dst + p * kRowBytes + 4 * (128 * r + 4 * lane)),",
+                 "make_uint4(pl[0][p], pl[1][p], pl[2][p], pl[3][p]));",
+                 "return ((d[row] & 1) << 1 | (d2[row] & 1) << 2 | (d1[row] & 1)) * kB0;",
+                 "const uint32_t y = x ^ (x << 8);",
+                 "return __byte_perm(x, 0u, 0x1111u * s);",
+                 "const uint32_t y = __shfl_up_sync(kFull, x, o);",
+                 "if (lane >= o) x ^= y;",
+                 "const uint32_t ti = prefix_bytes(__shfl_sync(kFull, inc, 31));",
+                 "base = inc ^ t ^ (ti << 8) ^ cb;",
+                 "cb ^= byte_bcast(ti, 3);",
+                 "const uint32_t lt = byte_bcast(li, 3);",
+                 "base = inc ^ lt ^ (li << 8) ^ cb;",
+                 "cb ^= __shfl_sync(kFull, inc, 31);",
+                 "planes4(w[s], (pre[s] << 8) ^ byte_bcast(base, s), pl[s]);",
+                 "const uint32_t v = pe ^ (pe >> 4);",
+                 "const uint32_t g = v ^ (w >> 4);",
+                 "const uint32_t x0 = (v << 1) ^ (v >> 1) ^ (w >> 5);",
+                 "const uint32_t x1 = x0 ^ (w >> 3);",
+                 "const uint32_t x2 = x1 ^ (w >> 1);",
+                 "const uint32_t x3 = x2 ^ (w << 1);",
+                 "pl[0] = (x0 & 4 * kB0) | ((w >> 5) & 2 * kB0) | (v & kB0);",
+                 "pl[1] = (x1 & 4 * kB0) | ((w >> 3) & 2 * kB0) | ((g >> 2) & kB0);",
+                 "pl[2] = (x2 & 4 * kB0) | ((w >> 1) & 2 * kB0) | (g & kB0);",
+                 "pl[3] = (x3 & 4 * kB0) | ((w << 1) & 2 * kB0) | (((g ^ w) >> 2) & kB0);",
+                 "const int nrow = row + stride;",
+                 "for (int r = 0; r + 1 < kRounds; ++r) {",
+                 "next = load_round<kInterleaved>(src, r + 1, lane);",
+                 "next = load_round<kInterleaved>(il + static_cast<size_t>(nrow) * kRowBytes, 0, lane);",
+                 "if (kLast && s >= kLastSteps) continue;",
+                 "if (kLast && lane >= kLastLanes) return;",
+                 "row = nrow, cb = next_cb;",
+                 "int row = blockIdx.x * kWarps + warp;",
+                 "const int stride = gridDim.x * kWarps;"):
+        assert expr in src, expr
+
+
+def test_trellis_swar_word_steps():
+    """Every (byte x, byte P before it) pair, four to a word: the planes give
+    ops/trellis.py's symbols with E = S(P); prefix_bytes is the running XOR
+    of a word's bytes, the packed totals are each word's XOR, the broadcast
+    copies a byte, the transpose is one, and the carry byte's S is
+    (d, d2, d1)."""
+    x, pb = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    x, pb = x.reshape(-1, 4).astype(np.uint32), pb.reshape(-1, 4).astype(np.uint32)
+    pack = (lambda a: a[:, 0] | a[:, 1] << _U(8) | a[:, 2] << _U(16) | a[:, 3] << _U(24))
+    w, pe = pack(x), pack(pb)
+
+    def bit(v, k):
+        return (v >> _U(k)) & _U(1)
+
+    e2 = bit(pb, 7) ^ bit(pb, 5) ^ bit(pb, 3) ^ bit(pb, 1)
+    eu, ev = bit(pb, 6) ^ bit(pb, 2), bit(pb, 4) ^ bit(pb, 0)
+    z2 = [e2 ^ bit(x, 7)]
+    for k in (5, 3, 1):
+        z2.append(z2[-1] ^ bit(x, k))
+    z0 = [ev, eu ^ bit(x, 6), ev ^ bit(x, 4), eu ^ bit(x, 6) ^ bit(x, 2)]
+    for p, plane in enumerate(_tf_planes(w, pe)):
+        want = z2[p] << _U(2) | bit(x, 6 - 2 * p) << _U(1) | z0[p]
+        np.testing.assert_array_equal(plane, pack(want))
+    run = np.bitwise_xor.accumulate(x, axis=1)
+    np.testing.assert_array_equal(_tf_prefix(w), pack(run))
+    four = _tf_prefix(w[:4 * 1024].reshape(-1, 4))
+    t = _tf_perm(_tf_perm(four[:, 0], four[:, 1], TF["sel"][0]),
+                 _tf_perm(four[:, 2], four[:, 3], TF["sel"][1]), TF["sel"][2])
+    np.testing.assert_array_equal(t, pack(run[:4 * 1024, 3].reshape(-1, 4)))
+    for s in range(4):
+        np.testing.assert_array_equal(_tf_bcast(w, s), x[:, s] * _U(TF["kB0"]))
+    planes = [w, w * _U(3), pe, pe ^ w]
+    got = _tf_transpose(planes)
+    for i in range(4):
+        for p in range(4):
+            np.testing.assert_array_equal((got[i] >> _U(8 * p)) & _U(0xFF),
+                                          (planes[p] >> _U(8 * i)) & _U(0xFF))
+    d, d1, d2 = (np.array([0, 1, 0, 1, 0, 1, 0, 1]) >> k & 1 for k in range(3))
+    c = _tf_carry_bytes(d, d1, d2) & _U(0xFF)
+    np.testing.assert_array_equal(bit(c, 7) ^ bit(c, 5) ^ bit(c, 3) ^ bit(c, 1), d)
+    np.testing.assert_array_equal(bit(c, 6) ^ bit(c, 2), d2)
+    np.testing.assert_array_equal(bit(c, 4) ^ bit(c, 0), d1)
+
+
+@pytest.mark.parametrize("interleaved", [True, False], ids=["interleaved", "planemajor"])
+def test_trellis_swar_scan_gives_every_word_its_prefix(interleaved):
+    """Byte s of a round's base at lane l is the XOR of every byte of the row
+    before word s of lane l, the carry byte included, round after round
+    (the warp scan, the steps' or words' prefix, and cb moving on)."""
+    il, d, d1, d2 = _tf_inputs(3, 21)
+    bases = _tf_emulate(il, d, d1, d2, interleaved)[2]
+    c = _tf_carry_bytes(d, d1, d2) & _U(0xFF)
+    before = np.concatenate([np.zeros((3, 1), np.uint8),
+                             np.bitwise_xor.accumulate(il, axis=1)], 1) ^ c[:, None].astype(np.uint8)
+    for r in range(TF["kRounds"]):
+        idx, live = _tf_words(r, interleaved)
+        for s in range(4):
+            got = (bases[:, r] >> _U(8 * s)) & _U(0xFF)
+            want = before[:, 4 * np.minimum(idx[s], TF["kRowWords"] - 1)]
+            np.testing.assert_array_equal(got[:, live[s]], want[:, live[s]])
+
+
+@pytest.mark.parametrize("rows,blocks", [(12, 2), (36, 5), (36, 9), (12, 3)])
+def test_trellis_persistent_walk_takes_every_round_once(rows, blocks):
+    """Rows strided over the grid's warps, a round's loads issued a round
+    ahead (across rows too): every (row, round) computed once, each warp's
+    rounds of a row in order. Row counts not a multiple of the grid's warps
+    leave some warps a row fewer."""
+    walks = _tf_walk(rows, blocks)
+    units = [u for walk in walks for u in walk]
+    assert sorted(units) == [(row, r) for row in range(rows) for r in range(TF["kRounds"])]
+    for walk in walks:
+        for a, b in zip(walk, walk[1:]):
+            assert b == (a[0], a[1] + 1) or (b[1] == 0 and a[1] == TF["kRounds"] - 1)
+    assert len({len(w) for w in walks}) == (1 if rows % (blocks * TF["kWarps"]) == 0 else 2)
+
+
+@pytest.mark.parametrize("interleaved", [True, False], ids=["interleaved", "planemajor"])
+def test_trellis_store_map_writes_every_byte_once_in_whole_lines(interleaved):
+    """Every output byte of every row written once; every store 16-byte
+    aligned; each warp store instruction's live lanes one contiguous
+    512-byte run starting on a 128-byte line; loads inside the row."""
+    rows = 12
+    _, stores, _ = _tf_emulate(*_tf_inputs(rows, 3), interleaved)
+    hits = np.zeros(rows * 4 * TF["kRowBytes"], np.int64)
+    for off, live in stores:
+        lanes = off[:, live]
+        assert (lanes % 16 == 0).all()
+        if live.any():
+            assert live.all() or not interleaved      # plane-major's last round: 24 lanes
+            assert (np.diff(lanes, axis=1) == 16).all() and (lanes[:, 0] % 128 == 0).all()
+        for k in range(16):
+            np.add.at(hits, (lanes + k).reshape(-1), 1)
+    assert (hits == 1).all()
+    for r in range(TF["kRounds"]):
+        idx, live = _tf_words(r, interleaved)
+        assert idx[live].max() < TF["kRowWords"] and (idx >= 0).all()
+
+
+@pytest.mark.parametrize("rows", [12, 36])
+@pytest.mark.parametrize("interleaved", [True, False], ids=["interleaved", "planemajor"])
+def test_trellis_swar_model_equals_plain(rows, interleaved):
+    """The model of the kernel equals trellis_fused_plain bit for bit over
+    whole rows, pad bytes included (B = 1 and 3: 12 and 36 rows)."""
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
+
+    il, d, d1, d2 = _tf_inputs(rows, rows)
+    got = _tf_emulate(il, d, d1, d2, interleaved)[0]
+    b = rows // 12
+    want = tfk.trellis_fused_plain(torch.tensor(il.reshape(b, 12, -1)),
+                                   *(torch.tensor(c.reshape(b, 12)) for c in (d, d1, d2)),
+                                   interleaved=interleaved)
+    np.testing.assert_array_equal(got, want.numpy().reshape(rows, -1))
+
+
+def test_trellis_swar_model_equals_jax_probe():
+    """Once against the JAX probe's Pallas kernel in interpret mode (B=1,
+    both layouts)."""
+    import jax.numpy as jnp
+
+    spec = importlib.util.spec_from_file_location(
+        "trellis_fuse_probe", os.path.join(os.path.dirname(CSRC), "..", "tools",
+                                           "trellis_fuse_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    il, d, d1, d2 = _tf_inputs(12, 77)
+    args = (jnp.asarray(il.reshape(1, 12, -1)), *(jnp.asarray(c.reshape(1, 12)) for c in (d, d1, d2)))
+    for interleaved in (True, False):
+        want = np.asarray(probe.trellis_fused(*args, chans=1, interleaved=interleaved,
+                                              interpret=True))
+        got = _tf_emulate(il, d, d1, d2, interleaved)[0]
+        np.testing.assert_array_equal(got, want.reshape(12, -1))

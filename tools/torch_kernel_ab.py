@@ -44,6 +44,17 @@ trees' kernels, on one CUDA device at B=384:
               the shared memory a block);
               offset_fir_fused timed beside them; every build held to 2e-6
               against run_variant_plain
+  trellis_fused  trellis_fused (csrc/trellis_fused.cu, SWAR on 32-bit words):
+              both layouts at B=384 (and bit identity at B=1 and 23),
+              timed back to back and with the L2 flushed before each
+              launch; warps a block, kWarps = 4 (this tree) against 8;
+              every build held bit for bit to trellis_fused_plain; the
+              SASS instructions of each build's main loop (its innermost
+              loop: the rounds of a row) per input byte (the loop's
+              instructions over the bytes a lane takes an iteration,
+              kLaneBytes, or kVec in the earlier form); beside them, for
+              scale, PyTorch's fill_ of the output and a copy kernel with
+              the kernel's loads and stores and no arithmetic
   mma_peak    no source of the package: the card's mma.sync rate, a kernel
               of independent mma.sync.m16n8k8 tf32 products in registers on
               every SM, in TFLOP/s and products per SM and clock at the
@@ -84,8 +95,9 @@ than 2e-6 (cf32) or 1 LSB (codes); eq_fir by more than 1e-4 in a soft
 level, or in a hard symbol or soft code other than by 1 within 1e-4 of a
 decision boundary (chip_smoke phase 7's limits); eq_exact likewise with
 1e-5, each build against the plain twin; fir_variants by more than 2e-6
-from the plain twin. The ptxas lines of each build (registers, spills,
-shared memory) are printed with it, and for eq_exact and fir_variants the
+from the plain twin; trellis_fused in any bit from the plain twin. The
+ptxas lines of each build (registers, spills, shared memory) are printed
+with it, and for eq_exact, fir_variants and trellis_fused the
 instructions of each instantiation's largest loop by opcode (cuobjdump).
 
 For `chunked` it also disassembles each build's library (cuobjdump -sass
@@ -131,6 +143,7 @@ from atsc_tpu_torch.ops.cuda import _build  # noqa: E402
 from atsc_tpu_torch.ops.cuda import eq_fir as eqk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import fir_variants as fvk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import offset_fir as fir  # noqa: E402
+from atsc_tpu_torch.ops.cuda import trellis_fused as tfk  # noqa: E402
 from atsc_tpu_torch.ops.cuda import viterbi_acs as vk  # noqa: E402
 from atsc_tpu_torch.ops.ntsc import _pr_tables  # noqa: E402
 from atsc_tpu_torch.ops.quantize import (  # noqa: E402
@@ -156,6 +169,7 @@ KERNELS = {
                                  ("kXChunkSteps", 4, (2, 8)))),
     "fir_variants": ("fir_variants", fvk, (("kRegsFloor", 168, (128,)), ("kGroupTiles", 4, (2,)),
                                            ("kTile", 16, (32,)))),
+    "trellis_fused": ("trellis_fused", tfk, (("kWarps", 4, (8,)),)),
     "mma_peak": (None, None, ()),
     "chunked": ("viterbi_acs", vk, (("kAcsChunkWords", 4, (2,)), ("kTbChunkWords", 8, (4, 16)),
                                     ("kChunk4Threads", 32, (64,)),
@@ -164,7 +178,8 @@ KERNELS = {
 }
 CHUNKS = (2, 24)     # chunked: the chunk counts
 # eq_exact, fir_variants: the kernel whose largest loop's opcodes are counted
-LOOP_MIX = {"eq_exact": "eq_fir_exact_kernel", "fir_variants": "fir_variant_kernel"}
+LOOP_MIX = {"eq_exact": "eq_fir_exact_kernel", "fir_variants": "fir_variant_kernel",
+            "trellis_fused": "trellis_fused_kernel"}
 # chunked: the kernels (longest names first) and the constants that shape each
 CHUNKED_SASS = {
     "pr_acs_forward_chunked_kernel": ("kPrLaneThreads", "kPrGroupSteps", "kChunkThreads"),
@@ -182,6 +197,7 @@ TOL_CF32, TOL_LSB = 2e-6, 1
 TOL_EQ_SOFT = 1e-4
 TOL_EQ_EXACT = 1e-5
 STEPS = 21528        # trellis steps of a field
+L2_FLUSH_BYTES = 256 << 20   # written before each launch that must find the 50 MB L2 cold
 
 
 def mean_ms(fn, iters: int) -> float:
@@ -290,7 +306,8 @@ def bound(module, path: str, device_index: int) -> ctypes.CDLL:
     module._kernel_lib.cache_clear()
     _build.load = lambda name: _AnyTree(path)
     try:
-        lib = module._kernel_lib() if module is fvk else module._kernel_lib(device_index)
+        lib = (module._kernel_lib() if module in (fvk, tfk)
+               else module._kernel_lib(device_index))
         if module is eqk:
             eqk._tier.cache_clear()
             with torch.cuda.device(device_index):
@@ -319,6 +336,23 @@ def routed(module, lib: ctypes.CDLL):
         module._kernel_lib = real
         if module is eqk:
             eqk._tier = real_tier
+
+
+def flushed_ms(fn, iters: int, dev) -> float:
+    """Mean device ms of fn() over iters calls, each after L2_FLUSH_BYTES
+    were written (the L2 then holds none of fn's inputs), only fn timed."""
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        scratch.fill_(1)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
 
 
 def in_turns(names: list[str], run, iters: int) -> dict:
@@ -675,10 +709,13 @@ def main_path(ins: list[str], labels: dict, head: int, back: int) -> int:
     return best[head] or back - head + 1
 
 
-def loop_mix(listing: str, kernel: str) -> list[dict]:
+def loop_mix(listing: str, kernel: str, innermost: bool = False) -> list[dict]:
     """Per instantiation of `kernel` in a cuobjdump -sass listing: its
-    largest loop (a label to a branch back to it, nested loops included) as
-    instructions by opcode (HMMA, LDSM, LDS, FADD, ...)."""
+    largest loop (a label to a branch back to it, nested loops included;
+    innermost: the largest that holds no other loop, counting only
+    predicated back branches, so that the shuffles' divergence fallback,
+    which branches back into the loop, is no loop) as instructions by
+    opcode (HMMA, LDSM, LDS, FADD, ...)."""
     out = []
     for part in listing.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
@@ -696,9 +733,12 @@ def loop_mix(listing: str, kernel: str) -> list[dict]:
                 br = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", m.group(2))
                 if br:
                     t = br.group(1).lower() if br.group(1).startswith("0x") else br.group(1)
-                    if t in labels:
+                    if t in labels and (not innermost or m.group(2).lstrip().startswith("@")):
                         spans.append((len(ins) - labels[t] + 1, labels[t], len(ins)))
                 ins.append(m.group(2))
+        if innermost:
+            spans = [(n, a, b) for n, a, b in spans
+                     if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b) for _, a2, b2 in spans)]
         if spans:
             size, a, b = max(spans)
             ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", s).split()[0].split(".")[0]
@@ -838,6 +878,82 @@ def ab_fir_variants(libs, names, dev, gen, args) -> bool:
     return ok
 
 
+def ab_trellis_fused(libs, names, dev, gen, args) -> bool:
+    """Both layouts on random bytes (pad bytes too) and carries, every build
+    against trellis_fused_plain bit for bit: at B=args.batch timed in turns
+    and with the L2 flushed before each launch, at B=1 and 23 (12 and 276
+    rows, the persistent grid's ragged edges) compared only."""
+    ok = True
+    for b in (args.batch, 1, 23):
+        il_pad = torch.randint(0, 256, (b, P.TRELLIS_ENCODERS, tfk.PAD_BYTES),
+                               dtype=torch.uint8, device=dev, generator=gen)
+        d, d1, d2 = (torch.randint(0, 2, (b, P.TRELLIS_ENCODERS), dtype=torch.int32,
+                                   device=dev, generator=gen) for _ in range(3))
+        for interleaved in (True, False):
+            want = tfk.trellis_fused_plain(il_pad, d, d1, d2, interleaved=interleaved)
+
+            def run(n, interleaved=interleaved):
+                with routed(tfk, libs[n]):
+                    return tfk.trellis_fused(il_pad, d, d1, d2, interleaved=interleaved)
+
+            outs = {n: run(n) for n in names}
+            timed = b == args.batch
+            times = in_turns(names, run, args.iters) if timed else {}
+            for n in names:
+                same = bool(torch.equal(outs[n], want))
+                ok &= same
+                emit(kernel="trellis_fused", build=n, batch=b,
+                     layout="interleaved" if interleaved else "planemajor", ms=times.get(n),
+                     ms_l2_flushed=flushed_ms(lambda: run(n), args.iters, dev) if timed else None,
+                     identical=same, against="plain")
+            del outs, want
+        if b == args.batch:   # PyTorch's own kernels on the same bytes, for scale
+            out = torch.empty((b, P.TRELLIS_ENCODERS, tfk.PAD_SYMBOLS), dtype=torch.int8,
+                              device=dev)
+            lib = ctypes.CDLL(compile_cu("trellis_copy", COPY_CU, _build.CSRC)[0])
+            lib.copy_rows_launch.restype = ctypes.c_int
+            lib.copy_rows_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_void_p]
+
+            def copy():
+                err = lib.copy_rows_launch(il_pad.data_ptr(), out.data_ptr(),
+                                           b * P.TRELLIS_ENCODERS,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"copy_rows launch failed: CUDA error {err}")
+
+            for case, fn in (("fill_output", lambda: out.fill_(1)), ("copy_same_map", copy)):
+                emit(kernel="trellis_fused", build="yardstick", case=case, batch=b,
+                     ms=[mean_ms(fn, args.iters) for _ in range(2)],
+                     ms_l2_flushed=flushed_ms(fn, args.iters, dev))
+            del out
+    return ok
+
+
+COPY_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// trellis_fused's interleaved loads and streaming stores with no
+// arithmetic: a warp a row, word 128 r + 32 s + lane in, its 16 bytes out
+// (the word 4 times)
+__global__ void copy_rows(const uint32_t* il, uint4* out, int rows) {
+  const int lane = threadIdx.x & 31, row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const uint32_t* src = il + static_cast<size_t>(row) * 1376;
+  uint4* dst = out + static_cast<size_t>(row) * 1376;
+  for (int k = lane; k < 1376; k += 32) {
+    const uint32_t w = __ldg(src + k);
+    __stcs(dst + k, make_uint4(w, w, w, w));
+  }
+}
+extern "C" int copy_rows_launch(const void* il, void* out, int rows, void* s) {
+  copy_rows<<<(rows + 3) / 4, 128, 0, static_cast<cudaStream_t>(s)>>>(
+      static_cast<const uint32_t*>(il), static_cast<uint4*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
 MMA_PEAK_CU = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -930,7 +1046,11 @@ def main(argv=None) -> int:
             tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
             listing = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                                      check=True).stdout
-            for mix in loop_mix(listing, LOOP_MIX[kernel]):
+            for mix in loop_mix(listing, LOOP_MIX[kernel], innermost=kernel == "trellis_fused"):
+                lane_bytes = re.search(r"constexpr int (?:kLaneBytes|kVec) = (\d+);",
+                                       plan[(kernel, name)])
+                if kernel == "trellis_fused" and lane_bytes:   # a lane's bytes an iteration
+                    mix["per_input_byte"] = mix["loop_instructions"] / int(lane_bytes.group(1))
                 emit(kernel=kernel, build=name, **mix)
 
     ok = True
@@ -945,6 +1065,8 @@ def main(argv=None) -> int:
             ok &= ab_eq_fir(libs[kernel], names, dev, gen, args, exact=True)
         elif kernel == "fir_variants":
             ok &= ab_fir_variants(libs[kernel], names, dev, gen, args)
+        elif kernel == "trellis_fused":
+            ok &= ab_trellis_fused(libs[kernel], names, dev, gen, args)
         elif kernel == "mma_peak":
             ok &= ab_mma_peak(libs[kernel]["this tree"], dev, args)
         elif kernel == "tb":
