@@ -1,14 +1,14 @@
-"""CLI frontend: MPEG-TS in -> baseband IQ out (encode), and baseband IQ
-in -> MPEG-TS out (decode), on a CUDA device (or the CPU with --device
-cpu).
+"""CLI frontend: MPEG-TS in -> baseband IQ out (encode), baseband IQ in ->
+MPEG-TS out (decode), and signal-quality triage of a capture (analyze), on
+a CUDA device (or the CPU with --device cpu).
 
-Counterpart of the single-device encode loop and the zf decode path of
-atsc_tpu/cli.py. Encode sinks: a file path, 'null' (discard; a throughput
-run) or '-' (stdout). cf32 goes out as the reference's interleaved
-complex<float>; cs16/cs8 leave the kernel as packed wire lanes and are
-written verbatim. Decode reads a capture in any of those formats that
-starts at the stream epoch; cs16/cs8 codes are uploaded as they are and
-dequantized inside the equalizer kernel.
+Counterpart of the single-device paths of atsc_tpu/cli.py. Encode sinks:
+a file path, 'null' (discard; a throughput run) or '-' (stdout). cf32 goes
+out as the reference's interleaved complex<float>; cs16/cs8 leave the
+kernel as packed wire lanes and are written verbatim. Decode reads a
+capture in any of those formats that starts at the stream epoch; cs16/cs8
+codes are uploaded as they are and dequantized inside the equalizer
+kernel.
 
 Usage:
   python -m atsc_tpu_torch.cli input.ts -o out.iq
@@ -18,14 +18,15 @@ Usage:
   python -m atsc_tpu_torch.cli decode out.cs8 -c 8 --format cs8 -o back.ts
   python -m atsc_tpu_torch.cli in.ts -c 8 --mux -o band.iq    # one 48 MHz multiplex
   python -m atsc_tpu_torch.cli decode band.iq --demux 8 -o 'slot{ch}.ts'
+  python -m atsc_tpu_torch.cli analyze cap.iq               # MER, offsets, flags
+  python -m atsc_tpu_torch.cli in.ts -o a.iq --max-fields 100 --checkpoint s.npz
+  python -m atsc_tpu_torch.cli in.ts -o b.iq --checkpoint s.npz --resume
 
-Flags of the JAX CLI that this package does not have yet (encode: --mesh,
---checkpoint, --resume, --profile, --realtime, the soapy sink; decode:
---mesh, --checkpoint, --resume, --profile, the soapy source; the analyze
-subcommand) stop with an error naming them; none is silently ignored.
-The flags that act only with one of those (--fields-per-step with --mesh,
---checkpoint-every with --checkpoint, -d/-f/-g with a soapy device) are
-accepted, with the JAX CLI's defaults, and change nothing without it.
+Flags of the JAX CLI that this package does not have yet (--mesh, the
+soapy sink and source) stop with an error naming them; none is silently
+ignored. The flags that act only with one of those (--fields-per-step with
+--mesh, -d/-f/-g with a soapy device) are accepted, with the JAX CLI's
+defaults, and change nothing without it.
 Decode runs the equalizers `--equalizer zf|adaptive|adaptive-dd` (with
 `--forgetting` and `--train-every` for the adaptive ones), the trellis
 tiers `--trellis hard|viterbi|viterbi-i8` (chunk-parallel with
@@ -47,17 +48,28 @@ re-estimates it every 8 fields), `--resync auto` re-acquires after a sample
 slip. Each of them promotes the zf equalizer to the adaptive one.
 `encode --rate SPS` / `--ppm PPM` resample the cf32 output to an SDR's
 clock.
+
+Operations: `--checkpoint PATH` saves the stream's whole state every
+`--checkpoint-every` fields and at the end (utils/checkpoint.py, the JAX
+package's file format), `--resume` continues from it byte-identically
+(encode: the resumed run writes the rest of the stream to -o; decode: -o
+must hold what was decoded before the checkpoint, and is cut back to that
+position). `--profile DIR` writes a torch.profiler trace of the run;
+`encode --realtime` paces the sink to the output sample clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
+import os
 import sys
 from fractions import Fraction
 
 import numpy as np
+import torch
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch import resolve_device
@@ -65,12 +77,18 @@ from atsc_tpu_torch.models.encoder import Encoder
 from atsc_tpu_torch.models.receiver import (
     CfoCorrector,
     IqReceiver,
+    equalize_field_device,
     estimate_cfo,
     estimate_sro,
+    field_window,
     find_field_sync_iq,
+    mer_db,
     resample_stream,
 )
+from atsc_tpu_torch.ops.adaptive_eq import AdaptiveEqualizer
+from atsc_tpu_torch.ops.erasures import burst_erasure_flags
 from atsc_tpu_torch.ops.mux import FdmDemuxer, FdmMuxer
+from atsc_tpu_torch.ops.ntsc import detect_ntsc
 from atsc_tpu_torch.ops.quantize import BYTES_PER_SAMPLE, dequantize_iq
 from atsc_tpu_torch.ops.resample import (
     SYMBOL_RATE_FRACTION,
@@ -78,31 +96,43 @@ from atsc_tpu_torch.ops.resample import (
     capture_rate,
 )
 from atsc_tpu_torch.runtime.io import IqSink, TsReader
-from atsc_tpu_torch.utils.profiling import ThroughputMeter
-
-# flags of atsc_tpu.cli's encode path that are not ported yet
-_NOT_PORTED = ("mesh", "checkpoint", "resume", "profile", "realtime")
+from atsc_tpu_torch.utils import checkpoint as ckpt
+from atsc_tpu_torch.utils.config import EncoderConfig
+from atsc_tpu_torch.utils.profiling import ThroughputMeter, profile
 
 
 def _add_inert_flags(ap: argparse.ArgumentParser, fields_per_step: int,
                      gain: float, live: str) -> None:
     """The JAX CLI's flags that act only together with an unported flag or
     a soapy device, with its defaults: --fields-per-step (fields a --mesh
-    step takes; without --mesh the output does not depend on it),
-    --checkpoint-every (with --checkpoint) and the SDR's -d/-f/-g (with
-    the soapy `live`). Accepted and unused; the flag they act with is
-    refused as not yet ported."""
+    step takes; without --mesh the output does not depend on it) and the
+    SDR's -d/-f/-g (with the soapy `live`). Accepted and unused; --mesh
+    and the soapy device are refused as not yet ported."""
     ap.add_argument("--fields-per-step", type=int, default=fields_per_step,
                     help="(--mesh) fields a device step takes; the output "
                          "does not depend on it")
-    ap.add_argument("--checkpoint-every", type=int, default=64, metavar="FIELDS",
-                    help="(--checkpoint) fields between saved states")
     ap.add_argument("-d", "--driver", default="hackrf",
                     help=f"SoapySDR driver of the 'soapy' {live}")
     ap.add_argument("-f", "--frequency", type=float, default=473e6,
                     help=f"(the 'soapy' {live}) RF centre frequency in Hz")
     ap.add_argument("-g", "--gain", type=float, default=gain,
                     help=f"(the 'soapy' {live}) gain in dB")
+    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+
+
+def _add_state_flags(ap: argparse.ArgumentParser, what: str) -> None:
+    """--checkpoint, --checkpoint-every, --resume and --profile."""
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help=f"save the complete resumable {what} state to PATH "
+                         "every --checkpoint-every fields and at the end")
+    ap.add_argument("--checkpoint-every", type=int, default=64, metavar="FIELDS",
+                    help="(--checkpoint) fields between saved states")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from --checkpoint, skipping the input it "
+                         "already consumed")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="write a torch.profiler trace of the run (CPU and "
+                         "CUDA activity, Chrome trace format) into LOGDIR")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -124,6 +154,10 @@ def build_argparser() -> argparse.ArgumentParser:
                          "multiplex at channels*6 MHz (6-MHz slot raster "
                          "centered on DC): drive a whole band from one "
                          "wideband SDR. cf32 output only")
+    ap.add_argument("--realtime", action="store_true",
+                    help="pace the sink to the output sample clock (the "
+                         "10.762238 MHz symbol rate per channel, the "
+                         "multiplex rate with --mux, or --rate/--ppm's)")
     ap.add_argument("--format", dest="out_format", default="cf32",
                     choices=("cf32", "cs16", "cs8"),
                     help="IQ wire format: complex float32, or int16/int8 "
@@ -151,11 +185,8 @@ def build_argparser() -> argparse.ArgumentParser:
                          "DAC ran at nominal*(1+ppm/1e6), the TX mirror of "
                          "`decode --sro` (controlled-SRO captures for "
                          "receiver testing; composes with --rate)")
+    _add_state_flags(ap, "encoder")
     _add_inert_flags(ap, fields_per_step=8, gain=54.0, live="sink")
-    for name in ("mesh", "checkpoint", "profile"):
-        ap.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
-    for name in ("resume", "realtime"):
-        ap.add_argument(f"--{name}", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -191,26 +222,37 @@ def _write_planar(sink, arr: np.ndarray) -> None:
         sink.write_planar(arr, arr.shape[-1])
 
 
-def run(input_paths, output: str = "null", channels: int = 1,
-        out_format: str = "cf32", max_fields: int = 0, stats: bool = False,
-        device: str = "cuda", rate=None, ppm: float = 0.0, mux: bool = False) -> dict:
-    """Encode TS input(s) to an IQ sink; returns the throughput summary.
-    rate (samples/s, exact as a Fraction) and ppm resample the output
-    (cf32; one channel, or the multiplex). mux: FDM-combine the channels
-    into one multiplex at channels*6 MHz (ops/mux.py FdmMuxer)."""
+def _profiled(logdir: str | None):
+    return profile(logdir) if logdir else contextlib.nullcontext()
+
+
+def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = False,
+        checkpoint: str | None = None, checkpoint_every: int = 64,
+        resume: bool = False, profile_dir: str | None = None, *,
+        device: str = "cuda") -> dict:
+    """Encode TS input(s) to an IQ sink per `cfg`; returns the throughput
+    summary. cfg.rate (samples/s, exact as a Fraction) and cfg.ppm
+    resample the output (cf32; one channel, or the multiplex); cfg.mux
+    FDM-combines the channels into one multiplex at channels*6 MHz
+    (ops/mux.py FdmMuxer); cfg.realtime paces the sink. checkpoint saves
+    the state every `checkpoint_every` fields and at the end, resume
+    continues from it (the input's first fields, already encoded, are
+    skipped). A checkpointed stop at max_fields leaves the mux and
+    resampler carries unflushed: the resumed run renders them from real
+    data."""
+    cfg.validate()
     dev = resolve_device(device)
     if isinstance(input_paths, str):
         input_paths = [input_paths]
+    channels, fmt, mux = cfg.channels, cfg.out_format, cfg.mux
     if len(input_paths) not in (1, channels):
         raise ValueError(f"{len(input_paths)} inputs for {channels} channels")
-    if out_format not in ("cf32", "cs16", "cs8"):
-        raise ValueError(f"unknown format {out_format!r}")
-    if mux and out_format != "cf32":
+    if mux and fmt != "cf32":
         raise ValueError("--mux emits cf32 only")
     resampler = None
     out_sps = None  # output sample rate per emitted stream (Hz)
-    if rate is not None or ppm:
-        if out_format != "cf32":
+    if cfg.rate is not None or cfg.ppm:
+        if fmt != "cf32":
             raise ValueError("--rate/--ppm emit cf32 only (quantized wire "
                              "formats are produced in-kernel at the "
                              "nominal rate)")
@@ -223,12 +265,12 @@ def run(input_paths, output: str = "null", channels: int = 1,
                              "resampled outputs need one encode run per "
                              "channel")
         native = Fraction(6_000_000 * channels) if mux else SYMBOL_RATE_FRACTION
-        target = Fraction(rate) if rate is not None else native
-        if ppm:
+        target = Fraction(cfg.rate) if cfg.rate is not None else native
+        if cfg.ppm:
             # a DAC clocked ppm fast stretches the sample grid: emit
             # 1 + ppm/1e6 samples per nominal sample (decode --sro ppm is
             # the exact inverse)
-            target = target * (1 + Fraction(ppm) / 1_000_000)
+            target = target * (1 + Fraction(cfg.ppm) / 1_000_000)
         band = 6_000_000 * (channels if mux else 1)
         if target < band:
             raise ValueError(
@@ -238,15 +280,51 @@ def run(input_paths, output: str = "null", channels: int = 1,
             resampler = StreamResampler(native / target, batch=1 if mux else channels,
                                         device=dev)
         out_sps = float(target)
-    if _is_live(output):
+    if _is_live(cfg.sink):
         raise NotImplementedError(
             "the soapy sink is not yet ported to atsc_tpu_torch")
+    if resume and not checkpoint:
+        raise ValueError("--resume requires --checkpoint")
+    per_stream = out_sps if out_sps is not None else (
+        channels * 6e6 if mux else P.SAMPLE_RATE)
+    stream_rate = per_stream * (1 if mux else channels)
+    pace = stream_rate * BYTES_PER_SAMPLE[fmt] if cfg.realtime else 0.0
     # quantized formats leave the kernel as packed wire lanes whose bytes
     # are the interleaved stream: the sink writes them verbatim
-    wire = out_format in ("cs16", "cs8")
-    enc = Encoder(batch=channels, out_format=out_format, wire=wire, device=dev)
+    wire = fmt in ("cs16", "cs8")
+    enc = Encoder(batch=channels, out_format=fmt, wire=wire, device=dev)
     muxer = FdmMuxer(channels, device=dev) if mux else None
+    fields_done = 0
+    if resume:
+        # everything is checked before the sink opens: a refused resume
+        # leaves the output untouched
+        state, fields_done = ckpt.load_state(checkpoint, device=dev)
+        if state.parity.shape[0] != channels:
+            raise ValueError(f"checkpoint holds {state.parity.shape[0]} channels, "
+                             f"this encode {channels}")
+        enc.state = state
+        carry = ckpt.load_mux_carry(checkpoint)
+        if (carry is not None) != (muxer is not None):
+            raise ValueError("checkpoint and --mux disagree: resume a --mux run "
+                             "with --mux and a plain run without it")
+        if muxer is not None:
+            muxer.set_state(carry)
+        rs_saved = ckpt.load_resample_state(checkpoint)
+        if (rs_saved is not None) != (resampler is not None):
+            raise ValueError("checkpoint and --rate disagree: resume a --rate run "
+                             "with the same --rate and a nominal-rate run "
+                             "without it")
+        if resampler is not None:
+            if (int(rs_saved["num"]), int(rs_saved["den"])) != (resampler.num,
+                                                                 resampler.den):
+                raise ValueError("--rate differs from the checkpointed run's rate")
+            resampler = StreamResampler.load_full_state(rs_saved, device=dev)
     meter = ThroughputMeter(channels=channels)
+
+    def save() -> None:
+        ckpt.save_state(checkpoint, enc.state, fields_done,
+                        mux_carry=None if muxer is None else muxer.get_state(),
+                        resample_state=None if resampler is None else resampler.full_state())
 
     def emit_mux_chunk(chunk: np.ndarray) -> None:
         """(2, m) wideband multiplex chunk -> (resample ->) sink."""
@@ -255,40 +333,61 @@ def run(input_paths, output: str = "null", channels: int = 1,
         _write_planar(sink, chunk[None])
 
     field_bytes = P.FIELD_TS_BYTES
-    fields_done = sync_checked = sync_bad = 0
+    n_run = sync_checked = sync_bad = 0
+    last_saved = fields_done
+    eof = False   # the loop ended at the end of the input (not at max_fields)
     readers = [TsReader(p) for p in input_paths]
-    sink = IqSink(output)
+    sink = IqSink(cfg.sink, pace_bytes_per_sec=pace)
     try:
-        while True:
-            got = _read_field(readers, field_bytes)
-            if got is None:
-                break
-            ts, checked, bad = got
-            sync_checked += checked
-            sync_bad += bad
-            if ts.shape[0] == 1 and channels > 1:
-                ts = np.broadcast_to(ts, (channels, field_bytes))
-            iq = enc.encode(ts)
-            if muxer is not None:
-                emit_mux_chunk(muxer.push(iq[:, :, : P.SYMBOLS_PER_FIELD]))
-            elif resampler is not None:
-                _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
-            elif wire:
-                sink.write_wire(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
-            else:
-                sink.write_planar(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
-            meter.add_fields(channels)
-            fields_done += 1
-            if max_fields and fields_done >= max_fields:
-                break
-        if muxer is not None:
-            emit_mux_chunk(muxer.flush())
-        if resampler is not None:
-            _write_planar(sink, resampler.flush_planar())
+        for r in readers:   # the fields the checkpointed run encoded
+            left = fields_done * field_bytes
+            while left > 0:
+                got = r.read(min(left, field_bytes))
+                if not got:
+                    break
+                left -= len(got)
+        with _profiled(profile_dir):
+            while True:
+                got = _read_field(readers, field_bytes)
+                if got is None:
+                    eof = True
+                    break
+                ts, checked, bad = got
+                sync_checked += checked
+                sync_bad += bad
+                if ts.shape[0] == 1 and channels > 1:
+                    ts = np.broadcast_to(ts, (channels, field_bytes))
+                iq = enc.encode(ts)
+                if muxer is not None:
+                    emit_mux_chunk(muxer.push(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+                elif resampler is not None:
+                    _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+                elif wire:
+                    sink.write_wire(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
+                else:
+                    sink.write_planar(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
+                meter.add_fields(channels)
+                n_run += 1
+                fields_done += 1
+                if checkpoint and fields_done - last_saved >= checkpoint_every:
+                    save()
+                    last_saved = fields_done
+                if max_fields and n_run >= max_fields:
+                    break
+            # a checkpointed stop before the end of the input must not
+            # flush: the flush zero-pads the carried remainder, which the
+            # resumed run renders from real data
+            if eof or not checkpoint:
+                if muxer is not None:
+                    emit_mux_chunk(muxer.flush())
+                if resampler is not None:
+                    _write_planar(sink, resampler.flush_planar())
     finally:
         for r in readers:
             r.close()
         sink.close()
+    if checkpoint and fields_done != last_saved:
+        save()
 
     summary = meter.summary()
     summary["device"] = str(dev)
@@ -304,10 +403,6 @@ def run(input_paths, output: str = "null", channels: int = 1,
         print(json.dumps(summary), file=sys.stderr)
     return summary
 
-
-# decode flags of atsc_tpu.cli that are not ported yet, with the default
-# that means "not given"
-_DECODE_NOT_PORTED = {"mesh": None, "checkpoint": None, "resume": False, "profile": None}
 
 #: CLI --trellis value -> IqReceiver trellis mode
 _TRELLIS_MODE = {"hard": "hard", "viterbi": "soft", "viterbi-i8": "soft-i8"}
@@ -441,21 +536,14 @@ def build_decode_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
+    _add_state_flags(ap, "receiver")
     _add_inert_flags(ap, fields_per_step=4, gain=30.0, live="source")
-    for name, default in _DECODE_NOT_PORTED.items():
-        flag = f"--{name.replace('_', '-')}"
-        if isinstance(default, bool):
-            ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, type=type(default) if default is not None else str,
-                            default=default, help=argparse.SUPPRESS)
     return ap
 
 
 def _decode_not_ported(args) -> str:
     """'' when args ask only for what this package runs, else the error."""
-    given = [f"--{n.replace('_', '-')}" for n, d in _DECODE_NOT_PORTED.items()
-             if getattr(args, n) != d]
+    given = ["--mesh"] if args.mesh is not None else []
     if _is_live(args.input):
         given.append("the soapy source (-d/-f/-g)")
     if given:
@@ -480,6 +568,14 @@ class _TsOut:
         else:
             self._fps = [sys.stdout.buffer if path == "-" else open(path, "wb")]
 
+    @classmethod
+    def wrap(cls, fp) -> "_TsOut":
+        """Adopt an already-open single interleaved stream (the resume path)."""
+        out = cls.__new__(cls)
+        out.per_channel = False
+        out._fps = [fp]
+        return out
+
     def write_fields(self, ts: np.ndarray) -> None:
         """ts: (B, FIELD_TS_BYTES): one decoded field for B channels."""
         if self.per_channel:
@@ -487,6 +583,10 @@ class _TsOut:
                 fp.write(row.tobytes())
         else:
             self._fps[0].write(ts.tobytes())
+
+    def flush(self) -> None:
+        for fp in self._fps:
+            fp.flush()
 
     def close(self) -> None:
         for fp in self._fps:
@@ -558,11 +658,82 @@ class _ResampledCapture:
             self._fin.close()
 
 
+#: decode flags that configure the receiver: (args name, default, the
+#: receiver attribute a checkpoint restores it to, how the flag maps to it)
+_RX_FLAGS = (
+    ("trellis", "hard", "trellis", _TRELLIS_MODE.get),
+    ("ntsc", "off", "ntsc", str),
+    ("erasures", "off", "erasures", str),
+    ("viterbi_chunks", 1, "viterbi_chunks", int),
+    ("eq_profile", "auto", "eq_profile", str),
+    ("train_every", 1, "train_every", int),
+)
+
+
+def _check_resume_flags(args, rx) -> None:
+    """A --resume continues the checkpointed decode as it was: a receiver
+    flag given now (not left at its default) must be the checkpoint's."""
+    def refuse(flag: str, saved, given) -> None:
+        raise ValueError(f"checkpoint was saved with --{flag} {saved}, this decode "
+                         f"asks for {given}; decode flags cannot change on --resume")
+
+    for name, default, attr, to_rx in _RX_FLAGS:
+        given = getattr(args, name)
+        if given != default and to_rx(given) != getattr(rx, attr):
+            refuse(name.replace("_", "-"), getattr(rx, attr), given)
+    if args.equalizer != "zf" and rx.backend != args.equalizer:
+        refuse("equalizer", rx.backend, args.equalizer)
+    if args.resync != "off" and rx.resync is None:
+        refuse("resync", "off", args.resync)
+    if (args.forgetting != 1.0 and rx.adaptive is not None
+            and float(np.float32(args.forgetting)) != rx.adaptive._lam):
+        refuse("forgetting", rx.adaptive._lam, args.forgetting)
+
+
+def _reopen_output(path: str, emitted: int, channels: int) -> "_TsOut":
+    """The resume path's TS output: '-' as it is; a file must hold the
+    `emitted` fields decoded before the checkpoint (a missing or shorter
+    file is refused: its fields are lost and a resume would write only the
+    rest), and anything after them, written after the checkpoint, is cut
+    off."""
+    if path == "-":
+        return _TsOut.wrap(sys.stdout.buffer)
+    expect = emitted * P.FIELD_TS_BYTES * channels
+    if not os.path.exists(path):
+        raise ValueError(f"--resume: the output {path!r} is missing; it must hold the "
+                         f"{emitted} fields decoded before the checkpoint (restore "
+                         "it, or decode from the start without --resume)")
+    size = os.path.getsize(path)
+    if size < expect:
+        raise ValueError(f"--resume: the output {path!r} is {size} bytes, "
+                         f"{expect - size} short of the {emitted} fields decoded "
+                         "before the checkpoint (restore it, or decode from the "
+                         "start without --resume)")
+    fp = open(path, "r+b")
+    fp.truncate(expect)
+    fp.seek(0, 2)
+    return _TsOut.wrap(fp)
+
+
+def _skip_input(fin, nbytes: int) -> None:
+    """Move past the capture bytes a checkpointed decode consumed."""
+    if fin.seekable():
+        fin.seek(nbytes)
+        return
+    while nbytes > 0:
+        got = fin.read(min(nbytes, 1 << 20))
+        if not got:
+            break
+        nbytes -= len(got)
+
+
 def run_decode(args) -> dict:
     """Decode a capture (args from build_decode_argparser) to TS; returns
     the summary (printed to stderr with --stats). The conditioning flags
     follow the JAX CLI's run_decode: validation in its order, the same
-    equalizer promotions, the same summary keys."""
+    equalizer promotions, the same summary keys. --checkpoint/--resume as
+    there, except that a resume whose output file is missing or short is
+    refused (the JAX CLI writes only the rest of the stream)."""
     if _is_live(args.input) and args.sro == "auto":
         raise ValueError("--sro auto reads the whole capture up front "
                          "and cannot run on a live stream (capture to "
@@ -574,6 +745,11 @@ def run_decode(args) -> dict:
     if args.demux:
         return run_decode_demux(args)
     fmt, channels = args.in_format, args.channels
+    if args.resume and not args.checkpoint:
+        raise ValueError("--resume requires --checkpoint")
+    if args.resume and "{ch}" in args.output:
+        raise ValueError("per-channel output ('{ch}') is not resumable; "
+                         "resume into a single interleaved output")
     dev = resolve_device(args.device)
     # streaming rate conversion (--rate capture clock, numeric --sro ppm):
     # an exact-rational capture-samples-per-output ratio applied by a
@@ -593,10 +769,32 @@ def run_decode(args) -> dict:
     align = args.align == "auto"
     cfo_auto = args.cfo in ("auto", "track")
     cfo_track = args.cfo == "track"
-    sro_rate = None
+    if args.checkpoint and (align or stream_rate is not None or args.sro == "auto"):
+        # a checkpoint counts the conditioned stream's samples (after the
+        # align offset, on the resampled grid), not the capture's: a resume
+        # would skip to the wrong sample
+        raise ValueError("--align/--sro/--rate conditioning is not "
+                         "checkpointable (decode the capture in one run, "
+                         "or pre-convert it)")
+    if args.resume and cfo_auto:
+        raise ValueError("--resume cannot re-run --cfo auto/track estimation "
+                         "(the checkpoint holds its CFO and phase: resume "
+                         "without --cfo)")
+    rx = fout = sro_rate = None
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
-    fout = None
     try:
+        if args.resume:
+            # the checkpoint and the output are checked before anything is
+            # read or written: a refused resume leaves both as they were
+            rx = ckpt.load_receiver(args.checkpoint, device=dev)
+            if rx.batch != channels:
+                raise ValueError(f"checkpoint batch {rx.batch} != --channels {channels}")
+            saved_fmt = rx.checkpoint_extra.get("in_format", fmt)
+            if saved_fmt != fmt:
+                raise ValueError(f"checkpoint input format {saved_fmt!r} != "
+                                 f"--format {fmt!r}")
+            _check_resume_flags(args, rx)
+            fout = _reopen_output(args.output, rx.fields_emitted, channels)
         if stream_rate is not None and stream_rate != 1:
             fin = _ResampledCapture(fin, fmt, stream_rate, dev)
             fmt, align = "cf32", True  # the resampler's bulk delay shifts
@@ -645,25 +843,44 @@ def run_decode(args) -> dict:
         # samples, dequantized on the host
         codes_path = (fmt in ("cs16", "cs8") and equalizer == "zf"
                       and not align and cfo_hz == 0.0 and pending is None)
-        trellis = _TRELLIS_MODE[args.trellis]
-        rx = IqReceiver(batch=channels, first_field=first_field,
-                        backend="device" if equalizer == "zf" else equalizer,
-                        forgetting=args.forgetting, trellis=trellis,
-                        erasures=None if args.erasures == "off" else args.erasures,
-                        wire_format=fmt if codes_path else "cf32",
-                        eq_profile=args.eq_profile,
-                        ntsc=None if args.ntsc == "off" else args.ntsc,
-                        # the i8 tier's int8 level codes cannot feed the MER
-                        # accumulator; --stats still reports everything else
-                        measure_mer=args.stats and trellis != "soft-i8",
-                        resync=None if args.resync == "off" else args.resync,
-                        viterbi_chunks=args.viterbi_chunks,
-                        train_every=args.train_every, device=dev)
-        fields = 0
+        if rx is not None:
+            # the checkpointed numeric CFO applies unless overridden, with
+            # the corrector's accumulated phase at the checkpoint (a
+            # --cfo track run retuned mid-stream, so the final rate times
+            # the consumed samples is not that phase)
+            cfo_hz = (float(args.cfo) if args.cfo != "0"
+                      else float(rx.checkpoint_extra.get("cfo_hz", 0.0)))
+            correct = CfoCorrector(cfo_hz)
+            consumed = rx._stream.end
+            saved_phi = rx.checkpoint_extra.get("cfo_phi")
+            if saved_phi is not None:
+                correct._phi = float(saved_phi)
+                correct._n = consumed
+            else:
+                correct.skip(consumed)
+            rx.measure_mer = args.stats and rx.trellis != "soft-i8"
+            codes_path = rx.wire_format != "cf32"
+            _skip_input(fin, consumed * BYTES_PER_SAMPLE[fmt] * channels)
+        else:
+            trellis = _TRELLIS_MODE[args.trellis]
+            rx = IqReceiver(batch=channels, first_field=first_field,
+                            backend="device" if equalizer == "zf" else equalizer,
+                            forgetting=args.forgetting, trellis=trellis,
+                            erasures=None if args.erasures == "off" else args.erasures,
+                            wire_format=fmt if codes_path else "cf32",
+                            eq_profile=args.eq_profile,
+                            ntsc=None if args.ntsc == "off" else args.ntsc,
+                            # the i8 tier's int8 level codes cannot feed the MER
+                            # accumulator; --stats still reports everything else
+                            measure_mer=args.stats and trellis != "soft-i8",
+                            resync=None if args.resync == "off" else args.resync,
+                            viterbi_chunks=args.viterbi_chunks,
+                            train_every=args.train_every, device=dev)
+            fout = _TsOut(args.output, channels)
+        fields = last_ckpt = 0
         track_tail: list[np.ndarray] = []  # last 2 corrected field blocks
         cfo_retunes = 0
         last_track = 0
-        fout = _TsOut(args.output, channels)
 
         def emit(decoded) -> None:
             nonlocal fields
@@ -671,41 +888,53 @@ def run_decode(args) -> dict:
                 fout.write_fields(ts)
                 fields += 1
 
-        if pending is not None:
-            emit(rx.push(pending))
-        while True:
-            buf = fin.read(block)
-            if len(buf) < block:
-                if buf and align:
-                    emit(rx.push(correct(_wire_to_complex(buf, fmt))))
-                elif buf:
-                    print(f"warning: dropping {len(buf)}-byte partial field "
-                          "block at EOF", file=sys.stderr)
-                break
-            if codes_path:
-                codes = np.frombuffer(buf, dtype=_CODE_DTYPE[fmt])
-                decoded = rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2))
-            else:
-                blk = correct(_wire_to_complex(buf, fmt).reshape(
-                    channels, P.SYMBOLS_PER_FIELD))
-                decoded = rx.push(blk)
-                if cfo_track:
-                    track_tail.append(blk)
-                    del track_tail[:-2]
-            emit(decoded)
-            if cfo_track and len(track_tail) == 2 and fields - last_track >= 8:
-                # tracking update: the pilot's offset in the *corrected*
-                # stream is the residual CFO; fold it in phase-continuously
-                last_track = fields
-                resid = estimate_cfo(np.concatenate(track_tail, axis=-1))
-                if 0.05 <= abs(resid) <= 1500.0:
-                    cfo_hz = correct.cfo_hz + resid
-                    correct.retune(cfo_hz)
-                    cfo_retunes += 1
-            if args.max_fields and fields >= args.max_fields:
-                break
-        if not args.max_fields or fields < args.max_fields:
-            emit(rx.flush())
+        def maybe_checkpoint(force: bool = False) -> None:
+            nonlocal last_ckpt
+            if args.checkpoint and (force or fields - last_ckpt >= args.checkpoint_every):
+                fout.flush()
+                ckpt.save_receiver(args.checkpoint, rx,
+                                   extra={"in_format": fmt, "cfo_hz": cfo_hz,
+                                          "cfo_phi": correct._phi})
+                last_ckpt = fields
+
+        with _profiled(args.profile):
+            if pending is not None:
+                emit(rx.push(pending))
+            while True:
+                buf = fin.read(block)
+                if len(buf) < block:
+                    if buf and align:
+                        emit(rx.push(correct(_wire_to_complex(buf, fmt))))
+                    elif buf:
+                        print(f"warning: dropping {len(buf)}-byte partial field "
+                              "block at EOF", file=sys.stderr)
+                    break
+                if codes_path:
+                    codes = np.frombuffer(buf, dtype=_CODE_DTYPE[fmt])
+                    decoded = rx.push_codes(codes.reshape(channels, P.SYMBOLS_PER_FIELD, 2))
+                else:
+                    blk = correct(_wire_to_complex(buf, fmt).reshape(
+                        channels, P.SYMBOLS_PER_FIELD))
+                    decoded = rx.push(blk)
+                    if cfo_track:
+                        track_tail.append(blk)
+                        del track_tail[:-2]
+                emit(decoded)
+                if cfo_track and len(track_tail) == 2 and fields - last_track >= 8:
+                    # tracking update: the pilot's offset in the *corrected*
+                    # stream is the residual CFO; fold it in phase-continuously
+                    last_track = fields
+                    resid = estimate_cfo(np.concatenate(track_tail, axis=-1))
+                    if 0.05 <= abs(resid) <= 1500.0:
+                        cfo_hz = correct.cfo_hz + resid
+                        correct.retune(cfo_hz)
+                        cfo_retunes += 1
+                maybe_checkpoint()
+                if args.max_fields and fields >= args.max_fields:
+                    break
+            if not args.max_fields or fields < args.max_fields:
+                emit(rx.flush())
+            maybe_checkpoint(force=True)
     finally:
         if fin is not sys.stdin.buffer:
             fin.close()
@@ -722,7 +951,7 @@ def run_decode(args) -> dict:
         summary["segments_erasure_assisted"] = rx.decoder.segments_erasure_assisted
     if args.ntsc != "off":
         summary["ntsc_comb"] = rx.ntsc_active
-    if args.resync != "off":
+    if args.resync != "off" or rx.resync is not None:
         summary["resyncs"] = rx.resyncs
     if rx.mer is not None:
         summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
@@ -752,14 +981,16 @@ def _check_chunks(args) -> None:
 
 
 def run_decode_demux(args) -> dict:
-    """Wideband headend receive (the JAX CLI's run_decode_demux, without its
-    checkpoint and resume branches): the device FDM demultiplexer
-    (ops/mux.py) feeding one batched adaptive receiver, B transport
-    streams out of one B*6 MHz capture. `--rate` takes a capture clocked
-    at any SDR rate (streaming-resampled to the multiplex rate; implies
-    `--align auto`, since the conversion shifts the epoch); `--align auto`
-    locates the field boundary in slot 0's demuxed baseband (every slot is
-    sample-synchronous)."""
+    """Wideband headend receive (the JAX CLI's run_decode_demux): the
+    device FDM demultiplexer (ops/mux.py) feeding one batched adaptive
+    receiver, B transport streams out of one B*6 MHz capture. `--rate`
+    takes a capture clocked at any SDR rate (streaming-resampled to the
+    multiplex rate; implies `--align auto`, since the conversion shifts the
+    epoch); `--align auto` locates the field boundary in slot 0's demuxed
+    baseband (every slot is sample-synchronous). --checkpoint saves the
+    receiver with the demuxer's carry and the wideband read cursor;
+    --resume continues from it into the interleaved output, refusing a
+    missing or short one."""
     for flag, default in (("cfo", "0"), ("sro", "0"), ("mesh", None)):
         if getattr(args, flag) != default:
             raise ValueError(f"--demux does not support --{flag}")
@@ -771,6 +1002,15 @@ def run_decode_demux(args) -> dict:
                 f"--rate below the {args.demux * 6} MHz multiplex rate "
                 "cannot carry the band")
     align = args.align == "auto" or (rate_frac is not None and rate_frac != 1)
+    if args.checkpoint and (rate_frac is not None or align):
+        raise ValueError("--demux --rate/--align conditioning is not "
+                         "checkpointable (decode the capture in one run, "
+                         "or pre-convert it)")
+    if args.resume and not args.checkpoint:
+        raise ValueError("--resume requires --checkpoint")
+    if args.resume and "{ch}" in args.output:
+        raise ValueError("per-channel output ('{ch}') is not resumable; "
+                         "resume into a single interleaved output")
     if args.channels != 1:
         raise ValueError("--demux sets the channel count itself")
     _check_chunks(args)
@@ -799,17 +1039,15 @@ def run_decode_demux(args) -> dict:
             train_every=args.train_every, device=dev,
         )
 
-    # construct (and so flag-validate) the receiver before opening the
-    # output: a usage error must not truncate a file. An --align run
-    # rebuilds it with the detected parity later.
-    rx = make_rx(args.first_field)
+    wb_read = 0   # wideband multiplex samples consumed (the resume cursor)
+    fout = None
     fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
     in_fmt = args.in_format
     if rate_frac is not None and rate_frac != 1:
         fin = _ResampledCapture(fin, in_fmt, rate_frac, dev)
         in_fmt = "cf32"
-    fout = None
-    fields = 0
+    sample_bytes = BYTES_PER_SAMPLE[in_fmt]
+    fields = last_ckpt = 0
 
     def emit(decoded) -> None:
         nonlocal fields
@@ -845,27 +1083,64 @@ def run_decode_demux(args) -> dict:
         if sum(x.shape[-1] for x in pend_bb) >= 2 * P.SYMBOLS_PER_FIELD:
             start_aligned()
 
+    def maybe_checkpoint(force: bool = False) -> None:
+        nonlocal last_ckpt
+        if args.checkpoint and (force or fields - last_ckpt >= args.checkpoint_every):
+            fout.flush()
+            ckpt.save_receiver(args.checkpoint, rx,
+                               extra={"in_format": args.in_format, "demux_slots": b,
+                                      "wideband_read": wb_read},
+                               extra_arrays={"demux_carry": dmx.get_state()})
+            last_ckpt = fields
+
     try:
-        fout = _TsOut(args.output, b)
-        while True:
-            buf = fin.read(1 << 22)
-            if not buf:
-                break
-            feed(dmx.push(_wire_to_complex(buf, in_fmt)))
-            if args.max_fields and fields >= args.max_fields:
-                break
-        if not args.max_fields or fields < args.max_fields:
-            feed(dmx.flush())
-            if not aligned:
-                # short capture: align with whatever is buffered, if a
-                # whole field (+ the sync probe span) made it through
-                if sum(x.shape[-1] for x in pend_bb) >= P.SYMBOLS_PER_FIELD + 707:
-                    start_aligned()
-                else:
-                    print("warning: capture too short to locate a field "
-                          "boundary; nothing decoded", file=sys.stderr)
-            if aligned:
-                emit(rx.flush())
+        if args.resume:
+            # checked before anything is read or written
+            rx = ckpt.load_receiver(args.checkpoint, device=dev)
+            if rx.batch != b:
+                raise ValueError(f"checkpoint slots {rx.batch} != --demux {b}")
+            carry = rx.checkpoint_arrays.get("demux_carry")
+            if carry is None:
+                raise ValueError("checkpoint is not a --demux decode checkpoint")
+            saved_fmt = rx.checkpoint_extra.get("in_format", args.in_format)
+            if saved_fmt != args.in_format:
+                raise ValueError(f"checkpoint input format {saved_fmt!r} != "
+                                 f"--format {args.in_format!r}")
+            _check_resume_flags(args, rx)
+            dmx.set_state(carry)
+            wb_read = int(rx.checkpoint_extra.get("wideband_read", 0))
+            rx.measure_mer = args.stats and rx.trellis != "soft-i8"
+            fout = _reopen_output(args.output, rx.fields_emitted, b)
+            _skip_input(fin, wb_read * sample_bytes)
+        else:
+            # construct (and so flag-validate) the receiver before opening
+            # the output: a usage error must not truncate a file. An
+            # --align run rebuilds it with the detected parity later.
+            rx = make_rx(args.first_field)
+            fout = _TsOut(args.output, b)
+        with _profiled(args.profile):
+            while True:
+                buf = fin.read(1 << 22)
+                if not buf:
+                    break
+                wb_read += len(buf) // sample_bytes
+                feed(dmx.push(_wire_to_complex(buf, in_fmt)))
+                maybe_checkpoint()
+                if args.max_fields and fields >= args.max_fields:
+                    break
+            if not args.max_fields or fields < args.max_fields:
+                feed(dmx.flush())
+                if not aligned:
+                    # short capture: align with whatever is buffered, if a
+                    # whole field (+ the sync probe span) made it through
+                    if sum(x.shape[-1] for x in pend_bb) >= P.SYMBOLS_PER_FIELD + 707:
+                        start_aligned()
+                    else:
+                        print("warning: capture too short to locate a field "
+                              "boundary; nothing decoded", file=sys.stderr)
+                if aligned:
+                    emit(rx.flush())
+            maybe_checkpoint(force=True)
     finally:
         if fin is not sys.stdin.buffer:
             fin.close()
@@ -890,12 +1165,288 @@ def run_decode_demux(args) -> dict:
     return summary
 
 
+def build_analyze_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="atsc_tpu_torch analyze",
+        description="Signal-quality triage of an 8VSB IQ capture without "
+                    "decoding: power, field alignment, carrier offset, "
+                    "sample-rate offset, MER (the broadcast monitoring "
+                    "metric) and the decode flags the capture needs",
+    )
+    ap.add_argument("input", help="IQ capture path or '-' (stdin). One channel "
+                                  "at the symbol rate by default; --demux/--rate "
+                                  "cover wideband FDM multiplexes and other SDR "
+                                  "clocks")
+    ap.add_argument("--format", dest="in_format", default="cf32",
+                    choices=("cf32", "cs16", "cs8"))
+    ap.add_argument("--fields", type=int, default=4,
+                    help="fields to analyze (>= 3 enables the SRO estimate); "
+                         "one extra field of alignment slack is read on top")
+    ap.add_argument("--cfo-search", type=float, default=3000.0,
+                    help="one-sided carrier-offset search range (Hz)")
+    ap.add_argument("--demux", type=int, default=0, metavar="B",
+                    help="the capture is a B-slot FDM multiplex at B*6 MHz "
+                         "(encode --mux output, a wideband SDR grab): demux "
+                         "and report every slot")
+    ap.add_argument("--rate", default=None, metavar="SPS",
+                    help="capture sample rate (e.g. 20e6 for a 20 MS/s SDR "
+                         "grab): stream-resampled to the native band rate "
+                         "before analysis")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: 'cuda' (default; fails without "
+                         "CUDA), 'cuda:N' or 'cpu'")
+    ap.add_argument("-d", "--driver", default="hackrf",
+                    help="SoapySDR driver of the 'soapy' source")
+    ap.add_argument("-f", "--frequency", type=float, default=473e6,
+                    help="(the 'soapy' source) RF centre frequency in Hz")
+    ap.add_argument("-g", "--gain", type=float, default=30.0,
+                    help="(the 'soapy' source) gain in dB")
+    return ap
+
+
+def _analyze_iq(iq: np.ndarray, cfo_search: float, force_adaptive: bool = False,
+                resampled: bool = False, *, device: str | torch.device) -> dict:
+    """The per-channel metric core of `analyze` (the JAX CLI's _analyze_iq):
+    (n,) complex baseband at the symbol rate -> {rms, sro_ppm, cfo_hz,
+    align, mer_db, ...}. The estimators run on the host in float64 as in
+    the JAX package; the equalizers on `device` (the zf MER through the
+    eq_fir kernel, fast tier, soft levels; the adaptive MER through
+    AdaptiveEqualizer).
+
+    resampled: the samples already went through one rate conversion
+    (--rate / demux): small SRO readings are then within the
+    interpolator's phase-ripple noise and a second cascaded resample costs
+    more MER than the residual drift, so the correction gate is wider."""
+    n = P.SYMBOLS_PER_FIELD
+    out: dict = {
+        "samples": int(iq.size),
+        "rms": round(float(np.sqrt(np.mean(np.abs(iq) ** 2))), 6),
+    }
+    if iq.size < n + P.SYMBOLS_PER_SEGMENT:
+        out["error"] = (f"capture too short to analyze: {iq.size} samples "
+                        "(< one field + one segment)")
+        return out
+
+    # impulse blanking (a monitor's front end): a strong noise burst
+    # otherwise captures the estimators (the PN511 correlator peaks on the
+    # burst, SRO and CFO follow it). The 8VSB envelope is Rayleigh (median
+    # = 1.177 sigma), so 4x the median is ~4.7 sigma: clean samples almost
+    # never trip it. The median is taken over non-zero samples and floored
+    # at a quarter of the RMS, so a mostly zero-filled capture cannot
+    # blank everything.
+    amp = np.abs(iq)
+    nz = amp[amp > 0]
+    base = max(float(np.median(nz)) if nz.size else 0.0, 0.25 * out["rms"])
+    hot = amp > 4.0 * base if base > 0 else np.zeros(amp.shape, bool)
+    n_hot = int(hot.sum())
+    if n_hot:
+        out["blanked_samples"] = n_hot
+        iq = np.where(hot, 0, iq)
+
+    # SRO scales every frequency, so a pilot CFO estimate taken off-rate is
+    # biased by pilot_Hz * ppm: align (PN511 correlation is CFO-robust over
+    # its 47 us), resample to nominal, then measure the carrier offset
+    off, parity = find_field_sync_iq(iq)
+    if iq.size - off >= int(2.2 * n):
+        rate = float(estimate_sro(iq[off:]))   # capture samples / nominal
+        sro_ppm = (rate - 1.0) * 1e6
+        out["sro_ppm"] = round(sro_ppm, 3)
+        gate = 5.0 if resampled else 2.0
+        if abs(sro_ppm) > gate:
+            iq = resample_stream(iq, rate)[0]
+
+    cfo = float(estimate_cfo(iq, search_hz=cfo_search))
+    out["cfo_hz"] = round(cfo, 2)
+    if abs(cfo) > 0.5:
+        iq = iq * np.exp(-2j * np.pi * cfo / P.SAMPLE_RATE * np.arange(iq.size))
+
+    off, parity = find_field_sync_iq(iq)
+    out["align_offset"] = int(off)
+    out["align_parity"] = int(parity)
+
+    if iq.size - off >= n:
+        levs: dict = {}  # method -> equalized levels (the burst triage below)
+
+        def adaptive_mer() -> float:
+            # phase/epoch-agnostic: the sync-trained equalizer absorbs any
+            # fixed rotation or linear channel
+            win, osc = field_window(iq[None], off, first_field=parity)
+            lev = AdaptiveEqualizer(batch=1, device=device).process_field(
+                win, osc, parity, soft=True)
+            levs["adaptive"] = lev.cpu().numpy()
+            return float(mer_db(levs["adaptive"])[0])
+
+        mer = None
+        if off == 0 and parity == 0 and not force_adaptive:
+            # looks epoch-aligned: try the zf inverse of the known TX chain.
+            # off == parity == 0 does not prove it (a capture cut at a frame
+            # boundary looks the same with the oscillator ~pi off), so a
+            # poor zf MER falls back to the adaptive measurement
+            levs["zf"] = equalize_field_device(iq[None], 0, soft=True,
+                                               device=device).cpu().numpy()
+            mer = float(mer_db(levs["zf"])[0])
+            out["mer_method"] = "zf"
+        if mer is None or mer < 20.0:
+            adaptive = adaptive_mer()
+            if mer is None or adaptive > mer:
+                mer = adaptive
+                out["mer_method"] = "adaptive"
+        out["mer_db"] = round(mer, 2)
+        out["decodable"] = bool(out["mer_db"] >= 15.2)
+
+        # impulse-noise triage: heavy-tailed windowed slicer residuals mark
+        # bursts, which the RS erasure tier recovers far past the
+        # errors-only budget; the soft-trellis advice below then judges the
+        # burst-excluded MER
+        lev_used = levs[out["mer_method"]]
+        bflags = burst_erasure_flags(lev_used)[:, :n]
+        n_burst = int(bflags.sum())
+        out["burst_symbols"] = n_burst
+        if n_burst:
+            clean = lev_used[:, :n].copy()
+            sliced = np.clip(np.rint((clean - P.PILOT_OFFSET + 7.0) / 2.0), 0, 7
+                             ) * 2.0 - 7.0 + P.PILOT_OFFSET
+            mask = bflags.astype(bool)
+            clean[mask] = sliced[mask]       # zero the burst residuals
+            out["mer_clean_db"] = round(float(mer_db(clean)[0]), 2)
+        # analog co-channel triage: slicer residuals of the plain against
+        # the 12-symbol-combed field (the comb's ~3 dB white-noise penalty
+        # is in the vote, so clean and AWGN captures never trip it)
+        out["ntsc_detected"] = bool(detect_ntsc(lev_used[:, :n]))
+    else:
+        out["note"] = ("capture too short after alignment for a MER "
+                       "field; raise --fields")
+
+    # the decode flags this capture needs (run_analyze prepends the capture
+    # context, --rate/--demux)
+    flags = []
+    if abs(out.get("sro_ppm", 0.0)) > (5.0 if resampled else 2.0):
+        flags.append("--sro auto")
+    if abs(out.get("cfo_hz", 0.0)) > 5.0:
+        flags.append("--cfo auto")
+    if out.get("align_offset", 0) or out.get("align_parity", 0):
+        flags.append("--align auto")
+    if out.get("mer_method") == "adaptive" and "--align auto" not in flags:
+        flags.append("--equalizer adaptive")
+    # >= 192 flagged symbols = at least one real windowed burst event (the
+    # detector dilates each to ~3 windows)
+    burst_advised = out.get("burst_symbols", 0) >= 192
+    if burst_advised:
+        flags.append("--erasures burst")
+    mer = out.get("mer_clean_db") if burst_advised else out.get("mer_db")
+    if mer is None:
+        mer = out.get("mer_db")
+    if mer is not None and mer < 20.0:
+        flags.append("--trellis viterbi")
+    if out.get("ntsc_detected"):
+        # the comb tier supersedes both: its PR Viterbi is already ML, and
+        # the burst detector assumes the plain 8-level slicer
+        flags = [f for f in flags if f not in ("--trellis viterbi", "--erasures burst")]
+        flags.append("--ntsc auto")
+    out["decode_flags"] = " ".join(flags)
+    return out
+
+
+def run_analyze(args) -> dict:
+    """Measure a capture the way a broadcast monitor would (the JAX CLI's
+    run_analyze): locate the field sync (PN511), estimate and back out SRO
+    and CFO, then equalize one aligned field and report its MER, the
+    burst and NTSC triage and the decode flags the capture needs. With
+    --demux B the input is a B-slot FDM multiplex at B*6 MHz: it is
+    demultiplexed on the device and every slot gets its own report, with
+    band-level advice."""
+    if _is_live(args.input):
+        raise NotImplementedError("analyze from the soapy source (-d/-f/-g): "
+                                  "not yet ported to atsc_tpu_torch")
+    dev = resolve_device(args.device)
+    n = P.SYMBOLS_PER_FIELD
+    fmt = args.in_format
+    slots = args.demux
+    if slots:
+        demux = FdmDemuxer(slots, device=dev)
+        per_field_wb = int(np.ceil(n * demux.rate_hz / P.SAMPLE_RATE))
+        # +1 field of budget: the first sync can land up to a field in,
+        # and the SRO/MER gates need their spans after the offset
+        want_samples = (args.fields + 1) * per_field_wb + 8192
+        native = demux.rate_hz
+    else:
+        want_samples = (args.fields + 1) * n + 2 * P.SYMBOLS_PER_SEGMENT
+        native = P.SAMPLE_RATE
+    # --rate: the capture runs at an arbitrary clock; stream-resample it to
+    # the native band rate first (decode's adapter; rates below native
+    # upsample, fine while the occupied band is carried)
+    rate_frac = None
+    if args.rate is not None:
+        sps = _parse_sps(args.rate)
+        band = 6_000_000 * max(slots, 1)
+        if sps < band:
+            raise ValueError(
+                f"--rate {float(sps):.0f} cannot carry the occupied "
+                f"+-{band / 2e6:g} MHz band (needs >= {band / 1e6:g} MS/s)")
+        rate_frac = sps / Fraction(band) if slots else capture_rate(sps)
+    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    try:
+        if rate_frac is not None and rate_frac != 1:
+            fin = _ResampledCapture(fin, fmt, rate_frac, dev)
+            fmt = "cf32"
+        buf = fin.read(want_samples * BYTES_PER_SAMPLE[fmt])
+    finally:
+        if fin is not sys.stdin.buffer:
+            fin.close()
+    iq = _wire_to_complex(buf, fmt)
+    resampled = rate_frac is not None and rate_frac != 1
+    # capture-context flags the decoder needs for this capture, whatever
+    # the estimators find
+    ctx = [] if args.rate is None else [f"--rate {args.rate}"]
+    if not slots:
+        out = _analyze_iq(iq, args.cfo_search, resampled=resampled, device=dev)
+        if "error" in out:
+            raise ValueError(out["error"])
+        out["decode_flags"] = " ".join(ctx + ([out["decode_flags"]]
+                                              if out["decode_flags"] else []))
+        return out
+
+    bb = np.concatenate([demux.push(iq), demux.flush()], axis=-1)
+    if bb.shape[-1] < n + P.SYMBOLS_PER_SEGMENT:
+        raise ValueError(
+            f"capture too short to analyze: {bb.shape[-1]} demuxed "
+            "samples per slot (< one field + one segment)")
+    per_slot = [_analyze_iq(bb[s], args.cfo_search, force_adaptive=True,
+                            resampled=True, device=dev)
+                for s in range(slots)]
+    # decode --demux conditions the whole band, not per slot (it refuses
+    # --sro/--cfo/--equalizer, aligns off slot 0 and takes the clock from
+    # --rate), so the actionable advice is band-level
+    band_flags = [f"--demux {slots}", *ctx]
+    if any(s.get("align_offset", 0) or s.get("align_parity", 0) for s in per_slot):
+        band_flags.append("--align auto")
+    out = {
+        "multiplex_rate": float(native),
+        "slots": slots,
+        "samples": int(iq.size),
+        "rms": round(float(np.sqrt(np.mean(np.abs(iq) ** 2))), 6),
+        "per_slot": per_slot,
+        "decode_flags": " ".join(band_flags),
+    }
+    for s in per_slot:   # per-slot flags are not actionable under --demux
+        s.pop("decode_flags", None)
+    if args.rate is None and any(abs(s.get("sro_ppm", 0.0)) > 5.0 for s in per_slot):
+        out["note"] = ("slots report a sample-rate offset: the wideband "
+                       "clock is off — decode with --rate set to the "
+                       "capture's true sample rate")
+    return out
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv[:1] == ["analyze"]:
-        print("error: the analyze subcommand is not yet ported to "
-              "atsc_tpu_torch", file=sys.stderr)
-        return 2
+        ap = build_analyze_argparser()
+        args = ap.parse_args(argv[1:])
+        if _is_live(args.input):
+            ap.error("analyze from the soapy source (-d/-f/-g): not yet ported "
+                     "to atsc_tpu_torch")
+        print(json.dumps(run_analyze(args)))
+        return 0
     if argv[:1] == ["decode"]:
         ap = build_decode_argparser()
         args = ap.parse_args(argv[1:])
@@ -908,7 +1459,7 @@ def main(argv=None) -> int:
         argv = argv[1:]
     ap = build_argparser()
     args = ap.parse_args(argv)
-    given = [f"--{n}" for n in _NOT_PORTED if getattr(args, n) not in (None, False)]
+    given = ["--mesh"] if args.mesh is not None else []
     if _is_live(args.output):
         given.append("the soapy sink (-d/-f/-g)")
     if given:
@@ -918,11 +1469,13 @@ def main(argv=None) -> int:
         if channels not in (1, len(args.input)):
             ap.error(f"{len(args.input)} inputs but --channels {channels}")
         channels = len(args.input)
-    run(args.input, output=args.output, channels=channels,
-        out_format=args.out_format, max_fields=args.max_fields,
-        stats=args.stats, device=args.device,
-        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm,
-        mux=args.mux)
+    cfg = EncoderConfig(
+        channels=channels, mux=args.mux, sink=args.output, realtime=args.realtime,
+        out_format=args.out_format,
+        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm)
+    run(cfg, args.input, max_fields=args.max_fields, stats=args.stats,
+        checkpoint=args.checkpoint, checkpoint_every=args.checkpoint_every,
+        resume=args.resume, profile_dir=args.profile, device=args.device)
     return 0
 
 

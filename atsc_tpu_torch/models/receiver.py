@@ -340,10 +340,31 @@ def equalize_field_device(
     return step(torch.from_numpy(win).to(dev), torch.from_numpy(osc).to(dev))
 
 
-def _mer_components_dev(levels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _mer_components(levels) -> tuple[np.ndarray, np.ndarray]:
     """(B,) signal power and (B,) residual-to-nearest-symbol power of a
-    soft level field, reduced on its device: only two scalars per channel
-    come back to the host."""
+    soft level field (numpy, or a tensor on any device) in float64 on the
+    host: the two accumulands of a running MER estimate."""
+    if isinstance(levels, torch.Tensor):
+        levels = levels[..., :_N].cpu().numpy()
+    lev = np.asarray(levels, np.float64)[..., :_N]
+    x = lev - P.PILOT_OFFSET
+    ideal = np.clip(np.rint((x + 7) / 2) * 2 - 7, -7, 7)
+    return np.mean(ideal**2, axis=-1), np.mean((x - ideal) ** 2, axis=-1)
+
+
+def mer_db(levels) -> np.ndarray:
+    """(B, >=260416) soft levels -> (B,) modulation error ratio in dB
+    (signal power over residual-to-nearest-symbol power, the broadcast
+    monitoring metric; ~15.2 dB is the 8VSB white-noise decode
+    threshold)."""
+    sig, err = _mer_components(levels)
+    return 10 * np.log10(sig / np.maximum(err, 1e-30))
+
+
+def _mer_components_dev(levels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device twin of _mer_components: (B,) signal power and (B,)
+    residual power reduced on the levels' device, in float32; only two
+    scalars per channel come back to the host."""
     lev = levels[..., :_N].to(torch.float32)
     x = lev - P.PILOT_OFFSET
     ideal = ideal_levels(lev)

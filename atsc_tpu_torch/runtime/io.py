@@ -21,6 +21,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -223,6 +224,11 @@ class IqSink:
                 None if path == "null"
                 else sys.stdout.buffer if path == "-" else open(path, "wb")
             )
+            # without the native runtime the caller's thread paces itself,
+            # as the native writer thread does: byte k leaves no earlier
+            # than k / pace seconds after the open
+            self._pace = pace_bytes_per_sec
+            self._t0 = time.perf_counter()
 
     def write(self, arr: np.ndarray) -> None:
         data = np.ascontiguousarray(arr)
@@ -233,6 +239,10 @@ class IqSink:
         elif self._fp is not None:
             self._fp.write(data.tobytes())
         self._bytes += data.nbytes
+        if self._h is None and self._pace > 0:
+            wait = self._t0 + self._bytes / self._pace - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
 
     def write_planar(self, arr: np.ndarray, n_valid: int) -> None:
         """Planar (B, 2, stride>=n_valid) component array -> interleaved

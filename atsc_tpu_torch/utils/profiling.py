@@ -1,10 +1,12 @@
-"""Throughput counters, the twin of atsc_tpu/utils/profiling.py's
-ThroughputMeter (host clock; device timing is the caller's, with CUDA
-events)."""
+"""Throughput counters and a device trace: the twins of
+atsc_tpu/utils/profiling.py's ThroughputMeter (host clock) and `profile`
+(torch.profiler here, the JAX profiler there)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -66,3 +68,21 @@ class ThroughputMeter:
             out["step_ms_p99"] = round(p99 * 1e3, 2)
             out["step_ms_max"] = round(g[-1] * 1e3, 2)
         return out
+
+
+@contextlib.contextmanager
+def profile(logdir: str):
+    """Trace the block with torch.profiler (CPU activity, and CUDA kernels
+    where a card is present) and write a Chrome trace,
+    `<host>_<pid>.<timestamp>.pt.trace.json`, into `logdir` (made if missing;
+    view it in chrome://tracing, Perfetto or TensorBoard). Yields logdir."""
+    import torch
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield logdir

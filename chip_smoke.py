@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's transmit and receive main paths, its capture
 conditioning front end, the chunk-parallel Viterbi, the wideband headend
-(FDM mux and demux), and the two kernel-design probes, once on one NVIDIA
-Hopper GPU.
+(FDM mux and demux), `analyze`, the streams' checkpoints and operations,
+and the two kernel-design probes, once on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -174,6 +174,28 @@ Phases, one JSON line each; any failed check exits non-zero:
    demux_blocks of one field at B=23 timed by CUDA events. Then B=4
    `--mux --rate 30.72e6` -> `--demux 4 --rate 30.72e6`: the TS from
    field 1.
+28. analyze: `cli analyze` of one clean channel (--fields 4): the zf MER
+   through one eq_fir_fused launch, > 30 dB, no decode flags; of an
+   impaired channel (a cut at 77,777 samples, 25 ppm, 400 Hz, a two-path
+   channel, 25 dB AWGN): its sro/cfo readings, and its decode_flags fed to
+   `cli decode` give the sent TS; of phase 27's B=23 multiplex through
+   `--demux 23 --fields 3`: 23 slot reports, and the band flags decode
+   every slot to the sent TS. The seconds of each run.
+29. state and operations: a B=384 cs8 `cli encode` stopped after field 3
+   with --checkpoint and resumed gives the bytes of an uninterrupted
+   6-field run (one offset_fir_fused launch a field), and phase 27's
+   `encode --mux` at B=23 the same; IqReceiver at B=384 (soft exact and
+   C=24, NTSC comb, all three from cs8 codes, and adaptive
+   train_every=4 through a two-path channel) saved after two decoded
+   fields and reloaded gives the unbroken run's TS, the resumed runs
+   launching their Viterbi kernels on the card; `decode --demux 23
+   --checkpoint` stopped at 3 fields and resumed gives phase 28's band TS;
+   the checkpoints' save/load ms and bytes on disk at B=384; `--profile`
+   writes a torch.profiler trace naming offset_fir_fused's CUDA kernel
+   (one event a field); `--realtime` on 8 cs8 fields takes at least 95 %
+   of their 193.6 ms of air and writes the unpaced run's bytes;
+   SupervisedEncoder at B=384 catches a NaN put in its phasor, rolls back
+   and recovers bit for bit.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -181,8 +203,11 @@ sources' constants; eq_fir_fused its fast tier's soft-level error at B=4
 and B=384; the four Viterbi kernels a `chunked` entry: the chunked
 instantiation's launches on the main paths that run it (phase 24's
 `--viterbi-chunks` decode, phase 26's IqReceiver decodes, phase 27's
-`--demux` decode: the counts zeroed before each and read after) and, per chunk count,
-its ms, bound and error at B=384 and B=1), and last {"ok": true,
+`--demux` decode, the counts zeroed before each and read after; and every
+launch in phases 28-29) and, per chunk count, its ms, bound and error at
+B=384 and B=1; every kernel also `launches_phases_28_29`: every count zeroed
+just before phase 28 and read just after phase 29, so each of its launches in
+them counts, set-up encodes included), and last {"ok": true,
 "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
 printing any result.
@@ -659,10 +684,21 @@ def main() -> int:
     # -- 26-27. the chunk-parallel Viterbi and the wideband headend -----------
     chunked = viterbi_chunked(dev)
     device_kept(dev, "the chunked Viterbi kernels")
-    head_launches = headend(dev)
-    for runs in (rate_launches, head_launches):   # the main paths' chunked launches
-        for k, v in runs.items():
-            chunked["launches"][k] += v
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as band_dir:
+        head = headend(dev, band_dir)
+        for runs in (rate_launches, head["launches"]):   # the main paths' chunked launches
+            for k, v in runs.items():
+                chunked["launches"][k] += v
+
+        # -- 28-29. analyze, and the stream's state and operations ----------
+        # (every count zeroed before phase 28 and read after phase 29: each
+        # launch in them, set-up encodes included, counts)
+        _zero_every_count()
+        analyze_card(dev, head["band"], band_dir)
+        state_ops(dev, head["band"], band_dir)
+        slice_launches = _every_count()
+    for k in chunked["launches"]:
+        chunked["launches"][k] += slice_launches[k]
 
     print(json.dumps({"kernels": [
         {
@@ -672,6 +708,7 @@ def main() -> int:
             "replaces": "atsc_tpu/ops/pallas/offset_fir.py:148",
             "design": FIR_DESIGN,
             "launches": launches_main,
+            "launches_phases_28_29": slice_launches["offset_fir_fused"],
             "max_abs_err": errs["cf32"],
             "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
             "ms": kernel_ms,
@@ -687,6 +724,7 @@ def main() -> int:
             "replaces": "atsc_tpu/ops/pallas/eq_fir.py:137",
             "design": EQ_DESIGN,
             "launches": rx["launches"],
+            "launches_phases_28_29": slice_launches["eq_fir_fused"],
             "max_abs_err": rx["max_abs_err"],
             "max_abs_err_b4": eq_err,
             "ms": rx["kernel_ms"],
@@ -699,6 +737,7 @@ def main() -> int:
         *({"name": k, "route": "cuda", "source": "atsc_tpu_torch/csrc/viterbi_acs.cu",
            "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
            "launches": vit_launches[k], **vit[k], "library_ms": None,
+           "launches_phases_28_29": slice_launches[k],
            "chunked": {"launches": chunked["launches"][k + "_chunked"],
                        "design": CHUNKED_DESIGN[k], "per_chunks": chunked["per"][k]}}
           for k, line in (("acs_forward", 157), ("traceback", 189),
@@ -706,11 +745,13 @@ def main() -> int:
         {"name": "trellis_fused", "route": "cuda",
          "source": "atsc_tpu_torch/csrc/trellis_fused.cu",
          "replaces": "tools/trellis_fuse_probe.py:122",
-         "main_path_launches": main_path["trellis_fused"], **trellis},
+         "main_path_launches": main_path["trellis_fused"],
+         "launches_phases_28_29": slice_launches["trellis_fused"], **trellis},
         {"name": "fir_variants", "route": "cuda",
          "source": "atsc_tpu_torch/csrc/fir_variants.cu",
          "replaces": "tools/fir_probe.py:132", "design": FIR_VARIANTS_DESIGN,
-         "main_path_launches": main_path["fir_variants"], **variants},
+         "main_path_launches": main_path["fir_variants"],
+         "launches_phases_28_29": slice_launches["fir_variants"], **variants},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -1824,6 +1865,30 @@ def _zero_all_launches() -> None:
     _zero_launches()
 
 
+def _every_count() -> dict:
+    """Every wrapper's launch count, by kernel: all eight and the chunked two."""
+    from atsc_tpu_torch.ops.cuda import fir_variants as fvk
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
+
+    return {"offset_fir_fused": fir.LAUNCHES, **_launches(),
+            "trellis_fused": tfk.LAUNCHES, "fir_variants": fvk.LAUNCHES}
+
+
+def _zero_every_count() -> None:
+    from atsc_tpu_torch.ops.cuda import fir_variants as fvk
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
+
+    fir.LAUNCHES = tfk.LAUNCHES = fvk.LAUNCHES = 0
+    _zero_all_launches()
+
+
+def _since(before: dict) -> dict:
+    """The launches of every kernel since `before` = _every_count()."""
+    return {k: v - before[k] for k, v in _every_count().items()}
+
+
 def receive_erasures(dev) -> None:
     """Phase 19: the burst erasure tier at B=8 on the card, hard and soft,
     and the card's Decoder with flags against the CPU's."""
@@ -2431,7 +2496,7 @@ def viterbi_chunked(dev) -> dict:
     return {"per": per, "launches": main}
 
 
-def headend(dev) -> dict:
+def headend(dev, tmp: str) -> dict:
     """Phase 27: the wideband headend round trip at full width, B =
     HEADEND_SLOTS: `cli encode --channels 23 --mux` of HEADEND_FIELDS
     seeded fields (one TS file per channel) and `cli decode --demux 23
@@ -2442,8 +2507,9 @@ def headend(dev) -> dict:
     beyond a `--max-fields 3` run of the same capture), peak device
     memory, the launches of the decode's main path; the mux
     and demux block products of one field timed by CUDA events. Then a
-    B=4 `--mux --rate 30.72e6` -> `--demux 4 --rate 30.72e6` drive.
-    Returns the decode's chunked launches."""
+    B=4 `--mux --rate 30.72e6` -> `--demux 4 --rate 30.72e6` drive. The
+    band's TS files and capture stay in `tmp` for phases 28-29. Returns
+    the decode's chunked launches and the band: {"ts", "paths", "cap"}."""
     import numpy as np
     import torch
 
@@ -2456,29 +2522,29 @@ def headend(dev) -> dict:
     rng = np.random.default_rng(27)
     ts = rng.integers(0, 256, size=(HEADEND_FIELDS, b, P.FIELD_TS_BYTES), dtype=np.uint8)
     ts[..., :: P.MPEG2_BYTES] = 0x47
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
-        paths = [os.path.join(tmp, f"ch{k}.ts") for k in range(b)]
-        for k, path in enumerate(paths):
-            ts[:, k].tofile(path)
-        cap = os.path.join(tmp, "band.iq")
-        torch.cuda.reset_peak_memory_stats(dev)
-        fir.LAUNCHES = 0
-        rc_enc, enc_stats, enc_wall = _cli([*paths, "--channels", str(b), "--mux", "-o", cap,
-                                            "--stats"])
-        enc_launches = fir.LAUNCHES
-        enc_peak = torch.cuda.max_memory_allocated(dev)
-        n_cap = os.path.getsize(cap) // 8
-        torch.cuda.reset_peak_memory_stats(dev)
-        _zero_all_launches()
-        rc, stats, wall = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
-                                "--viterbi-chunks", str(CHUNK_MAIN), "--stats",
-                                "-o", os.path.join(tmp, "slot{ch}.ts")])
-        launches = _launches()
-        dec_peak = torch.cuda.max_memory_allocated(dev)
-        slots = [np.fromfile(os.path.join(tmp, f"slot{k}.ts"), np.uint8) for k in range(b)]
-        rc3, stats3, wall3 = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
-                                   "--viterbi-chunks", str(CHUNK_MAIN), "--max-fields", "3",
-                                   "--stats", "-o", os.path.join(tmp, "first{ch}.ts")])
+    paths = [os.path.join(tmp, f"ch{k}.ts") for k in range(b)]
+    for k, path in enumerate(paths):
+        ts[:, k].tofile(path)
+    cap = os.path.join(tmp, "band.iq")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fir.LAUNCHES = 0
+    rc_enc, enc_stats, enc_wall = _cli([*paths, "--channels", str(b), "--mux", "-o", cap,
+                                        "--stats"])
+    enc_launches = fir.LAUNCHES
+    enc_peak = torch.cuda.max_memory_allocated(dev)
+    n_cap = os.path.getsize(cap) // 8
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_all_launches()
+    rc, stats, wall = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
+                            "--viterbi-chunks", str(CHUNK_MAIN), "--stats",
+                            "-o", os.path.join(tmp, "slot{ch}.ts")])
+    launches = _launches()
+    dec_peak = torch.cuda.max_memory_allocated(dev)
+    slots = [np.fromfile(os.path.join(tmp, f"slot{k}.ts"), np.uint8) for k in range(b)]
+    rc3, stats3, wall3 = _cli(["decode", cap, "--demux", str(b), "--trellis", "viterbi",
+                               "--viterbi-chunks", str(CHUNK_MAIN), "--max-fields", "3",
+                               "--stats", "-o", os.path.join(tmp, "first{ch}.ts")])
+    band_paths, band_cap = paths, cap
     fd, fd3 = stats["fields_decoded"], stats3["fields_decoded"]
     dec_field_s = (wall - wall3) / max(1, fd - fd3)   # host s per field, start-up excluded
     exact = [slots[k].tobytes() == ts[:fd, k].tobytes() for k in range(b)]
@@ -2546,7 +2612,8 @@ def headend(dev) -> dict:
           f"encode --mux --rate: {st4e}")
     check(rc4 == 0 and st4["align_parity"] == 1 and st4["segments_uncorrectable"] == 0 and exact4,
           f"decode --demux --rate: the TS is not the sent TS from field 1 ({st4})")
-    return {k: launches[k] for k in ("acs_forward_chunked", "traceback_chunked")}
+    return {"launches": {k: launches[k] for k in ("acs_forward_chunked", "traceback_chunked")},
+            "band": {"ts": ts, "paths": band_paths, "cap": band_cap}}
 
 
 def _host_ts(rng, n_fields: int):
@@ -2893,6 +2960,360 @@ def resync_full(dev) -> None:
           f"B={B_FULL} resync: epoch {epoch} is not a post-slip boundary ({log})")
     check(pre and tail, f"B={B_FULL} resync: pre-slip {pre}, re-locked tail {tail}")
     del rx, enc, got, ts_np
+    torch.cuda.empty_cache()
+
+
+# -- 28-29: analyze, and the stream's state and operations -------------------
+
+ANALYZE_CUT, ANALYZE_PPM, ANALYZE_HZ, ANALYZE_SNR_DB = 77_777, 25.0, 400.0, 25.0
+STATE_FIELDS, STATE_STOP = 6, 3   # phase 29: the B=384 encode, stopped after field 3
+REALTIME_FIELDS = 8
+
+
+def _analyze(argv: list) -> tuple[dict, float]:
+    """cli.main(["analyze", *argv]) with stdout captured: (report, host s)."""
+    from atsc_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["analyze", *argv])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"analyze {argv}: rc {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def _digest(paths: list) -> str:
+    """sha256 of the files' bytes one after another."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as fh:
+            for block in iter(lambda: fh.read(1 << 24), b""):
+                h.update(block)
+    return h.hexdigest()
+
+
+def _write_cf32(path: str, iq) -> str:
+    import numpy as np
+
+    np.stack([iq.real, iq.imag], -1).astype(np.float32).tofile(path)
+    return path
+
+
+def analyze_card(dev, band: dict, tmp: str) -> None:
+    """Phase 28: `cli analyze` on the card. One clean channel (--fields 4):
+    the zf MER through one eq_fir_fused launch, > 30 dB, no flags. An
+    impaired channel (a cut at 77,777 samples, 25 ppm, 400 Hz, a two-path
+    channel, 25 dB AWGN): its decode_flags fed to `cli decode` give the
+    sent TS. The phase-27 B=23 multiplex through `analyze --demux 23
+    --fields 3`: 23 slot reports, and its band flags decode every slot to
+    the sent TS (the interleaved output stays in `tmp` for phase 29).
+    Reads launch counts as differences: phases 28-29 zero no count, so
+    main() reads every launch in them."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.receiver import resample_stream
+
+    ts = _host_ts(np.random.default_rng(28), 5)
+    clean = _write_cf32(os.path.join(tmp, "clean.iq"), _encode_host(dev, ts))
+    before = _every_count()
+    rep, clean_s = _analyze([clean, "--fields", "4"])
+    clean_launches = _since(before)["eq_fir_fused"]
+    emit("analyze_clean", fields=4, report=rep, host_s=clean_s, eq_fir_launches=clean_launches)
+    check(rep["mer_method"] == "zf" and rep["mer_db"] > 30 and rep["decode_flags"] == ""
+          and rep["align_offset"] == 0, f"analyze, clean: {rep}")
+    check(clean_launches == 1, f"analyze, clean: {clean_launches} eq_fir_fused launches")
+
+    rng = np.random.default_rng(280)
+    ts = _host_ts(rng, 7)
+    iq = _encode_host(dev, ts).astype(np.complex128)
+    y = np.convolve(iq, [0.9 * np.exp(0.5j), 0, 0, 0.15 * np.exp(-1.1j)])[: iq.size]
+    y = y * np.exp(2j * np.pi * ANALYZE_HZ / P.SAMPLE_RATE * np.arange(y.size))
+    y = resample_stream(y, 1.0 / (1.0 + ANALYZE_PPM * 1e-6))[0]
+    sigma = np.sqrt(float(np.mean(np.abs(y) ** 2)) / 10 ** (ANALYZE_SNR_DB / 10) / 2.0)
+    y = (y + (rng.normal(size=y.size) + 1j * rng.normal(size=y.size)) * sigma)[ANALYZE_CUT:]
+    impaired = _write_cf32(os.path.join(tmp, "impaired.iq"), y)
+    rep, imp_s = _analyze([impaired])
+    flags = rep["decode_flags"].split()
+    out = os.path.join(tmp, "impaired.ts")
+    before = _every_count()
+    rc, stats, dec_s = _cli(["decode", impaired, *flags, "--stats", "-o", out])
+    launches = _since(before)
+    fd = stats["fields_decoded"]
+    exact = np.fromfile(out, np.uint8).tobytes() == ts[1:1 + fd].tobytes()
+    emit("analyze_impaired", capture={"fields": 7, "cut": ANALYZE_CUT, "sro_ppm": ANALYZE_PPM,
+                                      "cfo_hz": ANALYZE_HZ, "snr_db": ANALYZE_SNR_DB,
+                                      "paths": 2},
+         report=rep, host_s=imp_s, decode={"flags": flags, "rc": rc, "stats": stats,
+                                           "host_s": dec_s, "ts_exact": exact,
+                                           "launches": launches})
+    check(abs(rep["sro_ppm"] - ANALYZE_PPM) < 1.0 and abs(rep["cfo_hz"] - ANALYZE_HZ) < 2.0
+          and rep["mer_method"] == "adaptive" and rep["decodable"],
+          f"analyze, impaired: {rep}")
+    check(all(f in rep["decode_flags"] for f in ("--sro auto", "--cfo auto", "--align auto")),
+          f"analyze, impaired: flags {rep['decode_flags']!r}")
+    check(rc == 0 and fd >= 3 and exact and stats["segments_uncorrectable"] == 0,
+          f"decode {flags}: the TS is not the sent TS ({stats})")
+
+    b = band["ts"].shape[1]
+    rep, band_s = _analyze([band["cap"], "--demux", str(b), "--fields", "3"])
+    flags = rep["decode_flags"].split()
+    full = os.path.join(tmp, "band_full.ts")
+    rc, stats, band_dec_s = _cli(["decode", band["cap"], *flags, "--stats", "-o", full])
+    got = np.fromfile(full, np.uint8).reshape(-1, b, P.FIELD_TS_BYTES)
+    fd = stats["fields_decoded"]
+    exact = got.shape[0] == fd and np.array_equal(got, band["ts"][:fd])
+    slots = rep["per_slot"]
+    emit("analyze_band", slots=b, fields=3, host_s=band_s,
+         mer_db=[s.get("mer_db") for s in slots], methods=sorted({s.get("mer_method")
+                                                                  for s in slots}),
+         decode_flags=rep["decode_flags"],
+         decode={"rc": rc, "stats": stats, "host_s": band_dec_s, "ts_exact_slots": exact})
+    check(rep["slots"] == b and len(slots) == b and all(s["decodable"] for s in slots)
+          and flags == ["--demux", str(b)], f"analyze --demux {b}: {rep}")
+    check(rc == 0 and fd >= HEADEND_FIELDS - 2 and exact
+          and stats["segments_uncorrectable"] == 0,
+          f"decode {flags}: the band's TS is not the sent TS ({stats})")
+
+
+def _receiver_resume(dev, kw: dict, blocks: list, ts, path: str) -> dict:
+    """IqReceiver(batch=B_FULL, **kw) fed blocks 0-2, saved, fed block 3 and
+    flushed; the saved state reloaded and fed the same: the TS and n_errors
+    of both, the sent TS from field 1, the resumed run's launches, and the
+    checkpoint's save/load ms and bytes on disk."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch.models.receiver import IqReceiver
+    from atsc_tpu_torch.utils import checkpoint as ckpt
+
+    def push(rx, x):
+        return rx.push(x) if np.iscomplexobj(x) else rx.push_codes(x)
+
+    rx = IqReceiver(batch=B_FULL, device=dev, **kw)
+    first = []
+    for x in blocks[:3]:
+        first += push(rx, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_receiver(path, rx)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    rx2 = ckpt.load_receiver(path, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    os.remove(path)
+    want = push(rx, blocks[3]) + rx.flush()
+    before = _every_count()
+    got = push(rx2, blocks[3]) + rx2.flush()
+    launches = _since(before)
+    same = len(got) == len(want) == 2 and all(
+        np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]) for g, w in zip(got, want))
+    sent = len(first) == 1 and np.array_equal(first[0][0], ts[0]) and all(
+        np.array_equal(g[0], ts[1 + k]) for k, g in enumerate(got))
+    return {"save_ms": save_ms, "load_ms": load_ms, "bytes": nbytes, "same_as_unbroken": same,
+            "sent_ts": sent, "launches": launches}
+
+
+def state_ops(dev, band: dict, tmp: str) -> None:
+    """Phase 29: the stream's state and operations on the card. A B=384 cs8
+    encode stopped after field 3 with --checkpoint and resumed: the bytes
+    of an uninterrupted 6-field run; the same for phase 27's `encode --mux`
+    at B=23. IqReceiver at B=384 (soft exact and C=24 and NTSC comb from
+    cs8 codes, adaptive train_every=4 through a two-path channel), saved
+    after field 2 and reloaded: the TS of the unbroken run; `decode --demux
+    23 --checkpoint` stopped at 3 fields and resumed: phase 28's band TS.
+    --profile's trace names offset_fir_fused's CUDA kernel; --realtime on 8
+    cs8 fields takes at least 95 % of their air time; SupervisedEncoder
+    at B=384 catches a NaN put in its state and recovers bit for bit. The
+    checkpoints' save/load ms and bytes on disk at B=384. Launch counts
+    are read as differences, as in phase 28."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.utils import checkpoint as ckpt
+    from atsc_tpu_torch.utils.supervision import SupervisedEncoder
+
+    n, fb = P.SYMBOLS_PER_FIELD, P.FIELD_TS_BYTES
+    rng = np.random.default_rng(29)
+    ts_path = os.path.join(tmp, "state.ts")
+    _host_ts(rng, STATE_FIELDS).tofile(ts_path)
+    ck = os.path.join(tmp, "state.npz")
+
+    # the B=384 cs8 encode: uninterrupted, then stopped and resumed
+    base = [ts_path, "--channels", str(B_FULL), "--format", "cs8", "--stats"]
+    full, p1, p2 = (os.path.join(tmp, f"enc_{k}.cs8") for k in ("full", "p1", "p2"))
+    rc0, st0, full_s = _cli([*base, "-o", full])
+    want = _digest([full])
+    os.remove(full)
+    before = _every_count()
+    rc1, st1, p1_s = _cli([*base, "-o", p1, "--max-fields", str(STATE_STOP), "--checkpoint", ck])
+    ck_bytes = os.path.getsize(ck)
+    rc2, st2, p2_s = _cli([*base, "-o", p2, "--resume", "--checkpoint", ck])
+    enc_launches = _since(before)["offset_fir_fused"]
+    sizes = [os.path.getsize(p) for p in (p1, p2)]
+    same = _digest([p1, p2]) == want
+    for p in (p1, p2):
+        os.remove(p)
+    # the encoder checkpoint's own cost at B=384
+    enc = Encoder(batch=B_FULL, device=dev)
+    enc.encode(torch.zeros((B_FULL, fb), dtype=torch.uint8, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_state(ck, enc.state, 1)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state, _ = ckpt.load_state(ck, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    state_same = all(torch.equal(a, b) for a, b in zip(state, enc.state))
+    # the same state deflated, as np.savez_compressed writes it
+    deflated = ck + ".deflated"
+    t0 = time.perf_counter()
+    with open(deflated, "wb") as fh:
+        np.savez_compressed(fh, **{k: v.cpu().numpy() for k, v in enc.state._asdict().items()})
+    deflate_ms = (time.perf_counter() - t0) * 1e3
+    deflate_bytes = os.path.getsize(deflated)
+    os.remove(deflated)
+    del enc, state
+    emit("state_encode", batch=B_FULL, format="cs8", fields=STATE_FIELDS, stop=STATE_STOP,
+         rc=[rc0, rc1, rc2], host_s=[full_s, p1_s, p2_s], bytes_split=sizes,
+         identical_to_unbroken=same, offset_fir_launches=enc_launches,
+         checkpoint={"bytes": ck_bytes, "save_ms": save_ms, "load_ms": load_ms,
+                     "state_identical": state_same,
+                     "deflated": {"bytes": deflate_bytes, "save_ms": deflate_ms}})
+    check(rc0 == rc1 == rc2 == 0 and st1["fields"] == STATE_STOP * B_FULL
+          and st2["fields"] == (STATE_FIELDS - STATE_STOP) * B_FULL,
+          f"encode --checkpoint/--resume: {st1}, {st2}")
+    check(same, "encode --resume: the split B=384 cs8 run differs from the unbroken one")
+    check(enc_launches == STATE_FIELDS, f"encode --resume: {enc_launches} offset_fir launches")
+    check(state_same, "load_state: the B=384 state differs from the saved one")
+
+    # encode --mux at B=23: phase 27's run, stopped after field 4 and resumed
+    b = band["ts"].shape[1]
+    base = [*band["paths"], "--channels", str(b), "--mux"]
+    p1, p2 = (os.path.join(tmp, f"mux_{k}.iq") for k in ("p1", "p2"))
+    rc1, _, _ = _cli([*base, "-o", p1, "--max-fields", "4", "--checkpoint", ck, "--stats"])
+    rc2, _, _ = _cli([*base, "-o", p2, "--resume", "--checkpoint", ck, "--stats"])
+    same = _digest([p1, p2]) == _digest([band["cap"]])
+    emit("state_mux", slots=b, fields=HEADEND_FIELDS, stop=4, rc=[rc1, rc2],
+         bytes_split=[os.path.getsize(p) for p in (p1, p2)], identical_to_unbroken=same)
+    check(rc1 == rc2 == 0 and same,
+          f"encode --mux --resume at B={b}: the split multiplex differs from phase 27's")
+    for p in (p1, p2, ck):
+        os.remove(p)
+
+    # IqReceiver at B=384: every decoder's and the RLS state through a checkpoint
+    ts = _random_ts_dev(dev, 4, 2929)
+    ts_host = ts.cpu().numpy()
+    enc = Encoder(batch=B_FULL, out_format="cs8", device=dev)
+    codes = [np.ascontiguousarray(enc.encode(ts[k])[..., :n].cpu().numpy().transpose(0, 2, 1))
+             for k in range(4)]
+    enc = Encoder(batch=B_FULL, device=dev)
+    planes = [enc.encode(ts[k])[..., :n].cpu().numpy() for k in range(4)]
+    del enc, ts
+    echo, tail = 0.2 * np.exp(-1.1j), np.zeros((B_FULL, 5), np.complex64)
+    cplx = []
+    for x in planes:   # a two-path channel across the field boundaries
+        x = (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+        y = x.copy()
+        y[:, 5:] += echo * x[:, :-5]
+        y[:, :5] += echo * tail
+        tail = x[:, -5:]
+        cplx.append(y)
+    del planes
+    receivers = {}
+    for name, kw, blocks in (
+            ("soft", dict(wire_format="cs8", trellis="soft"), codes),
+            ("soft_c24", dict(wire_format="cs8", trellis="soft", viterbi_chunks=CHUNK_MAIN),
+             codes),
+            ("ntsc_comb", dict(wire_format="cs8", ntsc="comb"), codes),
+            ("adaptive_train_every4", dict(backend="adaptive", train_every=4), cplx)):
+        r = _receiver_resume(dev, kw, blocks, ts_host, ck)
+        receivers[name] = r
+        torch.cuda.empty_cache()
+    del codes, cplx
+    emit("state_receiver", batch=B_FULL, saved_after_fields=2, receivers=receivers)
+    for name, r in receivers.items():
+        check(r["same_as_unbroken"] and r["sent_ts"],
+              f"IqReceiver {name} B={B_FULL}: the reloaded receiver's TS differs ({r})")
+    want = {"soft": {"acs_forward": 2, "traceback": 2},
+            "soft_c24": {"acs_forward_chunked": 2, "traceback_chunked": 2},
+            "ntsc_comb": {"pr_acs_forward": 2, "pr_traceback": 2},
+            "adaptive_train_every4": {}}
+    for name, r in receivers.items():
+        eq = 0 if name.startswith("adaptive") else 2
+        check(r["launches"] == {**{k: 0 for k in r["launches"]}, "eq_fir_fused": eq,
+                                **want[name]},
+              f"IqReceiver {name}: the resumed run's launches {r['launches']}")
+
+    # decode --demux 23 through the CLI: stopped at 3 fields, resumed
+    part = os.path.join(tmp, "band_part.ts")
+    flags = ["--demux", str(b)]
+    rc1, st1, _ = _cli(["decode", band["cap"], *flags, "--max-fields", "3", "--checkpoint", ck,
+                        "--checkpoint-every", "1", "--stats", "-o", part])
+    part_fields = os.path.getsize(part) // (b * fb)
+    rc2, st2, resume_s = _cli(["decode", band["cap"], *flags, "--resume", "--checkpoint", ck,
+                               "--stats", "-o", part])
+    same = _digest([part]) == _digest([os.path.join(tmp, "band_full.ts")])
+    emit("state_demux", slots=b, rc=[rc1, rc2], fields_before_resume=part_fields,
+         fields_resumed=st2["fields_decoded"], resume_host_s=resume_s,
+         checkpoint_bytes=os.path.getsize(ck), identical_to_unbroken=same)
+    check(rc1 == rc2 == 0 and 3 <= part_fields < HEADEND_FIELDS - 1 and same,
+          f"decode --demux {b} --resume: the TS differs from the unbroken decode "
+          f"({part_fields} fields before, {st2})")
+
+    # --profile: a torch.profiler trace naming offset_fir_fused's kernel
+    prof = os.path.join(tmp, "prof")
+    rc, _, prof_s = _cli([ts_path, "--channels", "4", "--format", "cs8", "--max-fields", "3",
+                          "--profile", prof, "--stats"])
+    traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    fir_events = [e for e in events if e.get("cat") == "kernel"
+                  and "offset_fir" in e.get("name", "")]
+    emit("state_profile", rc=rc, traces=len(traces), host_s=prof_s,
+         offset_fir_kernel_events=len(fir_events),
+         kernel_name=fir_events[0]["name"] if fir_events else None,
+         offset_fir_us=[e.get("dur") for e in fir_events])
+    check(rc == 0 and len(traces) == 1 and len(fir_events) == 3,
+          f"--profile: {len(fir_events)} offset_fir kernel events in {traces}")
+
+    # --realtime: 8 cs8 fields paced to the symbol clock
+    rt_ts = os.path.join(tmp, "rt.ts")
+    _host_ts(rng, REALTIME_FIELDS).tofile(rt_ts)
+    paced, unpaced = os.path.join(tmp, "rt.cs8"), os.path.join(tmp, "nort.cs8")
+    rc1, _, paced_s = _cli([rt_ts, "--format", "cs8", "--realtime", "-o", paced, "--stats"])
+    rc2, _, unpaced_s = _cli([rt_ts, "--format", "cs8", "-o", unpaced, "--stats"])
+    air_s = REALTIME_FIELDS / P.FIELD_RATE
+    same = _digest([paced]) == _digest([unpaced])
+    emit("state_realtime", fields=REALTIME_FIELDS, air_s=air_s, paced_host_s=paced_s,
+         unpaced_host_s=unpaced_s, identical_bytes=same)
+    check(rc1 == rc2 == 0 and same and paced_s >= 0.95 * air_s,
+          f"--realtime: {paced_s} s for {air_s} s of air")
+
+    # SupervisedEncoder at B=384: a NaN put in the phasor before field 3
+    ts = _random_ts_dev(dev, 4, 2930)
+    sup = SupervisedEncoder(batch=B_FULL, checkpoint_every=2,
+                            checkpoint_path=os.path.join(tmp, "sup.npz"), device=dev)
+    ref = Encoder(batch=B_FULL, device=dev)
+    exact = []
+    for k in range(4):
+        if k == 3:
+            sup.enc.state = sup.enc.state._replace(
+                phasor=torch.full_like(sup.enc.state.phasor, float("nan")))
+        exact.append(torch.equal(sup.encode(ts[k]), ref.encode(ts[k])))
+    emit("state_supervised", batch=B_FULL, fields=4, nan_before_field=3,
+         failures=sup.failures, fields_encoded=sup.fields_encoded, exact_fields=exact)
+    check(sup.failures == 1 and sup.fields_encoded == 4 and all(exact),
+          f"SupervisedEncoder: failures {sup.failures}, exact {exact}")
+    del sup, ref, ts
     torch.cuda.empty_cache()
 
 

@@ -237,12 +237,8 @@ def test_cli_accepts_flags_without_effect(tmp_path, flag):
     assert (tmp_path / "flag.iq").read_bytes() == (tmp_path / "plain.iq").read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--mux", "--checkpoint", "c"],
-                                  ["--rate", "20e6", "--mux", "--profile", "d"],
-                                  ["--ppm", "3", "--checkpoint", "c"], ["--checkpoint", "c"],
-                                  ["--resume"], ["--profile", "d"],
-                                  ["--realtime"], ["--mesh", "2x1", "--fields-per-step", "2"],
-                                  ["--checkpoint", "c", "--checkpoint-every", "4"],
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"],
+                                  ["--mesh", "2x1", "--fields-per-step", "2"],
                                   ["-o", "soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"],
                                   ["-o", "soapy:lime"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
@@ -252,9 +248,48 @@ def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
     assert "not yet ported" in capsys.readouterr().err
 
 
+def _checkpointed_fields(path) -> int:
+    with np.load(path) as z:
+        return int(z["__fields_encoded__"])
+
+
+@pytest.mark.parametrize("flag", [["--mux", "--checkpoint", "c"],
+                                  ["--rate", "20e6", "--mux", "--profile", "d"],
+                                  ["--ppm", "3", "--checkpoint", "c"], ["--checkpoint", "c"],
+                                  ["--resume"], ["--profile", "d"], ["--realtime"],
+                                  ["--checkpoint", "c", "--checkpoint-every", "4"]])
+def test_cli_runs_the_state_and_operation_flags(tmp_path, flag):
+    """The flags the CLI refused before they were ported now run on a
+    2-field TS: --checkpoint writes the state (with the muxer carry or the
+    resampler state where the run has one), --profile a trace, --realtime
+    the same bytes as without it; --resume without --checkpoint stops with
+    its own error."""
+    src = tmp_path / "in.ts"
+    _random_ts(29, (2, P.FIELD_TS_BYTES)).tofile(src)
+    argv = [str(src), "--device", "cpu", "-o", str(tmp_path / "out.iq")]
+    flag = [str(tmp_path / a) if a in ("c", "d") else a for a in flag]
+    if flag == ["--resume"]:
+        with pytest.raises(ValueError, match="--resume requires --checkpoint"):
+            pt_cli.main([*argv, *flag])
+        assert not (tmp_path / "out.iq").exists()
+        return
+    assert pt_cli.main([*argv, *flag]) == 0
+    if "--checkpoint" in flag:
+        ck = flag[flag.index("--checkpoint") + 1]
+        assert _checkpointed_fields(ck) == 2
+        with np.load(ck) as z:
+            assert ("__mux_carry__" in z.files) == ("--mux" in flag)
+            assert ("__rs_num__" in z.files) == ("--ppm" in flag)
+    if "--profile" in flag:
+        assert os.listdir(flag[flag.index("--profile") + 1])
+    if flag == ["--realtime"]:
+        assert pt_cli.main([*argv[:-1], str(tmp_path / "plain.iq")]) == 0
+        assert (tmp_path / "out.iq").read_bytes() == (tmp_path / "plain.iq").read_bytes()
+
+
 def test_cli_default_device_needs_cuda(tmp_path):
     """The CLI defaults to CUDA and fails loudly where there is none, for
-    encode and decode alike; analyze is not ported and says so."""
+    encode, decode and analyze alike."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     ts_path = tmp_path / "in.ts"
@@ -263,7 +298,8 @@ def test_cli_default_device_needs_cuda(tmp_path):
         pt_cli.main([str(ts_path)])
     with pytest.raises(RuntimeError, match="cuda"):
         pt_cli.main(["decode", str(ts_path)])
-    assert pt_cli.main(["analyze", str(ts_path)]) == 2
+    with pytest.raises(RuntimeError, match="cuda"):
+        pt_cli.main(["analyze", str(ts_path)])
 
 
 def test_port_imports_no_jax():

@@ -85,7 +85,7 @@ for n in names:
 assert not [k for k in sys.modules if k.split('.')[0] in FORBIDDEN]
 print(len(names), 'modules')
 """)
-    assert int(out.split()[0]) >= 28, out
+    assert int(out.split()[0]) >= 52, out
 
 
 @pytest.mark.parametrize("path", _port_tools())

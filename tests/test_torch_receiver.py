@@ -5,6 +5,7 @@ bit for bit, decoder-state conversion, and the decode CLI."""
 
 import contextlib
 import io
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -208,17 +209,13 @@ def test_receiver_chunked_matches_jax(noisy):
         np.testing.assert_array_equal(g_ts, sent)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "c.npz"], ["--profile", "d"],
-                                  ["--mesh", "2x1"], ["--demux", "2", "--resume"],
-                                  ["--resume"], ["--demux", "2", "--checkpoint", "c.npz"],
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"],
                                   ["--mesh", "2x1", "--fields-per-step", "2"],
-                                  ["--checkpoint", "c.npz", "--checkpoint-every", "8"],
                                   ["soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"]])
 def test_cli_decode_refuses_unported_flags(flag, tmp_path):
-    """Refused as not yet ported, exit 2: the unported flags, with or
-    without the flags that act only with them (--fields-per-step with
-    --mesh, --checkpoint-every with --checkpoint, -d/-f/-g with a soapy
-    source, given as the input)."""
+    """Refused as not yet ported, exit 2: --mesh, with or without the flag
+    that acts only with it (--fields-per-step), and a soapy source, given
+    as the input, with -d/-f/-g."""
     from atsc_tpu_torch import cli as tcli
 
     src = [] if flag[0] == "soapy" else [str(tmp_path / "x.iq")]
@@ -227,6 +224,44 @@ def test_cli_decode_refuses_unported_flags(flag, tmp_path):
         tcli.main(["decode", *src, "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert "not yet ported" in err.getvalue()
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "c.npz"], ["--profile", "d"],
+                                  ["--demux", "2", "--resume"], ["--resume"],
+                                  ["--demux", "2", "--checkpoint", "c.npz"],
+                                  ["--checkpoint", "c.npz", "--checkpoint-every", "8"]])
+def test_cli_decode_runs_the_state_and_operation_flags(flag, tmp_path):
+    """The decode flags refused before they were ported now run: on a
+    2-field cs8 capture (a 2-slot multiplex with --demux) --checkpoint
+    writes a receiver checkpoint at the decoded position and --profile a
+    trace, the TS the same as without them; --resume without --checkpoint
+    stops with its own error and touches no output."""
+    from atsc_tpu_torch import cli as tcli
+
+    ts = _random_ts(np.random.default_rng(32), 2, 1)[:, 0]
+    src, cap = tmp_path / "in.ts", tmp_path / "cap.iq"
+    ts.tofile(src)
+    demux = "--demux" in flag
+    enc = ["-c", "2", "--mux"] if demux else ["--format", "cs8"]
+    assert tcli.main([str(src), *enc, "-o", str(cap), "--device", "cpu"]) == 0
+    fmt = [] if demux else ["--format", "cs8"]
+    flag = [str(tmp_path / a) if a in ("c.npz", "d") else a for a in flag]
+    out = tmp_path / "back.ts"
+    argv = ["decode", str(cap), *fmt, "-o", str(out), "--device", "cpu"]
+    if "--resume" in flag:
+        with pytest.raises(ValueError, match="--resume requires --checkpoint"):
+            tcli.main([*argv, *flag])
+        assert not out.exists()
+        return
+    assert tcli.main([*argv, *flag]) == 0
+    want = np.stack([ts[:1]] * (2 if demux else 1), axis=1)
+    assert out.read_bytes() == want.tobytes()
+    if "--checkpoint" in flag:
+        with np.load(flag[flag.index("--checkpoint") + 1]) as z:
+            assert int(z["fields_emitted"]) == 1
+            assert ("xarr_demux_carry" in z.files) == demux
+    if "--profile" in flag:
+        assert os.listdir(flag[flag.index("--profile") + 1])
 
 
 @pytest.mark.parametrize("flag", [["--fields-per-step", "2"], ["--checkpoint-every", "8"],

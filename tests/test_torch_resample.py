@@ -27,6 +27,7 @@ from atsc_tpu_torch import cli as tcli
 from atsc_tpu_torch.models.receiver import resample_stream
 from atsc_tpu_torch.ops import resample as trs
 from atsc_tpu_torch.ops.resample import SYMBOL_RATE_FRACTION, StreamResampler, capture_rate
+from atsc_tpu_torch.utils.config import EncoderConfig as TEncoderConfig
 from atsc_tpu_torch.utils.convert import stream_resampler_from_numpy
 
 torch.set_num_threads(2)
@@ -239,7 +240,7 @@ def test_cli_encode_rate_validation_matches_jax(kw):
     occupied band and several channels without --mux are refused with the
     JAX CLI's messages."""
     with pytest.raises(ValueError) as port:
-        tcli.run(["/dev/null"], device="cpu", **kw)
+        tcli.run(TEncoderConfig(**kw), ["/dev/null"], device="cpu")
     with pytest.raises(ValueError) as ref:
         jcli.run(EncoderConfig(**kw), ["/dev/null"])
     assert str(port.value) == str(ref.value)
