@@ -3,12 +3,15 @@ MPEG-TS out (decode), and signal-quality triage of a capture (analyze), on
 a CUDA device (or the CPU with --device cpu).
 
 Counterpart of the single-device paths of atsc_tpu/cli.py. Encode sinks:
-a file path, 'null' (discard; a throughput run) or '-' (stdout). cf32 goes
-out as the reference's interleaved complex<float>; cs16/cs8 leave the
-kernel as packed wire lanes and are written verbatim. Decode reads a
-capture in any of those formats that starts at the stream epoch; cs16/cs8
-codes are uploaded as they are and dequantized inside the equalizer
-kernel.
+a file path, 'null' (discard; a throughput run), '-' (stdout) or
+'soapy[:driver]', a SoapySDR transmitter (-d/-f/-g: driver, RF frequency,
+gain). cf32 goes out as the reference's interleaved complex<float>;
+cs16/cs8 leave the kernel as packed wire lanes and are written verbatim.
+Decode reads a capture in any of those formats that starts at the stream
+epoch, or receives live from 'soapy[:driver]'; cs16/cs8 codes are uploaded
+as they are and dequantized inside the equalizer kernel. The SoapySDR
+paths need the `SoapySDR` python bindings and stop with an error naming
+them where they are absent.
 
 Usage:
   python -m atsc_tpu_torch.cli input.ts -o out.iq
@@ -21,12 +24,14 @@ Usage:
   python -m atsc_tpu_torch.cli analyze cap.iq               # MER, offsets, flags
   python -m atsc_tpu_torch.cli in.ts -o a.iq --max-fields 100 --checkpoint s.npz
   python -m atsc_tpu_torch.cli in.ts -o b.iq --checkpoint s.npz --resume
+  python -m atsc_tpu_torch.cli in.ts -o soapy -d hackrf -f 473e6 -g 54
+  python -m atsc_tpu_torch.cli decode soapy:hackrf -o live.ts --stats
+  python -m atsc_tpu_torch.cli analyze soapy -f 473e6 -g 30
 
-Flags of the JAX CLI that this package does not have yet (--mesh, the
-soapy sink and source) stop with an error naming them; none is silently
-ignored. The flags that act only with one of those (--fields-per-step with
---mesh, -d/-f/-g with a soapy device) are accepted, with the JAX CLI's
-defaults, and change nothing without it.
+The flag of the JAX CLI that this package does not have yet (--mesh) stops
+with an error naming it; none is silently ignored. The flag that acts only
+with it (--fields-per-step) is accepted, with the JAX CLI's default, and
+changes nothing without it. -d/-f/-g act only with a soapy device.
 Decode runs the equalizers `--equalizer zf|adaptive|adaptive-dd` (with
 `--forgetting` and `--train-every` for the adaptive ones), the trellis
 tiers `--trellis hard|viterbi|viterbi-i8` (chunk-parallel with
@@ -95,29 +100,32 @@ from atsc_tpu_torch.ops.resample import (
     StreamResampler,
     capture_rate,
 )
-from atsc_tpu_torch.runtime.io import IqSink, TsReader
+from atsc_tpu_torch.runtime.io import IqSink, SoapySdrSink, SoapySdrSource, TsReader
 from atsc_tpu_torch.utils import checkpoint as ckpt
 from atsc_tpu_torch.utils.config import EncoderConfig
 from atsc_tpu_torch.utils.profiling import ThroughputMeter, profile
 
 
-def _add_inert_flags(ap: argparse.ArgumentParser, fields_per_step: int,
-                     gain: float, live: str) -> None:
-    """The JAX CLI's flags that act only together with an unported flag or
-    a soapy device, with its defaults: --fields-per-step (fields a --mesh
-    step takes; without --mesh the output does not depend on it) and the
-    SDR's -d/-f/-g (with the soapy `live`). Accepted and unused; --mesh
-    and the soapy device are refused as not yet ported."""
+def _add_inert_flags(ap: argparse.ArgumentParser, fields_per_step: int) -> None:
+    """The JAX CLI's --mesh, refused as not yet ported, and the flag that
+    acts only with it, --fields-per-step (fields a --mesh step takes;
+    without --mesh the output does not depend on it), accepted with the
+    JAX CLI's default and unused."""
     ap.add_argument("--fields-per-step", type=int, default=fields_per_step,
                     help="(--mesh) fields a device step takes; the output "
                          "does not depend on it")
+    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+
+
+def _add_sdr_flags(ap: argparse.ArgumentParser, gain: float, live: str) -> None:
+    """The SoapySDR device's -d/-f/-g (the reference's flags,
+    util/defaults.h:3-5), with the JAX CLI's defaults for the `live` side."""
     ap.add_argument("-d", "--driver", default="hackrf",
                     help=f"SoapySDR driver of the 'soapy' {live}")
     ap.add_argument("-f", "--frequency", type=float, default=473e6,
                     help=f"(the 'soapy' {live}) RF centre frequency in Hz")
     ap.add_argument("-g", "--gain", type=float, default=gain,
                     help=f"(the 'soapy' {live}) gain in dB")
-    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
 
 
 def _add_state_flags(ap: argparse.ArgumentParser, what: str) -> None:
@@ -146,7 +154,8 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(shorter streams are zero-padded until the longest "
                          "ends)")
     ap.add_argument("-o", "--output", default="null",
-                    help="IQ sink: 'null', '-' (stdout) or a file path")
+                    help="IQ sink: 'null', '-' (stdout), a file path or "
+                         "'soapy[:driver]' for SDR transmit")
     ap.add_argument("-c", "--channels", type=int, default=1,
                     help="encode the stream as N parallel channels")
     ap.add_argument("--mux", action="store_true",
@@ -186,7 +195,8 @@ def build_argparser() -> argparse.ArgumentParser:
                          "`decode --sro` (controlled-SRO captures for "
                          "receiver testing; composes with --rate)")
     _add_state_flags(ap, "encoder")
-    _add_inert_flags(ap, fields_per_step=8, gain=54.0, live="sink")
+    _add_inert_flags(ap, fields_per_step=8)
+    _add_sdr_flags(ap, gain=54.0, live="sink")
     return ap
 
 
@@ -234,7 +244,10 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
     summary. cfg.rate (samples/s, exact as a Fraction) and cfg.ppm
     resample the output (cf32; one channel, or the multiplex); cfg.mux
     FDM-combines the channels into one multiplex at channels*6 MHz
-    (ops/mux.py FdmMuxer); cfg.realtime paces the sink. checkpoint saves
+    (ops/mux.py FdmMuxer); cfg.realtime paces the sink. A 'soapy[:driver]'
+    sink is a SoapySDR transmitter that its own clock paces: at the symbol
+    rate, the multiplex rate with mux, or cfg.rate's clock (cfg.ppm
+    stretches the samples, not the clock). checkpoint saves
     the state every `checkpoint_every` fields and at the end, resume
     continues from it (the input's first fields, already encoded, are
     skipped). A checkpointed stop at max_fields leaves the mux and
@@ -251,6 +264,7 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
         raise ValueError("--mux emits cf32 only")
     resampler = None
     out_sps = None  # output sample rate per emitted stream (Hz)
+    sdr_sps = None  # a soapy sink's hardware clock (not stretched by --ppm)
     if cfg.rate is not None or cfg.ppm:
         if fmt != "cf32":
             raise ValueError("--rate/--ppm emit cf32 only (quantized wire "
@@ -265,7 +279,7 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
                              "resampled outputs need one encode run per "
                              "channel")
         native = Fraction(6_000_000 * channels) if mux else SYMBOL_RATE_FRACTION
-        target = Fraction(cfg.rate) if cfg.rate is not None else native
+        target = nominal = Fraction(cfg.rate) if cfg.rate is not None else native
         if cfg.ppm:
             # a DAC clocked ppm fast stretches the sample grid: emit
             # 1 + ppm/1e6 samples per nominal sample (decode --sro ppm is
@@ -280,15 +294,15 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
             resampler = StreamResampler(native / target, batch=1 if mux else channels,
                                         device=dev)
         out_sps = float(target)
-    if _is_live(cfg.sink):
-        raise NotImplementedError(
-            "the soapy sink is not yet ported to atsc_tpu_torch")
+        # the SDR plays the ppm-stretched samples at the nominal clock, or
+        # the emulated clock error cancels on air; only --rate sets the
+        # hardware clock
+        sdr_sps = float(nominal)
     if resume and not checkpoint:
         raise ValueError("--resume requires --checkpoint")
     per_stream = out_sps if out_sps is not None else (
         channels * 6e6 if mux else P.SAMPLE_RATE)
     stream_rate = per_stream * (1 if mux else channels)
-    pace = stream_rate * BYTES_PER_SAMPLE[fmt] if cfg.realtime else 0.0
     # quantized formats leave the kernel as packed wire lanes whose bytes
     # are the interleaved stream: the sink writes them verbatim
     wire = fmt in ("cs16", "cs8")
@@ -337,8 +351,19 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
     last_saved = fields_done
     eof = False   # the loop ended at the end of the input (not at max_fields)
     readers = [TsReader(p) for p in input_paths]
-    sink = IqSink(cfg.sink, pace_bytes_per_sec=pace)
+    sink = None
     try:
+        if _is_live(cfg.sink):
+            # the SDR's own clock paces it; --mux runs it at the multiplex
+            # rate with a matching analog bandwidth, --rate/--ppm at sdr_sps
+            sink = SoapySdrSink(
+                driver=cfg.sink.split(":", 1)[1] if ":" in cfg.sink else cfg.driver,
+                frequency_hz=cfg.frequency_hz, gain_db=cfg.gain_db, stream_format=fmt,
+                sample_rate=sdr_sps if sdr_sps is not None else (stream_rate if mux else None),
+                bandwidth_hz=channels * 6e6 if mux else 6_000_000.0)
+        else:
+            sink = IqSink(cfg.sink, pace_bytes_per_sec=stream_rate * BYTES_PER_SAMPLE[fmt]
+                          if cfg.realtime else 0.0)
         for r in readers:   # the fields the checkpointed run encoded
             left = fields_done * field_bytes
             while left > 0:
@@ -385,7 +410,8 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
     finally:
         for r in readers:
             r.close()
-        sink.close()
+        if sink is not None:
+            sink.close()
     if checkpoint and fields_done != last_saved:
         save()
 
@@ -415,7 +441,9 @@ def build_decode_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument("input", help="IQ capture ('-' = stdin) produced by the "
                                   "encoder, starting at the stream epoch "
-                                  "(anywhere, with --align auto)")
+                                  "(anywhere, with --align auto); or "
+                                  "'soapy[:driver]' to capture live from a "
+                                  "SoapySDR receiver (see -d/-f/-g)")
     ap.add_argument("-o", "--output", default="-",
                     help="TS output path or '-' (stdout); channels are "
                          "interleaved per field, or one file per channel "
@@ -537,18 +565,38 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
     _add_state_flags(ap, "receiver")
-    _add_inert_flags(ap, fields_per_step=4, gain=30.0, live="source")
+    _add_inert_flags(ap, fields_per_step=4)
+    _add_sdr_flags(ap, gain=30.0, live="source")
     return ap
 
 
 def _decode_not_ported(args) -> str:
     """'' when args ask only for what this package runs, else the error."""
-    given = ["--mesh"] if args.mesh is not None else []
-    if _is_live(args.input):
-        given.append("the soapy source (-d/-f/-g)")
-    if given:
-        return f"decode {', '.join(given)}: not yet ported to atsc_tpu_torch"
+    if args.mesh is not None:
+        return "decode --mesh: not yet ported to atsc_tpu_torch"
     return ""
+
+
+def _open_capture(args, sample_rate: float, bandwidth_hz: float):
+    """The capture to decode or analyze: '-' = stdin, 'soapy[:driver]' = a
+    live SoapySDR receive stream at sample_rate and bandwidth_hz (in
+    --format wire samples), else a capture file."""
+    if args.input == "-":
+        return sys.stdin.buffer
+    if _is_live(args.input):
+        return SoapySdrSource(
+            driver=args.input.split(":", 1)[1] if ":" in args.input else args.driver,
+            frequency_hz=args.frequency, gain_db=args.gain, sample_rate=sample_rate,
+            stream_format=args.in_format, bandwidth_hz=bandwidth_hz)
+    return open(args.input, "rb")
+
+
+def _live_stats(args, fin) -> dict:
+    """A live capture's stream counters for the --stats summary."""
+    if not _is_live(args.input):
+        return {}
+    return {"overflows": fin.overflows, "gaps_filled": fin.gaps_filled,
+            "gap_samples": fin.gap_samples}
 
 
 _CODE_DTYPE = {"cs16": np.int16, "cs8": np.int8}
@@ -615,11 +663,11 @@ def _wire_to_complex(buf: bytes, fmt: str) -> np.ndarray:
 
 class _ResampledCapture:
     """Streaming rate-conversion adapter for decode input: wraps a
-    capture-rate wire stream (any --format) and serves nominal-symbol-rate
-    cf32 wire bytes through a StreamResampler on `device`. read(n) returns
-    exactly n bytes until the source is exhausted (then the resampler
-    tail, then b''), so every conditioning stage downstream
-    (align/CFO/equalizer) runs unchanged at the nominal rate."""
+    capture-rate wire stream (any --format, a file or a live SDR) and
+    serves nominal-symbol-rate cf32 wire bytes through a StreamResampler on
+    `device`. read(n) returns exactly n bytes until the source is exhausted
+    (then the resampler tail, then b''), so every conditioning stage
+    downstream (align/CFO/equalizer) runs unchanged at the nominal rate."""
 
     _CHUNK = 1 << 19  # capture samples ingested per source read
 
@@ -653,9 +701,15 @@ class _ResampledCapture:
         del self._pend[:n]
         return out
 
+    def seekable(self) -> bool:
+        return False
+
     def close(self) -> None:
         if self._fin is not sys.stdin.buffer:
             self._fin.close()
+
+    def __getattr__(self, name):  # a live source's counters (overflows, gaps)
+        return getattr(self._fin, name)
 
 
 #: decode flags that configure the receiver: (args name, default, the
@@ -733,23 +787,32 @@ def run_decode(args) -> dict:
     follow the JAX CLI's run_decode: validation in its order, the same
     equalizer promotions, the same summary keys. --checkpoint/--resume as
     there, except that a resume whose output file is missing or short is
-    refused (the JAX CLI writes only the rest of the stream)."""
-    if _is_live(args.input) and args.sro == "auto":
-        raise ValueError("--sro auto reads the whole capture up front "
-                         "and cannot run on a live stream (capture to "
-                         "a file first and measure, then pass the "
-                         "numeric ppm value — that path streams)")
+    refused (the JAX CLI writes only the rest of the stream). A live
+    'soapy' input is single-channel, cannot run --sro auto and cannot
+    resume; its summary adds the stream's overflow and gap counters."""
+    if args.demux:
+        return run_decode_demux(args)
     unported = _decode_not_ported(args)
     if unported:
         raise NotImplementedError(unported)
-    if args.demux:
-        return run_decode_demux(args)
     fmt, channels = args.in_format, args.channels
     if args.resume and not args.checkpoint:
         raise ValueError("--resume requires --checkpoint")
     if args.resume and "{ch}" in args.output:
         raise ValueError("per-channel output ('{ch}') is not resumable; "
                          "resume into a single interleaved output")
+    if _is_live(args.input):
+        if channels != 1:
+            raise ValueError("a live SDR capture is single-channel; use "
+                             "--demux for a wideband multi-channel band")
+        if args.sro == "auto":
+            raise ValueError("--sro auto reads the whole capture up front "
+                             "and cannot run on a live stream (capture to "
+                             "a file first and measure, then pass the "
+                             "numeric ppm value — that path streams)")
+        if args.resume:
+            raise ValueError("--resume needs a repositionable capture, "
+                             "not a live stream")
     dev = resolve_device(args.device)
     # streaming rate conversion (--rate capture clock, numeric --sro ppm):
     # an exact-rational capture-samples-per-output ratio applied by a
@@ -781,7 +844,8 @@ def run_decode(args) -> dict:
                          "(the checkpoint holds its CFO and phase: resume "
                          "without --cfo)")
     rx = fout = sro_rate = None
-    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    fin = _open_capture(args, float(_parse_sps(args.rate)) if args.rate else P.SAMPLE_RATE,
+                        6e6)
     try:
         if args.resume:
             # the checkpoint and the output are checked before anything is
@@ -953,6 +1017,7 @@ def run_decode(args) -> dict:
         summary["ntsc_comb"] = rx.ntsc_active
     if args.resync != "off" or rx.resync is not None:
         summary["resyncs"] = rx.resyncs
+    summary |= _live_stats(args, fin)
     if rx.mer is not None:
         summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
     if align:
@@ -1008,6 +1073,9 @@ def run_decode_demux(args) -> dict:
                          "or pre-convert it)")
     if args.resume and not args.checkpoint:
         raise ValueError("--resume requires --checkpoint")
+    if args.resume and _is_live(args.input):
+        raise ValueError("--resume needs a repositionable capture, "
+                         "not a live stream")
     if args.resume and "{ch}" in args.output:
         raise ValueError("per-channel output ('{ch}') is not resumable; "
                          "resume into a single interleaved output")
@@ -1041,7 +1109,10 @@ def run_decode_demux(args) -> dict:
 
     wb_read = 0   # wideband multiplex samples consumed (the resume cursor)
     fout = None
-    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+    # a live band: the SDR runs at the multiplex rate (or at --rate,
+    # stream-resampled down to it) with the multiplex's bandwidth
+    fin = _open_capture(args, float(_parse_sps(args.rate)) if args.rate else dmx.rate_hz,
+                        dmx.rate_hz)
     in_fmt = args.in_format
     if rate_frac is not None and rate_frac != 1:
         fin = _ResampledCapture(fin, in_fmt, rate_frac, dev)
@@ -1158,6 +1229,7 @@ def run_decode_demux(args) -> dict:
         summary["resample_rate"] = float(rate_frac)
     if args.resync != "off":
         summary["resyncs"] = rx.resyncs
+    summary |= _live_stats(args, fin)
     if rx.mer is not None:
         summary["mer_db"] = [round(float(v), 2) for v in rx.mer]
     if args.stats:
@@ -1173,10 +1245,11 @@ def build_analyze_argparser() -> argparse.ArgumentParser:
                     "sample-rate offset, MER (the broadcast monitoring "
                     "metric) and the decode flags the capture needs",
     )
-    ap.add_argument("input", help="IQ capture path or '-' (stdin). One channel "
-                                  "at the symbol rate by default; --demux/--rate "
-                                  "cover wideband FDM multiplexes and other SDR "
-                                  "clocks")
+    ap.add_argument("input", help="IQ capture path, '-' (stdin), or "
+                                  "'soapy[:driver]' to grab a few fields live off "
+                                  "a SoapySDR receiver. One channel at the symbol "
+                                  "rate by default; --demux/--rate cover wideband "
+                                  "FDM multiplexes and other SDR clocks")
     ap.add_argument("--format", dest="in_format", default="cf32",
                     choices=("cf32", "cs16", "cs8"))
     ap.add_argument("--fields", type=int, default=4,
@@ -1195,12 +1268,7 @@ def build_analyze_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
-    ap.add_argument("-d", "--driver", default="hackrf",
-                    help="SoapySDR driver of the 'soapy' source")
-    ap.add_argument("-f", "--frequency", type=float, default=473e6,
-                    help="(the 'soapy' source) RF centre frequency in Hz")
-    ap.add_argument("-g", "--gain", type=float, default=30.0,
-                    help="(the 'soapy' source) gain in dB")
+    _add_sdr_flags(ap, gain=30.0, live="source")
     return ap
 
 
@@ -1354,10 +1422,7 @@ def run_analyze(args) -> dict:
     burst and NTSC triage and the decode flags the capture needs. With
     --demux B the input is a B-slot FDM multiplex at B*6 MHz: it is
     demultiplexed on the device and every slot gets its own report, with
-    band-level advice."""
-    if _is_live(args.input):
-        raise NotImplementedError("analyze from the soapy source (-d/-f/-g): "
-                                  "not yet ported to atsc_tpu_torch")
+    band-level advice. A 'soapy' input grabs the fields live."""
     dev = resolve_device(args.device)
     n = P.SYMBOLS_PER_FIELD
     fmt = args.in_format
@@ -1368,14 +1433,15 @@ def run_analyze(args) -> dict:
         # +1 field of budget: the first sync can land up to a field in,
         # and the SRO/MER gates need their spans after the offset
         want_samples = (args.fields + 1) * per_field_wb + 8192
-        native = demux.rate_hz
+        native, bw = demux.rate_hz, slots * 6e6
     else:
         want_samples = (args.fields + 1) * n + 2 * P.SYMBOLS_PER_SEGMENT
-        native = P.SAMPLE_RATE
+        native, bw = P.SAMPLE_RATE, 6_000_000.0
     # --rate: the capture runs at an arbitrary clock; stream-resample it to
     # the native band rate first (decode's adapter; rates below native
     # upsample, fine while the occupied band is carried)
     rate_frac = None
+    cap_sps = native   # a live grab's SDR clock
     if args.rate is not None:
         sps = _parse_sps(args.rate)
         band = 6_000_000 * max(slots, 1)
@@ -1384,7 +1450,8 @@ def run_analyze(args) -> dict:
                 f"--rate {float(sps):.0f} cannot carry the occupied "
                 f"+-{band / 2e6:g} MHz band (needs >= {band / 1e6:g} MS/s)")
         rate_frac = sps / Fraction(band) if slots else capture_rate(sps)
-    fin = sys.stdin.buffer if args.input == "-" else open(args.input, "rb")
+        cap_sps = float(sps)
+    fin = _open_capture(args, cap_sps, bw)
     try:
         if rate_frac is not None and rate_frac != 1:
             fin = _ResampledCapture(fin, fmt, rate_frac, dev)
@@ -1440,12 +1507,7 @@ def run_analyze(args) -> dict:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv[:1] == ["analyze"]:
-        ap = build_analyze_argparser()
-        args = ap.parse_args(argv[1:])
-        if _is_live(args.input):
-            ap.error("analyze from the soapy source (-d/-f/-g): not yet ported "
-                     "to atsc_tpu_torch")
-        print(json.dumps(run_analyze(args)))
+        print(json.dumps(run_analyze(build_analyze_argparser().parse_args(argv[1:]))))
         return 0
     if argv[:1] == ["decode"]:
         ap = build_decode_argparser()
@@ -1459,11 +1521,8 @@ def main(argv=None) -> int:
         argv = argv[1:]
     ap = build_argparser()
     args = ap.parse_args(argv)
-    given = ["--mesh"] if args.mesh is not None else []
-    if _is_live(args.output):
-        given.append("the soapy sink (-d/-f/-g)")
-    if given:
-        ap.error(f"{', '.join(given)}: not yet ported to atsc_tpu_torch")
+    if args.mesh is not None:
+        ap.error("--mesh: not yet ported to atsc_tpu_torch")
     channels = args.channels
     if len(args.input) > 1:
         if channels not in (1, len(args.input)):
@@ -1472,7 +1531,8 @@ def main(argv=None) -> int:
     cfg = EncoderConfig(
         channels=channels, mux=args.mux, sink=args.output, realtime=args.realtime,
         out_format=args.out_format,
-        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm)
+        rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm,
+        frequency_hz=args.frequency, gain_db=args.gain, driver=args.driver)
     run(cfg, args.input, max_fields=args.max_fields, stats=args.stats,
         checkpoint=args.checkpoint, checkpoint_every=args.checkpoint_every,
         resume=args.resume, profile_dir=args.profile, device=args.device)

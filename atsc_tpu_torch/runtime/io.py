@@ -2,8 +2,8 @@
 a pure-Python fallback so the package works without a toolchain.
 
 The port's own copy of atsc_tpu/runtime/io.py (TsReader, IqSink,
-phasor_replay_native and the UDP fallback; the SDR source and sink are not
-ported yet). The native path keeps TS ingestion and IQ emission on C++
+phasor_replay_native, the UDP fallback, and the SoapySDR sink and
+source). The native path keeps TS ingestion and IQ emission on C++
 threads (no GIL), with ring-buffer back-pressure mirroring the reference's
 blocking fread/writeStream loop (reference util/atsc_encoder.cpp:83-101).
 
@@ -284,3 +284,203 @@ class IqSink:
         elif getattr(self, "_fp", None) is not None and self._fp.name != "<stdout>":
             self._fp.close()
             self._fp = None
+
+
+_SOAPY_FORMAT = {"cf32": "CF32", "cs16": "CS16", "cs8": "CS8"}
+_SAMPLE_DTYPE = {"cf32": np.float32, "cs16": np.int16, "cs8": np.int8}
+
+
+def _soapy(direction: str, instead: str):
+    """The SoapySDR module and its direction constant ('TX' or 'RX'), or a
+    RuntimeError naming what to use instead when the bindings are absent."""
+    try:
+        import SoapySDR  # type: ignore
+    except ImportError as e:
+        raise RuntimeError("SoapySDR python bindings not available on this "
+                           f"host; {instead}") from e
+    return SoapySDR, getattr(SoapySDR, f"SOAPY_SDR_{direction}")
+
+
+def _open_device(soapy, direction, driver: str, frequency_hz: float, gain_db: float,
+                 sample_rate: float, stream_format: str, bandwidth_hz: float):
+    """Open, configure (bandwidth, rate, frequency, gain: the reference's
+    order), set up and activate one stream; (device, stream, MTU)."""
+    sdr = soapy.Device({"driver": driver})
+    sdr.setBandwidth(direction, 0, bandwidth_hz)
+    sdr.setSampleRate(direction, 0, sample_rate)
+    sdr.setFrequency(direction, 0, frequency_hz)
+    sdr.setGain(direction, 0, gain_db)
+    stream = sdr.setupStream(direction, _SOAPY_FORMAT[stream_format])
+    sdr.activateStream(stream)
+    return sdr, stream, int(sdr.getStreamMTU(stream))
+
+
+class SoapySdrSink:
+    """SDR transmit sink through SoapySDR (the reference's production
+    output, util/atsc_encoder.cpp:60-101): the device set to the bandwidth
+    (6 MHz), the sample rate (the 10.762238 MHz symbol rate unless given),
+    the RF frequency and the gain, then a TX stream of the wire format
+    written in MTU-sized chunks.
+
+    Needs the optional `SoapySDR` python module; without it the constructor
+    raises a RuntimeError, and the null and file sinks stay the default.
+    The device's own clock paces the stream. Besides `write` it takes the
+    IqSink calls the encode loop makes: planar (B, 2, m) components, and
+    packed wire lanes (B, m), whose bytes are already the interleaved
+    stream.
+    """
+
+    def __init__(self, driver: str = "hackrf", frequency_hz: float = 473e6,
+                 gain_db: float = 54.0, sample_rate: float | None = None,
+                 stream_format: str = "cf32",
+                 bandwidth_hz: float = 6_000_000.0):
+        soapy, tx = _soapy("TX", "use a 'null'/file/stdout sink instead")
+        from atsc_tpu_torch import params as P
+
+        self._np_dtype = _SAMPLE_DTYPE[stream_format]
+        self._sdr, self._stream, self._mtu = _open_device(
+            soapy, tx, driver, frequency_hz, gain_db, sample_rate or P.SAMPLE_RATE,
+            stream_format, bandwidth_hz)
+        self._bytes = 0
+
+    def write(self, arr: np.ndarray) -> None:
+        """arr: (..., n, 2) interleaved IQ samples in the stream's sample
+        dtype (float32 CF32 / int16 CS16 / int8 CS8)."""
+        flat = np.ascontiguousarray(arr, dtype=self._np_dtype).reshape(-1, 2)
+        pos = 0
+        while pos < flat.shape[0]:
+            chunk = flat[pos : pos + self._mtu]
+            ret = self._sdr.writeStream(self._stream, [chunk], chunk.shape[0])
+            sent = getattr(ret, "ret", ret)
+            if sent <= 0:
+                raise IOError(f"SoapySDR writeStream returned {sent}")
+            pos += sent
+        self._bytes += flat.nbytes
+
+    def write_planar(self, arr: np.ndarray, n_valid: int) -> None:
+        """Planar (B, 2, stride >= n_valid) components, channel by channel."""
+        self.write(np.moveaxis(np.asarray(arr)[..., :n_valid], -2, -1))
+
+    def write_wire(self, arr: np.ndarray, n_valid: int) -> None:
+        """Packed wire lanes (B, stride >= n_valid), one little-endian (I, Q)
+        pair a lane: their bytes, channel by channel, are the samples."""
+        lanes = np.ascontiguousarray(np.asarray(arr).reshape(-1, arr.shape[-1])[:, :n_valid])
+        self.write(lanes.view(self._np_dtype))
+
+    def bytes_written(self) -> int:
+        return self._bytes
+
+    def close(self) -> None:
+        if getattr(self, "_stream", None) is not None:
+            self._sdr.deactivateStream(self._stream)
+            self._sdr.closeStream(self._stream)
+            self._stream = None
+
+
+class SoapySdrSource:
+    """SDR receive source through SoapySDR, the capture side of the headend
+    (SoapySdrSink's mirror). File-like for the decode CLI: `read(n)` blocks
+    on the RX stream and returns exactly n wire bytes of interleaved (I, Q)
+    samples in the requested format (CF32/CS16/CS8); `seekable()` is False.
+    Timeouts are retried; overflows (samples the device dropped because the
+    consumer fell behind) are counted in `.overflows`.
+
+    Timestamped gap filling: when the driver stamps its buffers (`timeNs`
+    with the HAS_TIME flag), a discontinuity is measured exactly and
+    replaced with that many zero samples (from 8 up to `max_fill_samples`),
+    so the receiver's sample-counting field tracker keeps the stream
+    position; the zeroed span decodes as noise and RS absorbs what it can.
+    `.gaps_filled` / `.gap_samples` count the events. Gaps without stamps,
+    or larger ones, are left to the receiver's `resync="auto"`.
+
+    Needs the optional `SoapySDR` python module, as the sink does.
+    """
+
+    def __init__(self, driver: str = "hackrf", frequency_hz: float = 473e6,
+                 gain_db: float = 30.0, sample_rate: float | None = None,
+                 stream_format: str = "cf32",
+                 bandwidth_hz: float = 6_000_000.0,
+                 max_fill_samples: int = 8 * 260_416):
+        soapy, rx = _soapy("RX", "decode from a capture file instead")
+        from atsc_tpu_torch import params as P
+
+        self._timeout_code = getattr(soapy, "SOAPY_SDR_TIMEOUT", -1)
+        self._overflow_code = getattr(soapy, "SOAPY_SDR_OVERFLOW", -2)
+        self._has_time_flag = getattr(soapy, "SOAPY_SDR_HAS_TIME", 1 << 2)
+        self._np_dtype = _SAMPLE_DTYPE[stream_format]
+        self._sample_bytes = 2 * np.dtype(self._np_dtype).itemsize
+        rate = sample_rate or P.SAMPLE_RATE
+        self._sdr, self._stream, self._mtu = _open_device(
+            soapy, rx, driver, frequency_hz, gain_db, rate, stream_format, bandwidth_hz)
+        self._pending = b""
+        self._bytes = 0
+        self._rate = float(rate)
+        self._expect_ns: float | None = None  # the next buffer's expected stamp
+        self.max_fill_samples = max_fill_samples
+        self.overflows = 0
+        self.gaps_filled = 0
+        self.gap_samples = 0
+
+    def _gap_zeros(self, res, got: int) -> bytes:
+        """Zero bytes for a timestamp discontinuity before this buffer (b''
+        without stamps, or for a gap of 0, jitter or beyond the limit)."""
+        # timeNs is defined only with HAS_TIME: a stale stamp without the
+        # flag must not invent gaps
+        flags = int(getattr(res, "flags", 0) or 0)
+        t_ns = float(getattr(res, "timeNs", 0) or 0)
+        if not (flags & self._has_time_flag) or t_ns <= 0.0:
+            self._expect_ns = None
+            return b""
+        fill = b""
+        if self._expect_ns is not None:
+            gap = int(round((t_ns - self._expect_ns) * self._rate * 1e-9))
+            # under 8 samples is stamp jitter, not a drop
+            if 8 <= gap <= self.max_fill_samples:
+                self.gaps_filled += 1
+                self.gap_samples += gap
+                fill = bytes(gap * self._sample_bytes)
+        self._expect_ns = t_ns + got / self._rate * 1e9
+        return fill
+
+    def read(self, n: int = -1) -> bytes:
+        """Blocking read of exactly n bytes (whole samples are buffered, so
+        any n works). A live stream has no end: a read without a size is
+        refused rather than looping forever."""
+        if n < 0:
+            raise ValueError("read() without a size on a live SDR stream would never "
+                             "return; pass a byte count (or use --max-fields)")
+        if self._stream is None:
+            return b""  # closed: end of stream
+        out = bytearray(self._pending)
+        buf = np.empty((self._mtu, 2), self._np_dtype)
+        while len(out) < n:
+            want = min(self._mtu, -(-(n - len(out)) // self._sample_bytes))
+            res = self._sdr.readStream(self._stream, [buf], want)
+            got = getattr(res, "ret", res)
+            if got == self._timeout_code:
+                continue
+            if got == self._overflow_code:
+                self.overflows += 1
+                continue
+            if got < 0:
+                raise IOError(f"SoapySDR readStream returned {got}")
+            out += self._gap_zeros(res, got)
+            out += buf[:got].tobytes()
+        self._bytes += n
+        self._pending = bytes(out[n:])
+        return bytes(out[:n])
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return False
+
+    def bytes_read(self) -> int:
+        return self._bytes
+
+    def close(self) -> None:
+        if getattr(self, "_stream", None) is not None:
+            self._sdr.deactivateStream(self._stream)
+            self._sdr.closeStream(self._stream)
+            self._stream = None

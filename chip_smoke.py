@@ -2,7 +2,9 @@
 """Drive the PyTorch port's transmit and receive main paths, its capture
 conditioning front end, the chunk-parallel Viterbi, the wideband headend
 (FDM mux and demux), `analyze`, the streams' checkpoints and operations,
-and the two kernel-design probes, once on one NVIDIA Hopper GPU.
+the SoapySDR sink and source (against a fake SoapySDR module: no radio),
+the receiver measurement tools and the two kernel-design probes, once on
+one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -196,6 +198,25 @@ Phases, one JSON line each; any failed check exits non-zero:
    of their 193.6 ms of air and writes the unpaced run's bytes;
    SupervisedEncoder at B=384 catches a NaN put in its phasor, rolls back
    and recovers bit for bit.
+30. sdr_sink: a fake `SoapySDR` module in sys.modules (its TX device
+   records its settings and a sha256 of every buffer written); `cli encode
+   -o soapy -d fake -f 473e6 -g 54` of a 6-field B=1 TS in cf32 and cs8:
+   the device's bytes are the same run's `-o file` bytes, the device at
+   the symbol rate and 6 MHz; phase 27's B=23 `--mux` band: 138 MS/s, 138
+   MHz of bandwidth, phase 27's multiplex bytes; one offset_fir_fused
+   launch a field.
+31. sdr_source: the fake RX device serves phase 30's cf32 capture (4
+   hiccups, then one 600-sample overflow drop, buffers timestamped) to
+   `decode soapy --stats`: the sent TS (the fields the zero-filled span may
+   touch excepted), overflows / gaps_filled / gap_samples as injected, one
+   eq_fir_fused launch a field; phase 27's band to `decode soapy --demux 23
+   --trellis viterbi --viterbi-chunks 24`: every slot's TS, the chunked
+   4-state kernels once a field; the capture to `analyze soapy`: zf MER,
+   no flags.
+32. tools: tools/torch_chip_gauntlet.py's main in this process: its 7
+   probes all ok, each with its kernel launches (the probe's kernels each
+   launched); tools/torch_rx_threshold.py `--fields 2 --modes hard,soft
+   --snrs 20,14,12`: the TS exact at 20 dB hard and 14 dB soft.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -204,10 +225,11 @@ and B=384; the four Viterbi kernels a `chunked` entry: the chunked
 instantiation's launches on the main paths that run it (phase 24's
 `--viterbi-chunks` decode, phase 26's IqReceiver decodes, phase 27's
 `--demux` decode, the counts zeroed before each and read after; and every
-launch in phases 28-29) and, per chunk count, its ms, bound and error at
+launch in phases 28-32) and, per chunk count, its ms, bound and error at
 B=384 and B=1; every kernel also `launches_phases_28_29`: every count zeroed
 just before phase 28 and read just after phase 29, so each of its launches in
-them counts, set-up encodes included), and last {"ok": true,
+them counts, set-up encodes included; and `launches_phases_30_32`, counted
+the same way over phases 30-32), and last {"ok": true,
 "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
 printing any result.
@@ -697,8 +719,16 @@ def main() -> int:
         analyze_card(dev, head["band"], band_dir)
         state_ops(dev, head["band"], band_dir)
         slice_launches = _every_count()
+
+        # -- 30-32. the SDR sink and source, and the measurement tools --------
+        # (counted as phases 28-29 are)
+        _zero_every_count()
+        capture = sdr_sink(dev, head["band"], band_dir)
+        sdr_source(dev, head["band"], band_dir, capture)
+        measurement_tools(dev)
+        sdr_launches = _every_count()
     for k in chunked["launches"]:
-        chunked["launches"][k] += slice_launches[k]
+        chunked["launches"][k] += slice_launches[k] + sdr_launches[k]
 
     print(json.dumps({"kernels": [
         {
@@ -709,6 +739,7 @@ def main() -> int:
             "design": FIR_DESIGN,
             "launches": launches_main,
             "launches_phases_28_29": slice_launches["offset_fir_fused"],
+            "launches_phases_30_32": sdr_launches["offset_fir_fused"],
             "max_abs_err": errs["cf32"],
             "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
             "ms": kernel_ms,
@@ -725,6 +756,7 @@ def main() -> int:
             "design": EQ_DESIGN,
             "launches": rx["launches"],
             "launches_phases_28_29": slice_launches["eq_fir_fused"],
+            "launches_phases_30_32": sdr_launches["eq_fir_fused"],
             "max_abs_err": rx["max_abs_err"],
             "max_abs_err_b4": eq_err,
             "ms": rx["kernel_ms"],
@@ -738,6 +770,7 @@ def main() -> int:
            "replaces": f"atsc_tpu/ops/pallas/viterbi_acs.py:{line}",
            "launches": vit_launches[k], **vit[k], "library_ms": None,
            "launches_phases_28_29": slice_launches[k],
+           "launches_phases_30_32": sdr_launches[k],
            "chunked": {"launches": chunked["launches"][k + "_chunked"],
                        "design": CHUNKED_DESIGN[k], "per_chunks": chunked["per"][k]}}
           for k, line in (("acs_forward", 157), ("traceback", 189),
@@ -746,12 +779,14 @@ def main() -> int:
          "source": "atsc_tpu_torch/csrc/trellis_fused.cu",
          "replaces": "tools/trellis_fuse_probe.py:122",
          "main_path_launches": main_path["trellis_fused"],
-         "launches_phases_28_29": slice_launches["trellis_fused"], **trellis},
+         "launches_phases_28_29": slice_launches["trellis_fused"],
+         "launches_phases_30_32": sdr_launches["trellis_fused"], **trellis},
         {"name": "fir_variants", "route": "cuda",
          "source": "atsc_tpu_torch/csrc/fir_variants.cu",
          "replaces": "tools/fir_probe.py:132", "design": FIR_VARIANTS_DESIGN,
          "main_path_launches": main_path["fir_variants"],
-         "launches_phases_28_29": slice_launches["fir_variants"], **variants},
+         "launches_phases_28_29": slice_launches["fir_variants"],
+         "launches_phases_30_32": sdr_launches["fir_variants"], **variants},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -3315,6 +3350,272 @@ def state_ops(dev, band: dict, tmp: str) -> None:
           f"SupervisedEncoder: failures {sup.failures}, exact {exact}")
     del sup, ref, ts
     torch.cuda.empty_cache()
+
+
+# -- 30-32: the SDR sink and source, and the receiver measurement tools -------
+
+SDR_FIELDS = 6            # phase 30's B=1 TS: 6 fields
+SDR_MTU = 65_536          # samples a fake device's stream call moves at most
+SDR_HICCUPS = 4           # phase 31: 2 timeouts and 2 overflows before the data
+SDR_GAP_AT, SDR_GAP_LEN = int(1.5 * 260_416), 600   # one timestamped overflow drop
+SDR_MAX_FIELDS = 5
+
+
+@contextlib.contextmanager
+def _fake_soapy(served=None, hiccups: int = 0, gap_at: int | None = None,
+                gap_len: int = 0):
+    """A fake `SoapySDR` module in sys.modules for the block; yields the
+    dict its one device records its settings in. TX: the bytes of every
+    buffer written go into a running sha256 ("tx_sha256") and a count
+    ("tx_bytes"). RX: serves `served` ((n, 2) component pairs) SDR_MTU at a
+    time, after `hiccups` alternating timeout/overflow results; after gap_at
+    samples one overflow and gap_len samples of stream time dropped, the
+    buffers stamped (timeNs with HAS_TIME) from the stream position. A read
+    past the served capture fails the run. No radio is attached: this is
+    the SoapySDR API as the port's sink and source call it."""
+    import hashlib
+    import types
+
+    calls: dict = {"tx_bytes": 0}
+    digest = hashlib.sha256()
+    mod = types.ModuleType("SoapySDR")
+    mod.SOAPY_SDR_RX, mod.SOAPY_SDR_TX = "RX", "TX"
+    mod.SOAPY_SDR_TIMEOUT, mod.SOAPY_SDR_OVERFLOW, mod.SOAPY_SDR_HAS_TIME = -1, -2, 1 << 2
+
+    class Result:
+        def __init__(self, ret, time_ns=0):
+            self.ret, self.timeNs = ret, time_ns
+            self.flags = mod.SOAPY_SDR_HAS_TIME if time_ns else 0
+
+    class Device:
+        def __init__(self, dev_args):
+            calls["driver"] = dev_args["driver"]
+            self._pos = self._vpos = 0
+            self._hiccups, self._gapped = hiccups, False
+
+        def setBandwidth(self, d, ch, v):
+            calls["bandwidth"] = v
+
+        def setSampleRate(self, d, ch, v):
+            calls["rate"] = v
+
+        def setFrequency(self, d, ch, v):
+            calls["frequency"] = v
+
+        def setGain(self, d, ch, v):
+            calls["gain"] = v
+
+        def setupStream(self, d, fmt):
+            calls["direction"], calls["format"] = d, fmt
+            return "stream"
+
+        def activateStream(self, s):
+            pass
+
+        def getStreamMTU(self, s):
+            return SDR_MTU
+
+        def readStream(self, s, bufs, num):
+            if self._hiccups > 0:
+                self._hiccups -= 1
+                return Result(-1 if self._hiccups % 2 else -2)
+            if gap_at is not None and not self._gapped and self._pos >= gap_at:
+                self._gapped = True
+                self._vpos += gap_len
+                return Result(-2)
+            check(self._pos < served.shape[0], "a live decode read past the served capture")
+            got = min(num, SDR_MTU, served.shape[0] - self._pos)
+            if gap_at is not None and not self._gapped:
+                got = min(got, gap_at - self._pos)
+            t_ns = int(1e15 + self._vpos / calls["rate"] * 1e9) if gap_at is not None else 0
+            bufs[0][:got] = served[self._pos:self._pos + got]
+            self._pos += got
+            self._vpos += got
+            return Result(got, t_ns)
+
+        def writeStream(self, s, bufs, num):
+            data = bufs[0][:num]   # C-contiguous (n, 2) samples
+            digest.update(data)
+            calls["tx_bytes"] += data.nbytes
+            return Result(num)
+
+        def deactivateStream(self, s):
+            pass
+
+        def closeStream(self, s):
+            calls["closed"] = True
+            calls["tx_sha256"] = digest.hexdigest()
+
+    mod.Device = Device
+    sys.modules["SoapySDR"] = mod
+    try:
+        yield calls
+    finally:
+        del sys.modules["SoapySDR"]
+
+
+def sdr_sink(dev, band: dict, tmp: str) -> str:
+    """Phase 30: `cli encode -o soapy` into the fake TX device on the card:
+    a 6-field B=1 TS in cf32 and in cs8, its device bytes those of the same
+    run's `-o file` bit for bit; phase 27's B=23 `--mux` band, the device at
+    138 MS/s with 138 MHz of bandwidth and its bytes phase 27's multiplex.
+    offset_fir_fused launches once a field. Returns the B=1 cf32 capture's
+    path (kept in `tmp` for phase 31)."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+
+    n = P.SYMBOLS_PER_FIELD
+    ts_path = os.path.join(tmp, "sdr.ts")
+    _host_ts(np.random.default_rng(30), SDR_FIELDS).tofile(ts_path)
+    sdr = ["-d", "fake", "-f", "473e6", "-g", "54"]
+    runs = {}
+    for fmt in ("cf32", "cs8"):
+        path = os.path.join(tmp, f"sdr.{fmt}")
+        before = _every_count()
+        with _fake_soapy() as calls:
+            rc, stats, host_s = _cli([ts_path, "--format", fmt, "-o", "soapy", *sdr, "--stats"])
+        launches = _since(before)["offset_fir_fused"]
+        rc_file, _, _ = _cli([ts_path, "--format", fmt, "-o", path, "--stats"])
+        runs[fmt] = {"rc": [rc, rc_file], "stats": stats, "host_s": host_s, "device": calls,
+                     "identical_to_file_sink": calls["tx_sha256"] == _digest([path]),
+                     "offset_fir_launches": launches}
+        check(rc == rc_file == 0 and stats["device"] == str(dev),
+              f"encode -o soapy --format {fmt}: rc {rc}, {stats}")
+        check(runs[fmt]["identical_to_file_sink"]
+              and calls["tx_bytes"] == SDR_FIELDS * n * 2 * (4 if fmt == "cf32" else 1),
+              f"encode -o soapy --format {fmt}: the device bytes differ from the file sink's")
+        check((calls["driver"], calls["rate"], calls["bandwidth"], calls["frequency"],
+               calls["gain"], calls["format"], calls["direction"])
+              == ("fake", P.SAMPLE_RATE, 6e6, 473e6, 54.0, fmt.upper(), "TX"),
+              f"encode -o soapy --format {fmt}: device settings {calls}")
+        check(launches == SDR_FIELDS, f"encode -o soapy: {launches} offset_fir launches")
+    b = band["ts"].shape[1]
+    before = _every_count()
+    with _fake_soapy() as calls:
+        rc, stats, host_s = _cli([*band["paths"], "--channels", str(b), "--mux", "-o", "soapy",
+                                  *sdr, "--stats"])
+    launches = _since(before)["offset_fir_fused"]
+    same = calls["tx_sha256"] == _digest([band["cap"]])
+    emit("sdr_sink", fields=SDR_FIELDS, **runs,
+         mux={"slots": b, "rc": rc, "stats": stats, "host_s": host_s, "device": calls,
+              "identical_to_phase_27": same, "offset_fir_launches": launches})
+    check(rc == 0 and same, f"encode --mux -o soapy: the device bytes differ from phase 27's")
+    check(calls["rate"] == calls["bandwidth"] == b * 6e6,
+          f"encode --mux -o soapy: device settings {calls}")
+    check(launches == HEADEND_FIELDS, f"encode --mux -o soapy: {launches} offset_fir launches")
+    return os.path.join(tmp, "sdr.cf32")
+
+
+def sdr_source(dev, band: dict, tmp: str, capture: str) -> None:
+    """Phase 31: the fake RX device on the card. Phase 30's B=1 capture,
+    with hiccups and one timestamped overflow drop, through `decode soapy
+    --stats`: the sent TS but for the field the zero-filled span lies in,
+    the counters the fake injected, one eq_fir_fused launch a field. Phase
+    27's band through `decode soapy --demux 23 --trellis viterbi
+    --viterbi-chunks 24`: every slot's TS, the device at 138 MS/s. The
+    capture through `analyze soapy`: the zf MER, no flags."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+
+    n = P.SYMBOLS_PER_FIELD
+    ts = _host_ts(np.random.default_rng(30), SDR_FIELDS)
+    samples = np.fromfile(capture, np.float32).reshape(-1, 2)
+    served = np.concatenate([samples[:SDR_GAP_AT], samples[SDR_GAP_AT + SDR_GAP_LEN:],
+                             np.zeros((n, 2), np.float32)])
+    out = os.path.join(tmp, "live.ts")
+    before = _every_count()
+    with _fake_soapy(served, SDR_HICCUPS, SDR_GAP_AT, SDR_GAP_LEN) as calls:
+        rc, stats, host_s = _cli(["decode", "soapy", "-d", "fake", "--max-fields",
+                                  str(SDR_MAX_FIELDS), "--stats", "-o", out])
+    launches = _since(before)
+    got = np.fromfile(out, np.uint8).reshape(-1, P.FIELD_TS_BYTES)
+    # the interleaver spreads a TS field over two symbol fields: the gap's
+    # symbol field and the one before may carry its zeros
+    spanned = {SDR_GAP_AT // n - 1, SDR_GAP_AT // n}
+    exact = [bool(np.array_equal(got[k], ts[k])) for k in range(got.shape[0])]
+    counters = (stats.get("overflows"), stats.get("gaps_filled"), stats.get("gap_samples"))
+    want_counters = (SDR_HICCUPS // 2 + 1, 1, SDR_GAP_LEN)
+    emit("sdr_source_live", fields=SDR_FIELDS, gap={"at": SDR_GAP_AT, "samples": SDR_GAP_LEN},
+         hiccups=SDR_HICCUPS, rc=rc, stats=stats, host_s=host_s, device=calls,
+         ts_exact_by_field=exact, launches=launches)
+    check(rc == 0 and stats["device"] == str(dev) and got.shape[0] == SDR_MAX_FIELDS,
+          f"decode soapy: rc {rc}, {stats}")
+    check(all(e for k, e in enumerate(exact) if k not in spanned),
+          f"decode soapy: fields {exact} against the sent TS (the gap spans {spanned})")
+    check(counters == want_counters, f"decode soapy: counters {counters}, want {want_counters}")
+    check((calls["rate"], calls["bandwidth"], calls["gain"], calls["format"])
+          == (P.SAMPLE_RATE, 6e6, 30.0, "CF32"), f"decode soapy: device settings {calls}")
+    check(launches["eq_fir_fused"] == SDR_MAX_FIELDS + 1,
+          f"decode soapy: launches {launches} for {SDR_MAX_FIELDS} decoded fields")
+
+    b = band["ts"].shape[1]
+    served = np.concatenate([np.fromfile(band["cap"], np.float32).reshape(-1, 2),
+                             np.zeros((1 << 21, 2), np.float32)])
+    out = os.path.join(tmp, "live_band.ts")
+    before = _every_count()
+    with _fake_soapy(served) as calls:
+        rc, stats, host_s = _cli(["decode", "soapy", "-d", "fake", "--demux", str(b),
+                                  "--trellis", "viterbi", "--viterbi-chunks", str(CHUNK_MAIN),
+                                  "--max-fields", str(HEADEND_FIELDS - 2), "--stats",
+                                  "-o", out])
+    launches = _since(before)
+    del served
+    fd = stats["fields_decoded"]
+    got = np.fromfile(out, np.uint8).reshape(-1, b, P.FIELD_TS_BYTES)
+    exact = got.shape[0] == fd and np.array_equal(got, band["ts"][:fd])
+    emit("sdr_source_band", slots=b, rc=rc, stats=stats, host_s=host_s, device=calls,
+         ts_exact_slots=exact, launches=launches)
+    check(rc == 0 and stats["device"] == str(dev) and fd >= HEADEND_FIELDS - 2 and exact
+          and stats["segments_uncorrectable"] == 0 and stats["overflows"] == 0,
+          f"decode soapy --demux {b}: the TS is not the sent TS ({stats})")
+    check(calls["rate"] == calls["bandwidth"] == b * 6e6,
+          f"decode soapy --demux {b}: device settings {calls}")
+    check(launches["acs_forward_chunked"] == launches["traceback_chunked"] == fd + 1,
+          f"decode soapy --demux {b}: launches {launches} for {fd} decoded fields")
+
+    before = _every_count()
+    with _fake_soapy(samples) as calls:
+        rep, an_s = _analyze(["soapy", "-d", "fake", "--fields", "4"])
+    launches = _since(before)["eq_fir_fused"]
+    emit("sdr_source_analyze", report=rep, host_s=an_s, device=calls,
+         eq_fir_launches=launches)
+    check(rep["mer_method"] == "zf" and rep["mer_db"] > 30 and rep["decode_flags"] == ""
+          and rep["align_offset"] == 0, f"analyze soapy: {rep}")
+    check(calls["rate"] == P.SAMPLE_RATE and launches == 1,
+          f"analyze soapy: device {calls}, {launches} eq_fir launches")
+
+
+#: each gauntlet probe's kernels (all of them launched at least once)
+GAUNTLET_KERNELS = {
+    "clean_hard": ("eq_fir_fused",), "cs8_hard": ("eq_fir_fused",),
+    "awgn15_viterbi": ("eq_fir_fused", "acs_forward", "traceback"),
+    "awgn13_viterbi": ("eq_fir_fused", "acs_forward", "traceback"),
+    "awgn13_viterbi_i8": ("eq_fir_fused", "acs_forward", "traceback"),
+    "cci_ntsc": ("eq_fir_fused", "pr_acs_forward", "pr_traceback"),
+    "multipath_adaptive_dd": (),
+}
+
+
+def measurement_tools(dev) -> None:
+    """Phase 32: tools/torch_chip_gauntlet.py in this process (its 7 probes,
+    each with its launches), then tools/torch_rx_threshold.py at 20, 14 and
+    12 dB, hard and soft, on 2 fields: exact at 20 dB hard and 14 dB soft."""
+    _, rc, probes = _run_tool("torch_chip_gauntlet", [])
+    emit("gauntlet_tool", rc=rc, probes=probes)
+    check(rc == 0 and [p["probe"] for p in probes] == list(GAUNTLET_KERNELS)
+          and all(p["ok"] for p in probes), f"torch_chip_gauntlet: rc {rc}, {probes}")
+    for p in probes:
+        check(all(p["launches"][k] > 0 for k in GAUNTLET_KERNELS[p["probe"]]),
+              f"torch_chip_gauntlet {p['probe']}: launches {p['launches']}")
+    _, rc, lines = _run_tool("torch_rx_threshold", ["--fields", "2", "--modes", "hard,soft",
+                                                    "--snrs", "20,14,12"])
+    emit("rx_threshold_tool", rc=rc, lines=lines)
+    exact = {(ln["mode"], ln["snr_db"]): ln["exact"] for ln in lines if "mode" in ln}
+    check(rc == 0 and exact.get(("hard", 20.0)) and exact.get(("soft", 14.0)),
+          f"torch_rx_threshold: {lines}")
+    check(lines[-1]["device"] == str(dev), f"torch_rx_threshold ran on {lines[-1]}")
 
 
 if __name__ == "__main__":

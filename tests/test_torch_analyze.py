@@ -15,6 +15,7 @@ import contextlib
 import functools
 import io
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -186,8 +187,9 @@ def test_mer_db_matches_jax(golden):
 
 def test_cli_analyze_prints_the_report(tmp_path):
     """`analyze` through main prints run_analyze's report as one JSON line;
-    -d/-f/-g parse; the soapy source is refused as not yet ported; a
-    --rate too narrow for the band is refused with the JAX CLI's message."""
+    -d/-f/-g parse; the soapy source, where the SoapySDR bindings are
+    absent, stops with the JAX package's RuntimeError; a --rate too narrow
+    for the band is refused with the JAX CLI's message."""
     cap, _ = _clean(tmp_path)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -195,10 +197,10 @@ def test_cli_analyze_prints_the_report(tmp_path):
                           "-g", "10"]) == 0
     report = json.loads(out.getvalue())
     assert report["mer_method"] == "zf" and report["decode_flags"] == ""
-    err = io.StringIO()
-    with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
-        tcli.main(["analyze", "soapy", "-d", "hackrf", "--device", "cpu"])
-    assert exc.value.code == 2 and "not yet ported" in err.getvalue()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "SoapySDR", None)   # the import fails
+        with pytest.raises(RuntimeError, match="SoapySDR python bindings not available"):
+            tcli.main(["analyze", "soapy", "-d", "hackrf", "--device", "cpu"])
     with pytest.raises(ValueError, match="occupied"):
         tcli.run_analyze(tcli.build_analyze_argparser().parse_args(
             [cap, "--rate", "5e6", "--device", "cpu"]))

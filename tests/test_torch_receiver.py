@@ -6,6 +6,7 @@ bit for bit, decoder-state conversion, and the decode CLI."""
 import contextlib
 import io
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -212,16 +213,21 @@ def test_receiver_chunked_matches_jax(noisy):
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"],
                                   ["--mesh", "2x1", "--fields-per-step", "2"],
                                   ["soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"]])
-def test_cli_decode_refuses_unported_flags(flag, tmp_path):
+def test_cli_decode_refuses_unported_flags(flag, tmp_path, monkeypatch):
     """Refused as not yet ported, exit 2: --mesh, with or without the flag
-    that acts only with it (--fields-per-step), and a soapy source, given
-    as the input, with -d/-f/-g."""
+    that acts only with it (--fields-per-step). The soapy source, given as
+    the input with -d/-f/-g, is ported: where the SoapySDR bindings are
+    absent it stops with the JAX package's RuntimeError."""
     from atsc_tpu_torch import cli as tcli
 
-    src = [] if flag[0] == "soapy" else [str(tmp_path / "x.iq")]
+    if flag[0] == "soapy":
+        monkeypatch.setitem(sys.modules, "SoapySDR", None)   # the import fails
+        with pytest.raises(RuntimeError, match="decode from a capture file instead"):
+            tcli.main(["decode", "--device", "cpu", "-o", str(tmp_path / "o.ts"), *flag])
+        return
     err = io.StringIO()
     with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
-        tcli.main(["decode", *src, "--device", "cpu", *flag])
+        tcli.main(["decode", str(tmp_path / "x.iq"), "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert "not yet ported" in err.getvalue()
 
