@@ -27,11 +27,15 @@ Usage:
   python -m atsc_tpu_torch.cli in.ts -o soapy -d hackrf -f 473e6 -g 54
   python -m atsc_tpu_torch.cli decode soapy:hackrf -o live.ts --stats
   python -m atsc_tpu_torch.cli analyze soapy -f 473e6 -g 30
+  python -m atsc_tpu_torch.cli in.ts -c 8 --mesh 2x2 -o out.iq   # 4 shards
+  python -m atsc_tpu_torch.cli decode out.iq -c 8 --mesh 2x2 -o back.ts
 
-The flag of the JAX CLI that this package does not have yet (--mesh) stops
-with an error naming it; none is silently ignored. The flag that acts only
-with it (--fields-per-step) is accepted, with the JAX CLI's default, and
-changes nothing without it. -d/-f/-g act only with a soapy device.
+Multi-device: `--mesh TIMExCH` encodes or decodes over a mesh of
+TIME x CH shards (parallel/), --fields-per-step fields a step; the shards
+are laid round-robin over the visible devices of --device's kind (so one
+card runs several shards in turn; the placement goes to stderr and into
+--stats). Every flag of the JAX CLI runs; -d/-f/-g act only with a soapy
+device.
 Decode runs the equalizers `--equalizer zf|adaptive|adaptive-dd` (with
 `--forgetting` and `--train-every` for the adaptive ones), the trellis
 tiers `--trellis hard|viterbi|viterbi-i8` (chunk-parallel with
@@ -100,21 +104,52 @@ from atsc_tpu_torch.ops.resample import (
     StreamResampler,
     capture_rate,
 )
+from atsc_tpu_torch.parallel.field_shard import ShardedEncoder
+from atsc_tpu_torch.parallel.mesh import make_mesh
+from atsc_tpu_torch.parallel.rx_shard import ShardedReceiver
 from atsc_tpu_torch.runtime.io import IqSink, SoapySdrSink, SoapySdrSource, TsReader
 from atsc_tpu_torch.utils import checkpoint as ckpt
 from atsc_tpu_torch.utils.config import EncoderConfig
 from atsc_tpu_torch.utils.profiling import ThroughputMeter, profile
 
 
-def _add_inert_flags(ap: argparse.ArgumentParser, fields_per_step: int) -> None:
-    """The JAX CLI's --mesh, refused as not yet ported, and the flag that
-    acts only with it, --fields-per-step (fields a --mesh step takes;
-    without --mesh the output does not depend on it), accepted with the
-    JAX CLI's default and unused."""
+def _add_mesh_flags(ap: argparse.ArgumentParser, fields_per_step: int, what: str) -> None:
+    """--mesh TIMExCH and --fields-per-step (the fields a --mesh step
+    takes; without --mesh the output does not depend on it), with the JAX
+    CLI's defaults."""
+    ap.add_argument("--mesh", default=None, metavar="TIMExCH",
+                    help=f"multi-device {what} over a mesh, e.g. '4x2' = 4 field "
+                         "time-block shards x 2 channel shards (consecutive "
+                         "fields across shards with O(1) state exchange; "
+                         "channels must divide CH). The shards are laid "
+                         "round-robin over the visible devices of --device's "
+                         "kind, so one card runs several shards in turn")
     ap.add_argument("--fields-per-step", type=int, default=fields_per_step,
-                    help="(--mesh) fields a device step takes; the output "
-                         "does not depend on it")
-    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+                    help="(--mesh) fields a device step takes")
+
+
+def _parse_mesh(text: str) -> tuple[int, int]:
+    """'TIMExCH' -> (n_time, n_ch), or the JAX CLI's ValueError."""
+    try:
+        n_time, n_ch = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh wants TIMExCH (e.g. 4x2), got {text!r}") from None
+    return n_time, n_ch
+
+
+def _make_mesh(n_time: int, n_ch: int, device: torch.device, what: str):
+    """The n_time x n_ch mesh, its shards laid round-robin over the
+    visible devices of `device`'s kind (the CPU is one device), the
+    placement printed on stderr."""
+    if device.type == "cuda":
+        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        visible = [device]
+    n = n_time * n_ch
+    mesh = make_mesh(n_time, n_ch, [visible[i % len(visible)] for i in range(n)])
+    print(f"{what} --mesh: {n} shards on {len(visible)} {device.type} device(s): "
+          + " ".join(mesh.placement()), file=sys.stderr)
+    return mesh
 
 
 def _add_sdr_flags(ap: argparse.ArgumentParser, gain: float, live: str) -> None:
@@ -195,7 +230,7 @@ def build_argparser() -> argparse.ArgumentParser:
                          "`decode --sro` (controlled-SRO captures for "
                          "receiver testing; composes with --rate)")
     _add_state_flags(ap, "encoder")
-    _add_inert_flags(ap, fields_per_step=8)
+    _add_mesh_flags(ap, fields_per_step=8, what="encode")
     _add_sdr_flags(ap, gain=54.0, live="sink")
     return ap
 
@@ -303,20 +338,34 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
     per_stream = out_sps if out_sps is not None else (
         channels * 6e6 if mux else P.SAMPLE_RATE)
     stream_rate = per_stream * (1 if mux else channels)
-    # quantized formats leave the kernel as packed wire lanes whose bytes
-    # are the interleaved stream: the sink writes them verbatim
-    wire = fmt in ("cs16", "cs8")
-    enc = Encoder(batch=channels, out_format=fmt, wire=wire, device=dev)
+    meshed = cfg.n_time * cfg.n_ch > 1
+    if meshed:
+        # the field-sharded encoder: fields_per_step fields a step over
+        # n_time time shards, planar output (the gathered step is host IQ)
+        mesh = _make_mesh(cfg.n_time, cfg.n_ch, dev, "encode")
+        enc = ShardedEncoder(mesh, batch=channels, out_format=fmt,
+                             fields_per_device=max(1, cfg.fields_per_step // cfg.n_time))
+        mesh_state = enc.init_state()
+        t_step = enc.t_total
+    else:
+        # quantized formats leave the kernel as packed wire lanes whose
+        # bytes are the interleaved stream: the sink writes them verbatim
+        enc = Encoder(batch=channels, out_format=fmt, wire=fmt in ("cs16", "cs8"),
+                      device=dev)
+        t_step = 1
     muxer = FdmMuxer(channels, device=dev) if mux else None
     fields_done = 0
     if resume:
         # everything is checked before the sink opens: a refused resume
         # leaves the output untouched
-        state, fields_done = ckpt.load_state(checkpoint, device=dev)
+        state, fields_done = ckpt.load_state(checkpoint, device="cpu" if meshed else dev)
         if state.parity.shape[0] != channels:
             raise ValueError(f"checkpoint holds {state.parity.shape[0]} channels, "
                              f"this encode {channels}")
-        enc.state = state
+        if meshed:
+            mesh_state = enc.put_state(state)
+        else:
+            enc.state = state
         carry = ckpt.load_mux_carry(checkpoint)
         if (carry is not None) != (muxer is not None):
             raise ValueError("checkpoint and --mux disagree: resume a --mux run "
@@ -336,7 +385,8 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
     meter = ThroughputMeter(channels=channels)
 
     def save() -> None:
-        ckpt.save_state(checkpoint, enc.state, fields_done,
+        ckpt.save_state(checkpoint, enc.gather_state(mesh_state) if meshed else enc.state,
+                        fields_done,
                         mux_carry=None if muxer is None else muxer.get_state(),
                         resample_state=None if resampler is None else resampler.full_state())
 
@@ -346,10 +396,25 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
             chunk = resampler.push_planar(chunk[None])[0]
         _write_planar(sink, chunk[None])
 
+    def emit(iq) -> None:
+        """One encoded field for every channel: planar (B, 2, 261120) or
+        packed wire lanes (B, 261120), a tensor or host numpy."""
+        if muxer is not None:
+            emit_mux_chunk(muxer.push(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+        elif resampler is not None:
+            _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
+        else:
+            host = iq.cpu().numpy() if isinstance(iq, torch.Tensor) else iq
+            if host.ndim == 2:
+                sink.write_wire(host, P.SYMBOLS_PER_FIELD)
+            else:
+                sink.write_planar(np.ascontiguousarray(host), P.SYMBOLS_PER_FIELD)
+
     field_bytes = P.FIELD_TS_BYTES
     n_run = sync_checked = sync_bad = 0
     last_saved = fields_done
     eof = False   # the loop ended at the end of the input (not at max_fields)
+    state_clean = True   # meshed: the state has not advanced past pad fields
     readers = [TsReader(p) for p in input_paths]
     sink = None
     try:
@@ -373,28 +438,36 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
                 left -= len(got)
         with _profiled(profile_dir):
             while True:
-                got = _read_field(readers, field_bytes)
-                if got is None:
+                step = []   # up to t_step fields, (channels, field_bytes) each
+                while len(step) < t_step:
+                    got = _read_field(readers, field_bytes)
+                    if got is None:
+                        break
+                    ts, checked, bad = got
+                    sync_checked += checked
+                    sync_bad += bad
+                    step.append(np.broadcast_to(ts, (channels, field_bytes)))
+                if not step:
                     eof = True
                     break
-                ts, checked, bad = got
-                sync_checked += checked
-                sync_bad += bad
-                if ts.shape[0] == 1 and channels > 1:
-                    ts = np.broadcast_to(ts, (channels, field_bytes))
-                iq = enc.encode(ts)
-                if muxer is not None:
-                    emit_mux_chunk(muxer.push(iq[:, :, : P.SYMBOLS_PER_FIELD]))
-                elif resampler is not None:
-                    _write_planar(sink, resampler.push_planar(iq[:, :, : P.SYMBOLS_PER_FIELD]))
-                elif wire:
-                    sink.write_wire(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
+                whole = len(step)
+                if meshed:
+                    ts = np.zeros((t_step, channels, field_bytes), np.uint8)
+                    ts[:whole] = step
+                    # a zero-padded EOF step advances the state past the
+                    # real stream: no checkpoint from here on
+                    state_clean = state_clean and whole == t_step
+                    mesh_state, iq = enc.step(mesh_state, ts)
+                    iq_host = enc.gather_iq(iq)
+                    for f in range(whole):
+                        emit(iq_host[f])
                 else:
-                    sink.write_planar(iq.cpu().numpy(), P.SYMBOLS_PER_FIELD)
-                meter.add_fields(channels)
-                n_run += 1
-                fields_done += 1
-                if checkpoint and fields_done - last_saved >= checkpoint_every:
+                    emit(enc.encode(step[0]))
+                meter.add_fields(whole * channels)
+                n_run += whole
+                fields_done += whole
+                if (checkpoint and state_clean
+                        and fields_done - last_saved >= checkpoint_every):
                     save()
                     last_saved = fields_done
                 if max_fields and n_run >= max_fields:
@@ -412,11 +485,14 @@ def run(cfg: EncoderConfig, input_paths, max_fields: int = 0, stats: bool = Fals
             r.close()
         if sink is not None:
             sink.close()
-    if checkpoint and fields_done != last_saved:
+    if checkpoint and fields_done != last_saved and state_clean:
         save()
 
     summary = meter.summary()
     summary["device"] = str(dev)
+    if meshed:
+        summary["mesh"] = f"{cfg.n_time}x{cfg.n_ch}"
+        summary["devices"] = [str(mesh.device(c)) for c in mesh.coords()]
     if out_sps is not None:
         summary["output_rate"] = out_sps
     summary["ts_sync_errors"] = sync_bad
@@ -565,16 +641,9 @@ def build_decode_argparser() -> argparse.ArgumentParser:
                     help="torch device: 'cuda' (default; fails without "
                          "CUDA), 'cuda:N' or 'cpu'")
     _add_state_flags(ap, "receiver")
-    _add_inert_flags(ap, fields_per_step=4)
+    _add_mesh_flags(ap, fields_per_step=4, what="decode")
     _add_sdr_flags(ap, gain=30.0, live="source")
     return ap
-
-
-def _decode_not_ported(args) -> str:
-    """'' when args ask only for what this package runs, else the error."""
-    if args.mesh is not None:
-        return "decode --mesh: not yet ported to atsc_tpu_torch"
-    return ""
 
 
 def _open_capture(args, sample_rate: float, bandwidth_hz: float):
@@ -792,9 +861,8 @@ def run_decode(args) -> dict:
     resume; its summary adds the stream's overflow and gap counters."""
     if args.demux:
         return run_decode_demux(args)
-    unported = _decode_not_ported(args)
-    if unported:
-        raise NotImplementedError(unported)
+    if args.mesh:
+        return run_decode_mesh(args)
     fmt, channels = args.in_format, args.channels
     if args.resume and not args.checkpoint:
         raise ValueError("--resume requires --checkpoint")
@@ -1032,6 +1100,309 @@ def run_decode(args) -> dict:
         summary["sro_ppm"] = float(_parse_sps(args.sro))
     if args.rate is not None:
         summary["resample_rate"] = float(stream_rate)
+    if args.stats:
+        print(json.dumps(summary), file=sys.stderr)
+    return summary
+
+
+def _read_field_blocks(fin, k: int, b: int, fmt: str, quantized: bool):
+    """Read up to k whole per-field wire blocks: -> (B, got*N) complex64
+    (quantized=False; cs16/cs8 dequantized on the host) or (B, got*N, 2)
+    integer codes, verbatim (quantized=True, for the sharded decode_codes
+    path); None at EOF. A trailing partial block is dropped with a
+    warning."""
+    n = P.SYMBOLS_PER_FIELD
+    block = n * BYTES_PER_SAMPLE[fmt] * b
+    buf = fin.read(block * k)
+    whole = len(buf) // block
+    if len(buf) % block:
+        print(f"warning: dropping {len(buf) % block}-byte partial "
+              "field block at EOF", file=sys.stderr)
+    if whole == 0:
+        return None
+    buf = buf[: whole * block]
+    if quantized:
+        codes = np.frombuffer(buf, dtype=_CODE_DTYPE[fmt])
+        return np.ascontiguousarray(
+            codes.reshape(whole, b, n, 2).transpose(1, 0, 2, 3).reshape(b, whole * n, 2))
+    flat = _wire_to_complex(buf, fmt)
+    return np.ascontiguousarray(flat.reshape(whole, b, n).transpose(1, 0, 2).reshape(b, -1))
+
+
+class _SampleFifo:
+    """Per-channel sample FIFO for the conditioned mesh decode loop:
+    (B, n[, 2]) chunks in (push order kept), slices of any length out.
+    Used only when --cfo/--align conditioning breaks the file's
+    field-block alignment."""
+
+    def __init__(self):
+        self._chunks: list[np.ndarray] = []
+        self.have = 0
+
+    def push(self, arr: np.ndarray) -> None:
+        if arr.shape[1]:
+            self._chunks.append(arr)
+            self.have += arr.shape[1]
+
+    def pop(self, n: int) -> np.ndarray:
+        if n > self.have:
+            raise ValueError(f"pop({n}) from a fifo holding {self.have}")
+        out, got = [], 0
+        while got < n:
+            ch = self._chunks[0]
+            take = min(ch.shape[1], n - got)
+            out.append(ch[:, :take])
+            if take == ch.shape[1]:
+                self._chunks.pop(0)
+            else:
+                self._chunks[0] = ch[:, take:]
+            got += take
+        self.have -= n
+        return np.concatenate(out, axis=1) if len(out) > 1 else out[0]
+
+
+def run_decode_mesh(args) -> dict:
+    """Multi-device decode (the JAX CLI's run_decode_mesh): the
+    sample-synchronous receive chain of parallel/rx_shard.py
+    ShardedReceiver, T = --fields-per-step fields a step over the mesh,
+    with a one-step lookahead so every step boundary gets real +-384-sample
+    equalizer context (a clean capture decodes with zero RS corrections,
+    like the streaming path). Every trellis tier shards (--trellis
+    viterbi/viterbi-i8, --ntsc comb); cs16/cs8 captures upload verbatim;
+    --checkpoint/--resume persist the gathered sharded state
+    (utils/checkpoint.py save_sharded_receiver); --cfo/--align condition
+    the capture on the host first and decode with the per-field adaptive
+    equalizer. Unlike the JAX CLI, --train-every reaches the receiver, the
+    checkpoint records it, and a resume whose output is missing or short is
+    refused, as the port's other resumes are."""
+    for flag, default in (("sro", "0"), ("rate", None),
+                          ("forgetting", 1.0), ("erasures", "off"),
+                          ("resync", "off")):
+        if getattr(args, flag) != default:
+            raise ValueError(f"--mesh decode does not support --{flag}"
+                             if flag != "forgetting" else
+                             "--mesh adaptive training is strictly "
+                             "per-field; --forgetting does not apply")
+    n_time, n_ch = _parse_mesh(args.mesh)
+    if args.viterbi_chunks > 1:
+        raise ValueError("--mesh decode does not support --viterbi-chunks")
+    if args.ntsc == "auto":
+        raise ValueError("--mesh wants an explicit comb decision: use "
+                         "--ntsc comb (run `analyze` or a sequential "
+                         "--ntsc auto probe to decide first)")
+    if args.cfo == "track":
+        raise ValueError("--mesh supports a fixed/auto --cfo; 'track' "
+                         "re-estimation is a sequential-receiver feature")
+
+    b = args.channels
+    n = P.SYMBOLS_PER_FIELD
+    align_auto = args.align == "auto"
+    cfo_auto = args.cfo == "auto"
+    cfo_hz = 0.0 if cfo_auto else float(args.cfo)
+    conditioning = align_auto or cfo_auto or cfo_hz != 0.0
+    trellis = _TRELLIS_MODE[args.trellis]
+    if args.ntsc == "comb":
+        if args.trellis != "hard":
+            raise ValueError("--ntsc comb IS the ML trellis tier (16-state "
+                             "partial-response Viterbi) — drop --trellis")
+        trellis = "ntsc"
+    equalizer = args.equalizer
+    if conditioning and equalizer == "zf":
+        equalizer = "adaptive"   # epoch phase/residual rotation needs training
+    if equalizer != "zf" and trellis != "hard":
+        raise ValueError("--mesh ML trellis tiers (viterbi/viterbi-i8/"
+                         "--ntsc comb) shard with the zf equalizer only")
+    if conditioning and trellis != "hard":
+        raise ValueError("--mesh --cfo/--align conditioning decodes with "
+                         "the adaptive equalizer (hard trellis)")
+    if args.checkpoint and conditioning:
+        raise ValueError("--mesh --cfo/--align conditioning is not "
+                         "checkpointable (decode the capture in one run, "
+                         "or pre-convert it)")
+    resume = bool(args.resume)
+    if resume and not args.checkpoint:
+        raise ValueError("--resume requires --checkpoint")
+    if resume and _is_live(args.input):
+        raise ValueError("--resume needs a repositionable capture, "
+                         "not a live stream")
+    if resume and "{ch}" in args.output:
+        raise ValueError("per-channel output ('{ch}') is not resumable; "
+                         "resume into a single interleaved output")
+    if _is_live(args.input) and b != 1:
+        raise ValueError("a live SDR capture is single-channel; use "
+                         "--demux for a wideband multi-channel band")
+
+    dev = resolve_device(args.device)
+    mesh = _make_mesh(n_time, n_ch, dev, "decode")
+    fmt = args.in_format
+    # quantized captures ride the sharded decode_codes path verbatim;
+    # conditioning needs float samples, so it dequantizes on the host
+    quantized = fmt != "cf32" and not conditioning
+
+    def receiver(first_field: int) -> ShardedReceiver:
+        return ShardedReceiver(
+            mesh, batch=b, fields_per_device=max(1, args.fields_per_step // n_time),
+            first_field=first_field, eq_profile=args.eq_profile,
+            equalizer=equalizer, trellis=trellis,
+            wire_format=fmt if quantized else "cf32", train_every=args.train_every)
+
+    rx = receiver(args.first_field)
+    t = rx.t_total
+    margin = rx._margin   # the decode_* with_context edge (384 samples)
+    block = n * BYTES_PER_SAMPLE[fmt] * b
+
+    fields = 0           # TS fields emitted
+    fields_consumed = 0  # capture fields fed into decoded steps
+    corrected = uncorrectable = 0
+    last_ckpt = 0
+    fout = None
+    if resume:
+        # the checkpoint and the output are checked before anything is
+        # read or written: a refused resume leaves both as they were
+        extra = ckpt.restore_sharded_receiver(args.checkpoint, rx)
+        if extra.get("in_format", fmt) != fmt:
+            raise ValueError(f"checkpoint --format {extra.get('in_format')!r} != {fmt!r}")
+        fields_consumed = int(extra.get("fields_consumed", 0))
+        fields = last_ckpt = int(extra.get("fields_emitted", 0))
+        corrected = int(extra.get("segments_corrected", 0))
+        uncorrectable = int(extra.get("segments_uncorrectable", 0))
+        fout = _reopen_output(args.output, fields, b)
+    fin = _open_capture(args, P.SAMPLE_RATE, 6e6)
+    if fout is None:
+        fout = _TsOut(args.output, b)
+
+    left = np.zeros((b, margin) + ((2,) if quantized else ()),
+                    _CODE_DTYPE[fmt] if quantized else np.complex64)
+    if resume and fields_consumed > 0:
+        # seek past the consumed capture, re-reading the last consumed
+        # field block for the next step's left edge context
+        _skip_input(fin, (fields_consumed - 1) * block)
+        prev = _read_field_blocks(fin, 1, b, fmt, quantized)
+        if prev is not None:
+            left = prev[:, -margin:]
+
+    def read_step():
+        """-> ((B, T*N[, 2]) zero-padded step, real field count)."""
+        arr = _read_field_blocks(fin, t, b, fmt, quantized)
+        if arr is None:
+            return None, 0
+        whole = arr.shape[1] // n
+        if whole < t:
+            pad = np.zeros((b, t * n - arr.shape[1]) + arr.shape[2:], arr.dtype)
+            arr = np.concatenate([arr, pad], axis=1)
+        return arr, whole
+
+    cond_info: dict = {}
+    if conditioning:
+        fifo = _SampleFifo()
+        # buffer enough for CFO estimation (~4 fields) + the sync search
+        while fifo.have < 4 * n + 8192:
+            arr = _read_field_blocks(fin, t, b, fmt, quantized=False)
+            if arr is None:
+                break
+            fifo.push(arr)
+        if fifo.have < (2 * n + 707 if align_auto else n):
+            raise ValueError("capture too short for --cfo/--align "
+                             "conditioning under --mesh")
+        buffered = fifo.pop(fifo.have)
+        if cfo_auto:
+            cfo_hz = estimate_cfo(buffered[0])
+        corrector = CfoCorrector(cfo_hz)
+        buffered = np.ascontiguousarray(corrector(buffered))
+        cond_info["cfo_hz"] = round(float(cfo_hz), 3)
+        if align_auto:
+            off, parity = find_field_sync_iq(buffered[0])
+            buffered = buffered[:, off:]
+            cond_info.update(align_offset=int(off), align_parity=int(parity))
+            rx = receiver(parity)   # re-base the oscillator epoch on the parity
+        fifo.push(np.ascontiguousarray(buffered))
+        eof = False
+
+        def read_step():  # noqa: F811 (the conditioned twin)
+            """Serve (B, T*N) steps from the fifo, topping it up
+            (derotating chunks in stream order)."""
+            nonlocal eof
+            while fifo.have < t * n and not eof:
+                arr = _read_field_blocks(fin, t, b, fmt, quantized=False)
+                if arr is None:
+                    eof = True
+                    break
+                fifo.push(np.ascontiguousarray(corrector(arr)))
+            whole = min(fifo.have // n, t)
+            if whole == 0:
+                return None, 0
+            arr = fifo.pop(whole * n)
+            if whole < t:
+                arr = np.concatenate([arr, np.zeros((b, (t - whole) * n), arr.dtype)],
+                                     axis=1)
+            return arr, whole
+
+    def maybe_checkpoint(force: bool = False) -> None:
+        nonlocal last_ckpt
+        if args.checkpoint and (force or fields - last_ckpt >= args.checkpoint_every):
+            fout.flush()
+            ckpt.save_sharded_receiver(
+                args.checkpoint, rx,
+                extra={"in_format": fmt, "fields_consumed": fields_consumed,
+                       "fields_emitted": fields, "segments_corrected": corrected,
+                       "segments_uncorrectable": uncorrectable})
+            last_ckpt = fields
+
+    def decode_step(left, cur, right, start_field, real) -> bool:
+        nonlocal fields, corrected, uncorrectable, fields_consumed
+        arr = np.concatenate([left, cur, right], axis=1)
+        if quantized:
+            ts, nerr = rx.decode_codes(arr, with_context=True)
+        else:
+            ts, nerr = rx.decode_iq(arr, with_context=True)
+        fields_consumed += real
+        for k in range(t):
+            # output k is TS field start_field + k - 1: skip the pre-start
+            # virtual field (k = 0 of the very first step) and, on a
+            # padded EOF step, outputs past the last real field's TS
+            if start_field + k - 1 < 0 or k > real - 1:
+                continue
+            fout.write_fields(ts[k])
+            fields += 1
+            corrected += int((nerr[k] > 0).sum())
+            uncorrectable += int((nerr[k] < 0).sum())
+            if args.max_fields and fields >= args.max_fields and not args.checkpoint:
+                # stop mid-step only when un-checkpointed: a resumable run
+                # finishes the step (the sharded state has already
+                # advanced past it), overshooting --max-fields by < T
+                return True
+        return bool(args.max_fields and fields >= args.max_fields)
+
+    try:
+        with _profiled(args.profile):
+            held, held_real = read_step()
+            start = fields_consumed
+            while held is not None:
+                nxt, nxt_real = read_step()
+                right = nxt[:, :margin] if nxt is not None else np.zeros_like(left)
+                if decode_step(left, held, right, start, held_real):
+                    break
+                maybe_checkpoint()
+                left = held[:, -margin:]
+                held, held_real = nxt, nxt_real
+                start += t
+            maybe_checkpoint(force=True)
+    finally:
+        if fin is not sys.stdin.buffer:
+            fin.close()
+        fout.close()
+    summary = {
+        "fields_decoded": fields,
+        "segments_corrected": corrected,
+        "segments_uncorrectable": uncorrectable,
+        "mesh": f"{n_time}x{n_ch}",
+        "trellis": trellis,
+        "equalizer": equalizer,
+        "device": str(dev),
+        "devices": [str(mesh.device(c)) for c in mesh.coords()],
+    }
+    summary.update(cond_info)
+    summary |= _live_stats(args, fin)
     if args.stats:
         print(json.dumps(summary), file=sys.stderr)
     return summary
@@ -1510,26 +1881,27 @@ def main(argv=None) -> int:
         print(json.dumps(run_analyze(build_analyze_argparser().parse_args(argv[1:]))))
         return 0
     if argv[:1] == ["decode"]:
-        ap = build_decode_argparser()
-        args = ap.parse_args(argv[1:])
-        unported = _decode_not_ported(args)
-        if unported:
-            ap.error(unported)
-        run_decode(args)
+        run_decode(build_decode_argparser().parse_args(argv[1:]))
         return 0
     if argv[:1] == ["encode"]:
         argv = argv[1:]
     ap = build_argparser()
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh: not yet ported to atsc_tpu_torch")
     channels = args.channels
     if len(args.input) > 1:
         if channels not in (1, len(args.input)):
             ap.error(f"{len(args.input)} inputs but --channels {channels}")
         channels = len(args.input)
+    n_time = n_ch = 1
+    if args.mesh:
+        try:
+            n_time, n_ch = _parse_mesh(args.mesh)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     cfg = EncoderConfig(
-        channels=channels, mux=args.mux, sink=args.output, realtime=args.realtime,
+        channels=channels, fields_per_step=args.fields_per_step, n_time=n_time,
+        n_ch=n_ch, mux=args.mux, sink=args.output, realtime=args.realtime,
         out_format=args.out_format,
         rate=None if args.rate is None else _parse_sps(args.rate), ppm=args.ppm,
         frequency_hz=args.frequency, gain_db=args.gain, driver=args.driver)

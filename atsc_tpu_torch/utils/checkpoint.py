@@ -21,7 +21,11 @@ NTSC; chunked too), the carried erasure flags, RS statistics, the resync
 and NTSC flags, and the adaptive backends' RLS normal equations, taps and
 retrain cadence, so a decode stopped at any push boundary continues
 byte-identically. Loads check every leaf's shape and dtype
-(utils/convert.py) and place the state on the requested device.
+(utils/convert.py) and place the state on the requested device. A
+sharded receiver (parallel/rx_shard.py, decode --mesh) gathers its shards
+into the full state for save_sharded_receiver, in the JAX package's
+format too; an encode --mesh run saves its gathered EncoderState with
+save_state.
 """
 
 from __future__ import annotations
@@ -269,3 +273,70 @@ def load_receiver(path: str, *, device: str | torch.device):
     rx.checkpoint_extra = json.loads(str(z["extra_json"])) if "extra_json" in z else {}
     rx.checkpoint_arrays = {k[5:]: v for k, v in z.items() if k.startswith("xarr_")}
     return rx
+
+
+# -- sharded (mesh) receiver checkpoints ----------------------------------
+
+_SRX_CONFIG = ("batch", "trellis", "wire_format", "t_total", "n_time",
+               "n_ch", "equalizer", "eq_profile")
+
+
+def save_sharded_receiver(path: str, rx, extra: dict | None = None) -> None:
+    """Persist a parallel/rx_shard.py ShardedReceiver between steps, its
+    shards gathered into the full state on the host (every shard must be
+    this process's). `extra` carries the CLI's stream-position metadata.
+    The JAX package's keys, plus `train_every` (the adaptive retrain
+    cadence), a key its restore_sharded_receiver does not read."""
+    arrays = {
+        "extra_json": np.asarray(json.dumps(extra or {})),
+        "__kind__": np.asarray("sharded_receiver"),
+        "__version__": np.asarray(CHECKPOINT_VERSION, dtype=np.int64),
+        "config": np.asarray([str(getattr(rx, k)) for k in _SRX_CONFIG], dtype=np.str_),
+        "next_field": np.asarray(rx._next_field, dtype=np.int64),
+        "rs_stats": np.asarray([rx.segments_corrected, rx.segments_uncorrectable],
+                               dtype=np.int64),
+        "train_every": np.asarray(rx.train_every, dtype=np.int64),
+    }
+    state = rx.state
+    for name in type(state)._fields:
+        arrays["st_" + name] = np.asarray(getattr(state, name))
+    _write(path, arrays)
+
+
+def restore_sharded_receiver(path: str, rx) -> dict:
+    """Restore a save_sharded_receiver checkpoint (either package's) into
+    an already built ShardedReceiver, whose mesh and tier come from the
+    caller and must match the file: every configuration key, the retrain
+    cadence (1 where the file has none), and every leaf's shape and dtype.
+    Returns the saved `extra` metadata."""
+    with np.load(path) as npz:
+        z = {k: npz[k] for k in npz.files}
+    if str(z.get("__kind__", "")) != "sharded_receiver":
+        raise ValueError(f"{path!r} is not a sharded-receiver checkpoint")
+    _check_version(z, path, "sharded receiver")
+    cfg = dict(zip(_SRX_CONFIG, (str(s) for s in z["config"])))
+    cfg["train_every"] = str(int(z.get("train_every", 1)))
+    for k, saved in cfg.items():
+        if saved != str(getattr(rx, k)):
+            raise ValueError(
+                f"sharded-receiver checkpoint {path!r} was written with "
+                f"{k}={saved}, but this decode runs {k}={getattr(rx, k)} — "
+                "re-run with matching flags")
+    want = rx.state
+    leaves = {}
+    for name in type(want)._fields:
+        key = "st_" + name
+        if key not in z:
+            raise ValueError(f"sharded-receiver checkpoint {path!r} lacks state leaf "
+                             f"{name!r} — written by an incompatible build")
+        arr, w = z[key], getattr(want, name)
+        if arr.shape != w.shape or arr.dtype != w.dtype:
+            raise ValueError(
+                f"sharded-receiver checkpoint {path!r} leaf {name!r} is "
+                f"{arr.shape}/{arr.dtype} but this build expects "
+                f"{w.shape}/{w.dtype} — cannot resume")
+        leaves[name] = arr
+    rx.set_state(type(want)(**leaves))
+    rx._next_field = int(z["next_field"])
+    rx.segments_corrected, rx.segments_uncorrectable = (int(v) for v in z["rs_stats"])
+    return json.loads(str(z["extra_json"]))

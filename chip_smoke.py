@@ -3,8 +3,9 @@
 conditioning front end, the chunk-parallel Viterbi, the wideband headend
 (FDM mux and demux), `analyze`, the streams' checkpoints and operations,
 the SoapySDR sink and source (against a fake SoapySDR module: no radio),
-the receiver measurement tools and the two kernel-design probes, once on
-one NVIDIA Hopper GPU.
+the receiver measurement tools, the two kernel-design probes, and the
+multi-device encode and decode (meshes of shards on the one card, and two
+processes over gloo), once on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
@@ -217,6 +218,27 @@ Phases, one JSON line each; any failed check exits non-zero:
    probes all ok, each with its kernel launches (the probe's kernels each
    launched); tools/torch_rx_threshold.py `--fields 2 --modes hard,soft
    --snrs 20,14,12`: the TS exact at 20 dB hard and 14 dB soft.
+33. sharded_encode: ShardedEncoder at B=384 on a 2x2 mesh of four shards
+   on the one card, 2 fields a shard (4 a step), cf32 and cs8: bit-exact
+   to the sequential Encoder on the card over the same 4 fields, IQ and
+   state; ms a step beside the sequential 4 fields (CUDA events), peak
+   memory, 4 offset_fir_fused launches a step.
+34. sharded_receive: ShardedReceiver at B=384 over phase 33's IQ, zf
+   with hard, soft, soft-i8 and NTSC, and adaptive, on the 2x2 mesh and on
+   a 1x1 mesh (one shard, the sequential chain): the TS exact on every
+   channel; ms a step (CUDA events; 4 shards on one card, not a scaling
+   figure) and each kernel's launches (a field of each channel shard).
+35. sample_sharded: SampleShardedFilter over 4 shards on the card:
+   golden's 4 fields within 5e-6 of golden's IQ.
+36. mesh_cli: cli.main `encode --mesh 2x2` of a 4-channel cs8 stream (the
+   plain encode's bytes, the placement in --stats) and `decode --mesh 2x2
+   --checkpoint` of it, stopped at --max-fields and resumed (the plain
+   decode's TS, the sent TS).
+37. two_process_tools: two processes each of
+   tools/torch_distributed_encode.py and torch_distributed_decode.py,
+   two shards each on the one card, `--backend gloo` named and printed
+   (NCCL refuses two ranks on one card): every channel's IQ the
+   sequential Encoder's bytes, the decoded TS the sent TS.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -228,8 +250,10 @@ instantiation's launches on the main paths that run it (phase 24's
 launch in phases 28-32) and, per chunk count, its ms, bound and error at
 B=384 and B=1; every kernel also `launches_phases_28_29`: every count zeroed
 just before phase 28 and read just after phase 29, so each of its launches in
-them counts, set-up encodes included; and `launches_phases_30_32`, counted
-the same way over phases 30-32), and last {"ok": true,
+them counts, set-up encodes included; and `launches_phases_30_32` and
+`launches_phases_33_37`, counted the same way over phases 30-32 and 33-37:
+the two-process tools' own launches stay in their processes), and last
+{"ok": true,
 "device": {...}}. Without a
 CUDA device, or without the package beside this script, it fails before
 printing any result.
@@ -727,8 +751,20 @@ def main() -> int:
         sdr_source(dev, head["band"], band_dir, capture)
         measurement_tools(dev)
         sdr_launches = _every_count()
+
+        # -- 33-37. multi-device encode and decode: 4 shards on the one card,
+        # and two processes of each multi-process tool (counted as 28-29 are;
+        # the tools' own processes count in theirs)
+        _zero_every_count()
+        enc33 = sharded_encode(dev)
+        sharded_receive(dev, enc33)
+        del enc33
+        sample_sharded(golden, dev)
+        mesh_cli(dev, band_dir)
+        two_process_tools(dev, band_dir)
+        mesh_launches = _every_count()
     for k in chunked["launches"]:
-        chunked["launches"][k] += slice_launches[k] + sdr_launches[k]
+        chunked["launches"][k] += slice_launches[k] + sdr_launches[k] + mesh_launches[k]
 
     print(json.dumps({"kernels": [
         {
@@ -740,6 +776,7 @@ def main() -> int:
             "launches": launches_main,
             "launches_phases_28_29": slice_launches["offset_fir_fused"],
             "launches_phases_30_32": sdr_launches["offset_fir_fused"],
+            "launches_phases_33_37": mesh_launches["offset_fir_fused"],
             "max_abs_err": errs["cf32"],
             "max_lsb_err": {k: v for k, v in errs.items() if k != "cf32"},
             "ms": kernel_ms,
@@ -757,6 +794,7 @@ def main() -> int:
             "launches": rx["launches"],
             "launches_phases_28_29": slice_launches["eq_fir_fused"],
             "launches_phases_30_32": sdr_launches["eq_fir_fused"],
+            "launches_phases_33_37": mesh_launches["eq_fir_fused"],
             "max_abs_err": rx["max_abs_err"],
             "max_abs_err_b4": eq_err,
             "ms": rx["kernel_ms"],
@@ -771,6 +809,7 @@ def main() -> int:
            "launches": vit_launches[k], **vit[k], "library_ms": None,
            "launches_phases_28_29": slice_launches[k],
            "launches_phases_30_32": sdr_launches[k],
+           "launches_phases_33_37": mesh_launches[k],
            "chunked": {"launches": chunked["launches"][k + "_chunked"],
                        "design": CHUNKED_DESIGN[k], "per_chunks": chunked["per"][k]}}
           for k, line in (("acs_forward", 157), ("traceback", 189),
@@ -780,13 +819,15 @@ def main() -> int:
          "replaces": "tools/trellis_fuse_probe.py:122",
          "main_path_launches": main_path["trellis_fused"],
          "launches_phases_28_29": slice_launches["trellis_fused"],
-         "launches_phases_30_32": sdr_launches["trellis_fused"], **trellis},
+         "launches_phases_30_32": sdr_launches["trellis_fused"],
+         "launches_phases_33_37": mesh_launches["trellis_fused"], **trellis},
         {"name": "fir_variants", "route": "cuda",
          "source": "atsc_tpu_torch/csrc/fir_variants.cu",
          "replaces": "tools/fir_probe.py:132", "design": FIR_VARIANTS_DESIGN,
          "main_path_launches": main_path["fir_variants"],
          "launches_phases_28_29": slice_launches["fir_variants"],
-         "launches_phases_30_32": sdr_launches["fir_variants"], **variants},
+         "launches_phases_30_32": sdr_launches["fir_variants"],
+         "launches_phases_33_37": mesh_launches["fir_variants"], **variants},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -3616,6 +3657,313 @@ def measurement_tools(dev) -> None:
     check(rc == 0 and exact.get(("hard", 20.0)) and exact.get(("soft", 14.0)),
           f"torch_rx_threshold: {lines}")
     check(lines[-1]["device"] == str(dev), f"torch_rx_threshold ran on {lines[-1]}")
+
+
+MESH = (2, 2)           # phases 33-36: time x channel shards, all four on the one card
+MESH_F = 2              # fields a shard takes a step: 4 fields a step
+MESH_ROUNDS = 2         # timed steps after one warm step
+MESH_CLI_FIELDS = 8     # phase 36: a 4-channel cs8 stream
+TOOL_FIELDS = 3         # phase 37: 4 channels, 2 processes of 2 shards
+
+
+def _mesh_on(dev):
+    """The 2x2 mesh of four shards on the one card."""
+    from atsc_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(*MESH, [dev] * (MESH[0] * MESH[1]))
+
+
+def _steps_ms(run) -> list:
+    """Device ms (CUDA events) of MESH_ROUNDS calls of run() after one."""
+    run()
+    return [_cuda_ms(run)[1] for _ in range(MESH_ROUNDS)]
+
+
+def sharded_encode(dev) -> dict:
+    """Phase 33: ShardedEncoder at B=384 on a 2x2 mesh of four shards on
+    the one card, 2 fields a shard (4 a step), cf32 and cs8: bit-exact to
+    the sequential Encoder on the card over the same 4 fields (IQ and every
+    state leaf); ms a step, the sequential encoder's ms over the same 4
+    fields, peak memory, and offset_fir_fused launches (one a shard a
+    step). Returns the cf32 step's host IQ and TS for phase 34."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.encoder import Encoder
+    from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.parallel.field_shard import ShardedEncoder
+
+    mesh = _mesh_on(dev)
+    t = MESH[0] * MESH_F
+    b_shard = B_FULL // MESH[1]
+    ts = _host_ts(np.random.default_rng(33), t * B_FULL).reshape(t, B_FULL, -1)
+    ts_dev = torch.tensor(ts, device=dev)
+    out = {}
+    for fmt in ("cf32", "cs8"):
+        enc = ShardedEncoder(mesh, batch=B_FULL, fields_per_device=MESH_F, out_format=fmt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        l0 = fir.LAUNCHES
+        state, iq = enc.step(enc.init_state(), ts_dev)
+        torch.cuda.synchronize()
+        launches = fir.LAUNCHES - l0
+        peak = torch.cuda.max_memory_allocated(dev)
+        seq = Encoder(batch=B_FULL, out_format=fmt, device=dev)
+        same = True
+        for k in range(t):
+            want = seq.encode(ts_dev[k])
+            for c in range(MESH[1]):
+                part = iq[(k // MESH_F, c)][k % MESH_F]
+                same &= torch.equal(part, want[c * b_shard:(c + 1) * b_shard])
+        for coord, st in state.items():
+            for name in st._fields:
+                full = getattr(seq.state, name)
+                c = coord[1]
+                same &= torch.equal(getattr(st, name), full[c * b_shard:(c + 1) * b_shard])
+        init = enc.init_state()
+        ms = _steps_ms(lambda: enc.step(init, ts_dev))
+        seq_enc = Encoder(batch=B_FULL, out_format=fmt, device=dev)
+        seq_ms = _steps_ms(lambda: [seq_enc.encode(ts_dev[k]) for k in range(t)])
+        out[fmt] = {"ms_per_step": ms, "sequential_ms_4_fields": seq_ms,
+                    "max_memory_allocated": peak, "offset_fir_launches": launches,
+                    "bit_exact": same}
+        emit("sharded_encode", batch=B_FULL, mesh=f"{MESH[0]}x{MESH[1]}",
+             placement=mesh.placement(), fields_per_step=t, format=fmt, **out[fmt])
+        check(same, f"{fmt}: the sharded step differs from the sequential Encoder")
+        check(launches == MESH[0] * MESH[1],
+              f"{fmt}: {launches} offset_fir_fused launches for one step of 4 shards")
+        if fmt == "cf32":
+            host_iq = enc.gather_iq(iq)
+        del iq, state, enc, seq, seq_enc
+        torch.cuda.empty_cache()
+    return {"ts": ts, "iq": host_iq, **out}
+
+
+def sharded_receive(dev, enc33: dict) -> dict:
+    """Phase 34: ShardedReceiver at B=384 on the 2x2 mesh over phase 33's
+    IQ (4 fields a step; the stream's ends zero-filled): zf with hard,
+    soft, soft-i8 and NTSC, and adaptive; the TS exact on every channel
+    (fields 0-2: the interleaver keeps the last). Each tier's step (eq +
+    decode + RS + derandomize, the windows already on the card) timed with
+    CUDA events, beside the same receiver on a 1x1 mesh (one shard: the
+    sequential chain over the same 4 fields), and each kernel's launches
+    in a step."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.parallel.distributed import put_global
+    from atsc_tpu_torch.parallel.mesh import gather, make_mesh
+    from atsc_tpu_torch.parallel.rx_shard import (
+        FIELDS_SPEC,
+        OSC_SPEC,
+        WIN_SPEC,
+        ShardedReceiver,
+        _correct_and_derand,
+    )
+
+    n = P.SYMBOLS_PER_FIELD
+    host = enc33["iq"]                                    # (T, B, 2, 261120)
+    t = host.shape[0]
+    iq = np.empty((t, B_FULL, n), np.complex64)
+    iq.real, iq.imag = host[:, :, 0, :n], host[:, :, 1, :n]
+    iq = np.ascontiguousarray(iq.transpose(1, 0, 2)).reshape(B_FULL, t * n)
+    ts = enc33["ts"]
+    meshes = {"2x2": _mesh_on(dev), "1x1": make_mesh(1, 1, [dev])}
+    tiers = {"hard": dict(), "soft": dict(trellis="soft"),
+             "soft-i8": dict(trellis="soft-i8"), "ntsc": dict(trellis="ntsc"),
+             "adaptive": dict(equalizer="adaptive")}
+    per_field = {"hard": ("eq_fir_fused",), "soft": ("eq_fir_fused", "acs_forward", "traceback"),
+                 "soft-i8": ("eq_fir_fused", "acs_forward", "traceback"),
+                 "ntsc": ("eq_fir_fused", "pr_acs_forward", "pr_traceback"),
+                 "adaptive": ()}
+    window_len, placed = None, {}
+    out = {}
+    for tier, kw in tiers.items():
+        res = {}
+        for key, mesh in meshes.items():
+            rx = ShardedReceiver(mesh, batch=B_FULL, fields_per_device=t // mesh.shape["time"],
+                                 **kw)
+            if rx.window != window_len:     # one window geometry on the card at a time
+                placed.clear()
+                torch.cuda.empty_cache()
+                window_len, (wins, oscs) = rx.window, rx.windows_iq(iq)
+                placed = {k: (put_global(wins, m, WIN_SPEC), put_global(oscs, m, OSC_SPEC))
+                          for k, m in meshes.items()}
+                del wins, oscs
+            w, o = placed[key]
+            init = rx._state
+
+            def step():
+                rx._state = init
+                cw, syn = rx.step(w, o, 0)
+                return _correct_and_derand(rx, mesh, cw, syn)
+
+            before = _every_count()
+            got, _ = step()
+            launches = {k: v for k, v in _since(before).items() if v}
+            got_ts = gather(got, mesh, FIELDS_SPEC)
+            exact = all(np.array_equal(got_ts[k + 1], ts[k]) for k in range(t - 1))
+            uncorrectable = rx.segments_uncorrectable
+            ms = _steps_ms(step)
+            res[key] = {"ms_per_step": ms, "launches": launches, "ts_exact": exact,
+                        "segments_uncorrectable": uncorrectable}
+            check(exact, f"{tier} on the {key} mesh: TS differs from the sent TS")
+            for k in per_field[tier]:   # one launch a field of each channel shard
+                check(launches.get(k) == t * mesh.shape["ch"],
+                      f"{tier} on {key}: launches {launches}")
+            del rx, got, init
+        out[tier] = res
+        emit("sharded_receive", batch=B_FULL, tier=tier, fields_per_step=t,
+             note="4 shards on one card; not a scaling figure", **res)
+    placed.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sample_sharded(golden, dev) -> None:
+    """Phase 35: SampleShardedFilter over 4 shards on the one card (the
+    overlap-save halo through device copies): golden's 4 fields within
+    5e-6 of golden's IQ."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.parallel.mesh import Mesh
+    from atsc_tpu_torch.parallel.sample_shard import SP_AXIS, SampleShardedFilter
+    from atsc_tpu_torch.tables.oscillator import phasor_for_field
+
+    lev = golden["sync"].real.astype(np.float32)[:, : P.SYMBOLS_PER_FIELD]
+    ph = np.asarray([[np.float32(z.real), np.float32(z.imag)]
+                     for z in map(phasor_for_field, range(4))], np.float32)
+    filt = SampleShardedFilter(Mesh([dev] * 4, (SP_AXIS,)))
+    got, ms = _cuda_ms(lambda: filt(lev, ph, np.asarray([0, 1, 0, 1])))
+    got = got.cpu().numpy()
+    err = float(np.abs(got[..., 0] + 1j * got[..., 1] - golden["iq"]).max())
+    emit("sample_sharded", shards=4, fields=4, max_abs_err=err, tolerance=5e-6, ms=ms)
+    check(err < 5e-6, f"sample-sharded filter vs golden {err} >= 5e-6")
+
+
+def mesh_cli(dev, tmp: str) -> None:
+    """Phase 36: cli.main in this process, `encode --mesh 2x2` of a
+    4-channel cs8 stream (bytes equal the plain encode's), then `decode
+    --mesh 2x2 --checkpoint` of that capture stopped at --max-fields and
+    resumed (the TS equals the plain decode's and the sent TS)."""
+    import numpy as np
+
+    from atsc_tpu_torch import params as P
+
+    ts = _host_ts(np.random.default_rng(36), MESH_CLI_FIELDS)
+    src = os.path.join(tmp, "mesh_in.ts")
+    ts.tofile(src)
+    enc = [src, "-c", "4", "--format", "cs8", "--stats", "-o"]
+    rc0, _, _ = _cli([*enc, os.path.join(tmp, "plain.cs8")])
+    before = _every_count()
+    rc1, stats, wall = _cli([*enc, os.path.join(tmp, "mesh.cs8"), "--mesh", "2x2",
+                             "--fields-per-step", "4"])
+    enc_launches = _since(before)["offset_fir_fused"]
+    same_enc = _digest([os.path.join(tmp, "plain.cs8")]) == _digest([os.path.join(tmp, "mesh.cs8")])
+    cap = os.path.join(tmp, "mesh.cs8")
+    dec = ["decode", cap, "-c", "4", "--format", "cs8", "--stats", "-o"]
+    rc2, plain_stats, _ = _cli([*dec, os.path.join(tmp, "plain.ts")])
+    out, ck = os.path.join(tmp, "mesh.ts"), os.path.join(tmp, "mesh_rx.npz")
+    mesh_flags = ["--mesh", "2x2", "--fields-per-step", "4", "--checkpoint", ck,
+                  "--checkpoint-every", "1"]
+    before = _every_count()
+    rc3, first, _ = _cli([*dec, out, *mesh_flags, "--max-fields", "3"])
+    rc4, rest, dwall = _cli([*dec, out, *mesh_flags, "--resume"])
+    dec_launches = _since(before)["eq_fir_fused"]
+    with open(out, "rb") as fh:
+        got = fh.read()
+    with open(os.path.join(tmp, "plain.ts"), "rb") as fh:
+        plain = fh.read()
+    sent = np.repeat(ts[: MESH_CLI_FIELDS - 1, None], 4, axis=1).tobytes()
+    emit("mesh_cli", encode_rc=rc1, encode_stats=stats, encode_wall_s=wall,
+         encode_launches=enc_launches, encode_bytes_equal=same_enc, decode_rcs=[rc3, rc4],
+         first=first, resumed=rest, decode_wall_s=dwall, decode_launches=dec_launches,
+         ts_equal_plain=got == plain, ts_equal_sent=got == sent)
+    check(rc0 == rc1 == rc2 == rc3 == rc4 == 0, "a --mesh CLI run failed")
+    check(same_enc, "encode --mesh 2x2 bytes differ from the plain encode's")
+    steps = MESH_CLI_FIELDS // 4     # 4 fields a step, one launch a shard
+    check(stats["devices"] == [str(dev)] * 4 and enc_launches == steps * 4,
+          f"encode --mesh: {stats}, {enc_launches} offset_fir_fused launches")
+    check(got == plain == sent, "decode --mesh (stopped and resumed) TS differs")
+    check(first["fields_decoded"] == 3 and rest["fields_decoded"] == MESH_CLI_FIELDS - 1
+          and rest["devices"] == [str(dev)] * 4 and dec_launches > 0,
+          f"decode --mesh: {first}, {rest}, {dec_launches} eq launches")
+    check(plain_stats["fields_decoded"] == MESH_CLI_FIELDS - 1, f"plain decode {plain_stats}")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def two_process_tools(dev, tmp: str) -> dict:
+    """Phase 37: two processes of tools/torch_distributed_encode.py, then
+    two of torch_distributed_decode.py, each with two shards on the one
+    card and `--backend gloo` (NCCL refuses two ranks on one card), 4
+    channels: every channel's IQ equals the sequential Encoder's on the
+    card byte for byte, and the decode gives back the sent TS."""
+    import numpy as np
+
+    from atsc_tpu_torch.models.encoder import Encoder, iq_interleave
+
+    ts = _host_ts(np.random.default_rng(37), TOOL_FIELDS * 4).reshape(TOOL_FIELDS, 4, -1)
+    paths = []
+    for c in range(4):
+        paths.append(os.path.join(tmp, f"tool_in{c}.ts"))
+        ts[:, c].tofile(paths[-1])
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def run(tool: str, *args) -> tuple[list, float]:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", tool), *args,
+             "--coordinator", f"localhost:{port}", "--num-processes", "2",
+             "--process-id", str(i), "--backend", "gloo", "--device", f"{dev},{dev}",
+             "-c", "4", "--fields-per-step", "2"],
+            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        for i, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"{tool} process {i} exited {p.returncode}:\n{o[-3000:]}")
+            check(f"process {i}: backend gloo" in o, f"{tool} process {i}: {o[-2000:]}")
+        return [o.strip().splitlines()[-1] for o in outs], wall
+
+    enc_out, enc_wall = run("torch_distributed_encode.py", *paths,
+                            "-o", os.path.join(tmp, "tool_iq{ch}.cf32"))
+    seq = Encoder(batch=4, device=dev).encode_many(ts).cpu().numpy()
+    iq_same = True
+    for c in range(4):
+        with open(os.path.join(tmp, f"tool_iq{c}.cf32"), "rb") as fh:
+            iq_same &= fh.read() == iq_interleave(seq[:, c]).tobytes()
+    dec_out, dec_wall = run("torch_distributed_decode.py", os.path.join(tmp, "tool_iq{ch}.cf32"),
+                            "-o", os.path.join(tmp, "tool_ts{ch}.ts"))
+    ts_same = True
+    for c in range(4):
+        got = np.fromfile(os.path.join(tmp, f"tool_ts{c}.ts"), np.uint8).reshape(-1, ts.shape[-1])
+        ts_same &= np.array_equal(got, ts[: TOOL_FIELDS - 1, c])
+    emit("two_process_tools", backend="gloo", processes=2, shards_per_process=2,
+         encode=enc_out, encode_wall_s=enc_wall, iq_equal_sequential=iq_same,
+         decode=dec_out, decode_wall_s=dec_wall, ts_equal_sent=ts_same)
+    check(iq_same, "the two-process encode's IQ differs from the sequential Encoder's")
+    check(ts_same, "the two-process decode's TS differs from the sent TS")
+    return {"encode_wall_s": enc_wall, "decode_wall_s": dec_wall}
 
 
 if __name__ == "__main__":

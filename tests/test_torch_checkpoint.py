@@ -604,17 +604,18 @@ def test_cli_realtime_pace(tmp_path, monkeypatch, flags, pace):
 
 
 def test_encoder_config_matches_jax():
-    """EncoderConfig's fields are the JAX package's, with its defaults, but
-    the multi-device ones (they wait for --mesh); validate() raises
-    ValueError on what the JAX one asserts against."""
+    """EncoderConfig's fields are the JAX package's, the multi-device ones
+    (fields_per_step, n_time, n_ch) included, with its defaults;
+    validate() raises ValueError on what the JAX one asserts against."""
     import dataclasses
 
     port = {f.name: f.default for f in dataclasses.fields(EncoderConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(jconfig.EncoderConfig)}
-    assert set(port) == set(ref) - {"fields_per_step", "n_time", "n_ch"}
-    assert port == {k: ref[k] for k in port}
+    assert port == ref
     assert EncoderConfig(channels=4, out_format="cs8").validate().channels == 4
-    for kw in (dict(channels=0), dict(out_format="cs4")):
+    assert EncoderConfig(channels=4, n_time=2, n_ch=2).validate().n_ch == 2
+    for kw in (dict(channels=0), dict(out_format="cs4"), dict(channels=3, n_ch=2),
+               dict(fields_per_step=0)):
         with pytest.raises(ValueError):
             EncoderConfig(**kw).validate()
         with pytest.raises(AssertionError):

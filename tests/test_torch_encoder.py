@@ -242,14 +242,20 @@ def test_cli_accepts_flags_without_effect(tmp_path, flag):
                                   ["-o", "soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"],
                                   ["-o", "soapy:lime"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, monkeypatch, flag):
-    """--mesh, with or without --fields-per-step, is refused as not yet
-    ported (exit 2). The soapy sink is ported: where the SoapySDR bindings
-    are absent it stops with the JAX package's RuntimeError, output-less."""
+    """--mesh, with or without --fields-per-step, now does what the JAX
+    CLI does: it encodes, over 2 time shards (on the one CPU device), and
+    the bytes equal the plain encode's, as the JAX CLI's sharded encode
+    equals its plain one. The soapy sink is ported: where the SoapySDR
+    bindings are absent it stops with the JAX package's RuntimeError,
+    output-less."""
     if "--mesh" in flag:
-        with pytest.raises(SystemExit) as exc:
-            pt_cli.main([str(tmp_path / "in.ts"), "--device", "cpu", *flag])
-        assert exc.value.code == 2
-        assert "not yet ported" in capsys.readouterr().err
+        ts_path = tmp_path / "in.ts"
+        _random_ts(27, (3, P.FIELD_TS_BYTES)).tofile(ts_path)
+        base = [str(ts_path), "--format", "cs8", "--device", "cpu", "-o"]
+        assert pt_cli.main([*base, str(tmp_path / "plain.iq")]) == 0
+        assert pt_cli.main([*base, str(tmp_path / "mesh.iq"), *flag]) == 0
+        assert (tmp_path / "mesh.iq").read_bytes() == (tmp_path / "plain.iq").read_bytes()
+        assert "encode --mesh: 2 shards on 1 cpu device(s)" in capsys.readouterr().err
         return
     monkeypatch.setitem(sys.modules, "SoapySDR", None)   # the import fails
     ts_path = tmp_path / "in.ts"

@@ -214,10 +214,12 @@ def test_receiver_chunked_matches_jax(noisy):
                                   ["--mesh", "2x1", "--fields-per-step", "2"],
                                   ["soapy", "-d", "hackrf", "-f", "615e6", "-g", "40"]])
 def test_cli_decode_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    """Refused as not yet ported, exit 2: --mesh, with or without the flag
-    that acts only with it (--fields-per-step). The soapy source, given as
-    the input with -d/-f/-g, is ported: where the SoapySDR bindings are
-    absent it stops with the JAX package's RuntimeError."""
+    """--mesh, with or without the flag that acts with it
+    (--fields-per-step), now does what the JAX CLI does: it decodes a
+    2-field cs8 capture over 2 time shards (on the one CPU device) to the
+    plain decode's TS. The soapy source, given as the input with -d/-f/-g,
+    is ported: where the SoapySDR bindings are absent it stops with the
+    JAX package's RuntimeError."""
     from atsc_tpu_torch import cli as tcli
 
     if flag[0] == "soapy":
@@ -225,11 +227,18 @@ def test_cli_decode_refuses_unported_flags(flag, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="decode from a capture file instead"):
             tcli.main(["decode", "--device", "cpu", "-o", str(tmp_path / "o.ts"), *flag])
         return
+    ts = _random_ts(np.random.default_rng(33), 2, 1)[:, 0]
+    src, cap = tmp_path / "in.ts", tmp_path / "cap.cs8"
+    ts.tofile(src)
+    assert tcli.main([str(src), "--format", "cs8", "-o", str(cap), "--device", "cpu"]) == 0
+    base = ["decode", str(cap), "--format", "cs8", "--device", "cpu", "-o"]
+    assert tcli.main([*base, str(tmp_path / "plain.ts")]) == 0
     err = io.StringIO()
-    with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
-        tcli.main(["decode", str(tmp_path / "x.iq"), "--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert "not yet ported" in err.getvalue()
+    with contextlib.redirect_stderr(err):
+        assert tcli.main([*base, str(tmp_path / "mesh.ts"), *flag]) == 0
+    assert (tmp_path / "mesh.ts").read_bytes() == (tmp_path / "plain.ts").read_bytes()
+    assert (tmp_path / "mesh.ts").read_bytes() == ts[:1].tobytes()
+    assert "decode --mesh: 2 shards on 1 cpu device(s)" in err.getvalue()
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "c.npz"], ["--profile", "d"],
