@@ -1,0 +1,8 @@
+"""Device ms a field of the kernels launched inside `Encoder.encode` (its
+TS upload is a copy, not counted)."""
+
+
+def read(r):
+    if r.trace is None or not r.trace.fields or not r.trace.in_window():
+        return None
+    return 1e3 * r.trace.device_s("encode") / r.trace.fields
