@@ -8,9 +8,11 @@ decoder, dead code there):
 * `syndrome_field` — "is this field clean?" is GF(2)-linear, so the
   syndrome bits are codeword_bits @ S (mod 2), one product for all 312
   segments of every channel.
-* `rs_correct_field` — the errors-only decode as fixed-shape, branch-free
-  arithmetic over all (B, 312) segments at once: GF(256) multiply and
-  inverse as lookups in 64K/256-entry tables, the inversionless
+* `rs_correct_field` — the errors-only decode. On the card, one hand
+  kernel (csrc/rs_correct.cu) that decodes only the dirty segments; its
+  plain twin `rs_correct_field_plain` (the CPU path) is fixed-shape,
+  branch-free arithmetic over all (B, 312) segments at once: GF(256)
+  multiply and inverse as lookups in 64K/256-entry tables, the inversionless
   Berlekamp-Massey (RiBM) in 20 fixed rounds, and the Chien search and
   Forney evaluations as GF(2) bit products against precomputed matrices.
   (The JAX package multiplies by an 8-round carryless shift/XOR and
@@ -37,6 +39,7 @@ import torch
 
 from atsc_tpu_torch import params as P
 from atsc_tpu_torch.ops._const import const
+from atsc_tpu_torch.ops.cuda.rs_correct import rs_correct as rs_correct_kernel
 from atsc_tpu_torch.tables.galois import gf_mul, gf_tables
 
 _NROOTS = P.RS_BYTES
@@ -316,7 +319,22 @@ def rs_correct_field(
     the same codewords; any leading batch shape). Returns (corrected
     (..., 207) uint8, n_errors (...,) int32): n >= 0 bytes corrected, -1
     uncorrectable (codeword returned unchanged).
+
+    A CUDA tensor goes to the hand kernel (ops/cuda/rs_correct.py), which
+    decodes only the segments whose syndromes are not zero; any other to
+    rs_correct_field_plain. Both give the same bytes and counts.
     """
+    if codewords.is_cuda:
+        return rs_correct_kernel(codewords, syn)
+    return rs_correct_field_plain(codewords, syn)
+
+
+def rs_correct_field_plain(
+    codewords: torch.Tensor, syn: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """rs_correct_field in plain PyTorch ops, fixed-shape and branch-free
+    over every segment: the CPU path, and the oracle the kernel is held
+    against on the card."""
     s = syn.to(torch.int32)
     cw = codewords.to(torch.int32)
 

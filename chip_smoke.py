@@ -14,7 +14,8 @@ Phases, one JSON line each; any failed check exits non-zero:
 1. device: name, compute capability (must be 9.0), nvidia-smi's name and
    power limit; TF32 is switched off for matmul and cuDNN.
 2. build: nvcc builds csrc/offset_fir.cu, eq_fir.cu, viterbi_acs.cu,
-   trellis_fused.cu and fir_variants.cu from this checkout, all at once;
+   trellis_fused.cu, fir_variants.cu and rs_correct.cu from this checkout,
+   all at once;
    seconds and ptxas' resource lines; the RRC taps load on the chosen card.
    After that and after each wrapper's first launches (phases 3, 7, 12, 17
    and 18) the current CUDA device must still be the chosen one.
@@ -239,6 +240,13 @@ Phases, one JSON line each; any failed check exits non-zero:
    two shards each on the one card, `--backend gloo` named and printed
    (NCCL refuses two ranks on one card): every channel's IQ the
    sequential Encoder's bytes, the decoded TS the sent TS.
+38. rs_correct: csrc/rs_correct.cu against rs_correct_field_plain on the
+   card, bytes and counts bit for bit, at B=384 on a hard field at 24 dB, a
+   soft field at 15 dB and that hard field with 1-12 byte errors put into
+   every 37th segment (some uncorrectable); Decoder.decode and
+   SoftDecoder.decode over those captures launch the kernel and return the
+   sent TS; the kernel's ms on the noisy and on a clean field beside its
+   bound (the bytes), and one run of the twin.
 
 Then the kernels line (offset_fir_fused, eq_fir_fused and the four
 Viterbi kernels also carry `design`, a string fixed here beside the
@@ -330,6 +338,11 @@ FIR_VARIANTS_DESIGN = ("3 x TF32 mma.sync.m16n8k8, the k-steps of zero tap block
                        "memory, 4 warps of 16 rows x 4 n-tiles, raw rows of the next 16-row "
                        "tile by cp.async, 3 blocks an SM (2 with separate modulation)")
 # csrc/fir_variants.cu
+RS_DESIGN = ("a warp of 32 segments, one a lane: a ballot of the dirty lanes, the warp's 6,624 "
+             "bytes copied as 16-byte vectors, then each dirty segment decoded by the whole "
+             "warp (Berlekamp-Massey with a coefficient a lane and shuffle-XOR discrepancies, "
+             "Chien/Forney over 7 positions a lane, the check syndromes reduced over the "
+             "warp); GF(256) log/exp tables in shared memory")   # csrc/rs_correct.cu
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, the published peaks
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -422,6 +435,7 @@ def main() -> int:
     from atsc_tpu_torch.ops.cuda import eq_fir as eqk
     from atsc_tpu_torch.ops.cuda import fir_variants as fvk
     from atsc_tpu_torch.ops.cuda import offset_fir as fir
+    from atsc_tpu_torch.ops.cuda import rs_correct as rsk
     from atsc_tpu_torch.ops.cuda import trellis_fused as tfk
     from atsc_tpu_torch.ops.cuda import viterbi_acs as vk
     from atsc_tpu_torch.ops.quantize import unpack_wire
@@ -450,7 +464,8 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together -------------------
     t0 = time.perf_counter()
-    sources = ("offset_fir", "eq_fir", "viterbi_acs", "trellis_fused", "fir_variants")
+    sources = ("offset_fir", "eq_fir", "viterbi_acs", "trellis_fused", "fir_variants",
+               "rs_correct")
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
         futures = {k: pool.submit(_build.build, k) for k in sources}
         builds = {k: f.result() for k, f in futures.items()}
@@ -459,6 +474,7 @@ def main() -> int:
     vk._kernel_lib(dev.index)
     tfk._kernel_lib()
     fvk._kernel_lib()
+    rsk._kernel_lib()
     wall = time.perf_counter() - t0
     device_kept(dev, "the tap load")
     for kname, built in builds.items():
@@ -766,6 +782,10 @@ def main() -> int:
     for k in chunked["launches"]:
         chunked["launches"][k] += slice_launches[k] + sdr_launches[k] + mesh_launches[k]
 
+    # -- 38. RS correction's kernel -------------------------------------------
+    rs = rs_correct_phase(dev)
+    device_kept(dev, "rs_correct")
+
     print(json.dumps({"kernels": [
         {
             "name": "offset_fir_fused",
@@ -828,6 +848,8 @@ def main() -> int:
          "launches_phases_28_29": slice_launches["fir_variants"],
          "launches_phases_30_32": sdr_launches["fir_variants"],
          "launches_phases_33_37": mesh_launches["fir_variants"], **variants},
+        {"name": "rs_correct", "route": "cuda", "source": "atsc_tpu_torch/csrc/rs_correct.cu",
+         "replaces": None, "design": RS_DESIGN, **rs},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -3964,6 +3986,114 @@ def two_process_tools(dev, tmp: str) -> dict:
     check(iq_same, "the two-process encode's IQ differs from the sequential Encoder's")
     check(ts_same, "the two-process decode's TS differs from the sent TS")
     return {"encode_wall_s": enc_wall, "decode_wall_s": dec_wall}
+
+
+def rs_correct_phase(dev) -> dict:
+    """Phase 38: csrc/rs_correct.cu against rs_correct_field_plain on the
+    card, bit for bit (bytes and counts), at B=384: a hard field at 24 dB,
+    a soft field at 15 dB and the hard field with 1-12 byte errors put into
+    every 37th segment; the launches inside Decoder.decode and
+    SoftDecoder.decode over those captures, whose TS must be the sent TS;
+    the kernel's ms on the noisy and on a clean field beside its bound, and
+    one run of the twin."""
+    import numpy as np
+    import torch
+
+    from atsc_tpu_torch import params as P
+    from atsc_tpu_torch.models.decoder import (
+        Decoder,
+        SoftDecoder,
+        decode_field,
+        init_decoder_state,
+        init_soft_decoder_state,
+        soft_decode_field,
+    )
+    from atsc_tpu_torch.models.receiver import EQ_PROFILES, device_eq_step
+    from atsc_tpu_torch.ops.cuda import rs_correct as rsk
+    from atsc_tpu_torch.ops.cuda.eq_fir import WIN_LEN
+    from atsc_tpu_torch.ops.rs_decode import rs_correct_field_plain, syndrome_field
+
+    n = P.SYMBOLS_PER_FIELD
+    eq_k, _ = EQ_PROFILES["fast"]
+    n_fields = 3
+    ts = _random_ts_dev(dev, n_fields + 1, 3838)
+    clean = _stream_planes(dev, ts, eq_k)
+    oscs = _field_oscs(dev, n_fields, eq_k)
+    p_sig = float(clean.pow(2).sum(dim=1).mean())
+    gen = torch.Generator(dev).manual_seed(38)
+    tiers = {}
+    for name, snr, soft in (("hard_24db", 24.0, False), ("soft_15db", 15.0, True)):
+        sigma = (p_sig / 10 ** (snr / 10) / 2) ** 0.5
+        x = clean + sigma * torch.randn(clean.shape, generator=gen, device=dev)
+        step = device_eq_step(soft, 1.0, "fast")
+        tiers[name] = (soft, [step(x[..., k * n : k * n + WIN_LEN].contiguous(), oscs[k])
+                              for k in range(n_fields)])
+        del x
+    del clean
+
+    cases, held = {}, {}
+    for name, (soft, levs) in tiers.items():
+        state = (init_soft_decoder_state if soft else init_decoder_state)(B_FULL, device=dev)
+        for k in range(2):   # field 1 gives RS field 0's codewords
+            state, cw, syn = (soft_decode_field if soft else decode_field)(state, levs[k])
+        cases[name] = (cw, syn)
+    cw, _ = cases["hard_24db"]
+    rng = np.random.default_rng(3838)
+    bad = cw.reshape(-1, P.SEGMENT_FEC_BYTES).clone()
+    segs = np.arange(0, bad.shape[0], 37)
+    errs = 1 + np.arange(len(segs)) % 12
+    rows = np.repeat(segs, errs)
+    cols = np.concatenate([rng.choice(P.SEGMENT_FEC_BYTES, size=k, replace=False) for k in errs])
+    vals = rng.integers(1, 256, size=len(rows), dtype=np.uint8)
+    bad[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] ^= torch.from_numpy(
+        vals).to(dev)
+    bad = bad.reshape(cw.shape)
+    cases["injected_1_12"] = (bad, syndrome_field(bad))
+    for name, (cw, syn) in cases.items():
+        got = rsk.rs_correct(cw, syn)
+        want = rs_correct_field_plain(cw, syn)
+        torch.cuda.synchronize()
+        nk = want[1]
+        held[name] = {
+            "identical": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+            "dirty": int((syn != 0).any(dim=-1).sum()),
+            "corrected": int((nk > 0).sum()), "uncorrectable": int((nk < 0).sum()),
+        }
+
+    decoders = {}
+    for name, (soft, levs) in tiers.items():
+        dec = (SoftDecoder if soft else Decoder)(batch=B_FULL, device=dev)
+        before = rsk.LAUNCHES
+        outs = [dec.decode(lev) for lev in levs]   # the first, the pre-start field, dropped
+        exact = all(np.array_equal(outs[k][0], ts[k - 1].cpu().numpy())
+                    and (outs[k][1] >= 0).all() for k in range(1, n_fields))
+        decoders[name] = {"decoder": type(dec).__name__, "fields": n_fields,
+                          "launches": rsk.LAUNCHES - before, "ts_exact": exact,
+                          "segments_corrected": dec.segments_corrected,
+                          "segments_uncorrectable": dec.segments_uncorrectable}
+    del tiers
+
+    cw, syn = cases["hard_24db"]
+    fixed, _ = rs_correct_field_plain(cw, syn)
+    zero = torch.zeros_like(syn)
+    kernel_ms = timed(lambda: rsk.rs_correct(cw, syn), reps=20)
+    clean_ms = timed(lambda: rsk.rs_correct(fixed, zero), reps=20)
+    _, plain_ms = _cuda_ms(lambda: rs_correct_field_plain(cw, syn))
+    nseg = cw.numel() // P.SEGMENT_FEC_BYTES
+    nbytes = nseg * (2 * P.SEGMENT_FEC_BYTES + P.RS_BYTES + 4)
+    bound = _bound(nbytes, 0.0)
+    emit("rs_correct", batch=B_FULL, segments=nseg, cases=held, decoders=decoders,
+         kernel_ms=kernel_ms, clean_ms=clean_ms, plain_ms=plain_ms, bytes=nbytes, **bound)
+    for name, h in held.items():
+        check(h["identical"], f"rs_correct kernel differs from rs_correct_field_plain ({name})")
+    check(held["injected_1_12"]["uncorrectable"] > 0,
+          "the injected 11-12-error segments left no uncorrectable segment")
+    for name, d in decoders.items():
+        check(d["launches"] > 0, f"{d['decoder']}.decode did not launch the rs_correct kernel")
+        check(d["ts_exact"], f"{d['decoder']} ({name}) did not return the sent TS")
+    return {"launches": sum(d["launches"] for d in decoders.values()),
+            "cases": held, "ms": kernel_ms, "clean_ms": clean_ms, "plain_ms": plain_ms,
+            **bound}
 
 
 if __name__ == "__main__":

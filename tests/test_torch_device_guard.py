@@ -164,4 +164,4 @@ def test_c_entry_points_restore_the_callers_device():
     with open(os.path.join(csrc, "device_guard.cuh")) as fh:
         guard = fh.read()
     assert "cudaGetDevice(&prev_)" in guard and "cudaSetDevice(prev_)" in guard
-    assert entries == 14   # 10, and the 4 chunked Viterbi entry points
+    assert entries == 15   # 11, and the 4 chunked Viterbi entry points
